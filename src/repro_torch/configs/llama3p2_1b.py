@@ -1,0 +1,20 @@
+"""llama3.2-1b [dense] — small llama3.
+16L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=128256.
+[hf:meta-llama/Llama-3.2-1B]
+"""
+from repro_torch.core.types import AttentionSpec, ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-1b",
+    num_layers=16,
+    d_model=2048,
+    num_heads=32, num_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=128256,
+    layer_pattern=("attn",),
+    attention=AttentionSpec(kind="dense", causal=True),
+    rope_theta=500_000.0,
+    tie_embeddings=True,
+    norm_eps=1e-5,
+)

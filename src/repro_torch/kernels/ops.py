@@ -1,0 +1,150 @@
+"""Public attention ops (the port of the JAX package's `kernels/ops.py`).
+
+Implementations (impl=):
+  kernel  - the hand-written CUDA kernels (`swat_attention.py`,
+            `swat_decode.py`). For CUDA tensors they launch the kernel or
+            raise; for CPU tensors the wrappers run their plain versions.
+            The default for CUDA tensors.
+  banded  - the plain exact-band PyTorch version (twin of the JAX
+            package's `_xla_banded`). The default for CPU tensors.
+  ref     - O(N^2) masked reference (tests, tiny shapes).
+
+"banded" and "ref" run wherever their tensors lie; a caller names them
+explicitly to hold the kernel path against the plain path (the CPU tests,
+chip_smoke.py's end-to-end phase). The engine and the launcher never pass
+`impl`, so on the card they always run the kernels.
+
+Global tokens (Longformer) are composed here as in the JAX package: the
+band+global-column pass covers every non-global row; a second dense pass
+over the first g rows replaces their output.
+
+Only the forward is ported: the autograd Function and its backward kernels
+belong to the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.core import patterns
+from repro_torch.core.types import AttentionSpec
+from repro_torch.kernels import ref as ref_impl
+from repro_torch.kernels import swat_attention as fwd_mod
+from repro_torch.kernels import swat_decode as dec_mod
+
+NEG_INF = fwd_mod.NEG_INF
+IMPLS = ("kernel", "banded", "ref")
+
+
+@functools.lru_cache(maxsize=512)
+def get_pattern(spec: AttentionSpec, seq_q: int, seq_kv: int,
+                block_q: int, block_kv: int) -> patterns.BlockPattern:
+    return patterns.build_block_pattern(spec, seq_q, seq_kv, block_q, block_kv)
+
+
+def default_impl(t: torch.Tensor) -> str:
+    """"kernel" for CUDA tensors, "banded" for CPU tensors."""
+    return "kernel" if t.is_cuda else "banded"
+
+
+def _resolve(impl: Optional[str], t: torch.Tensor) -> str:
+    impl = default_impl(t) if impl is None else impl
+    if impl not in IMPLS:
+        raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
+    return impl
+
+
+def swat_attention(q, k, v, spec: AttentionSpec, *,
+                   block_q: int = 128, block_kv: int = 128,
+                   scale: Optional[float] = None,
+                   impl: Optional[str] = None) -> torch.Tensor:
+    """Fused window/global/random attention. q: (B, Hq, Lq, D);
+    k, v: (B, Hkv, Lkv, D). Forward only."""
+    lq, lkv, d = q.shape[2], k.shape[2], q.shape[3]
+    scale = float(d ** -0.5 if scale is None else scale)
+    impl = _resolve(impl, q)
+    pat = get_pattern(spec, lq, lkv, block_q, block_kv)
+    if impl == "ref":
+        return ref_impl.attention_ref(q, k, v, spec, pattern=pat, scale=scale)
+
+    def run(qq, sp, pp):
+        if impl == "kernel":
+            return fwd_mod.swat_attention_fwd(qq, k, v, sp, pattern=pp,
+                                              scale=scale)
+        return fwd_mod.banded_plain(qq, k, v, sp, pp, scale)
+
+    out = run(q, spec, pat)
+    g = spec.num_global
+    if spec.is_sparse and g > 0:
+        # dense pass for global rows (paper §4.1's pinned global cores)
+        gspec = dataclasses.replace(spec, kind="dense", window=0,
+                                    num_global=0, num_random=0)
+        gpat = get_pattern(gspec, g, lkv, block_q, block_kv)
+        og = run(q[:, :, :g].contiguous(), gspec, gpat)
+        out = torch.cat([og, out[:, :, g:]], dim=2)
+    return out
+
+
+def _per_slot(x, b: int, device) -> torch.Tensor:
+    """Scalar / (B,) / (B,1,1,1) spellings -> (B,) int32 on `device`."""
+    x = torch.as_tensor(x, device=device).to(torch.int32)
+    x = x.reshape(()) if x.numel() == 1 else x.reshape(b)
+    return x.expand(b).contiguous()
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, spec: AttentionSpec, *,
+                     scale: Optional[float] = None, impl: Optional[str] = None,
+                     new_kv=None, num_new=None, pos=None,
+                     ring_cap: Optional[int] = None):
+    """Fused decode of T >= 1 tokens vs a ring KV cache. q: (B, Hq, T, D);
+    caches (B, Hkv, W, D); new_kv = (k_new, v_new), each (B, Hkv, T, D).
+    The step's K/V rows are inserted at their ring slots AND attended in
+    the same call. `pos` (required) counts tokens BEFORE the insert;
+    `num_new` optionally limits how many of the T rows are real per slot.
+    `ring_cap` is the LOGICAL rotation modulus (defaults to the cache
+    width). Returns (out, k_cache, v_cache): the caches are the given
+    tensors, updated IN PLACE for every impl (where the JAX engine donated
+    them).
+
+    Only the fused mode is ported; the plain mode (new_kv=None) is a later
+    slice and raises NotImplementedError."""
+    if new_kv is None:
+        raise NotImplementedError(
+            "decode_attention without new_kv (plain decode) is not ported")
+    b, _, t, _ = q.shape
+    w_phys = k_cache.shape[2]
+    cap = w_phys if ring_cap is None else int(ring_cap)
+    g = spec.num_global if spec.is_sparse else 0
+    if pos is None:
+        raise ValueError("fused insert needs per-slot `pos`")
+    if t > cap - g:
+        raise ValueError(
+            f"{t} new tokens would overwrite each other in a {cap - g}-row "
+            "ring: allocate the cache with lookahead >= T-1")
+    if t > 1 and spec.is_sparse and spec.window and cap - g < spec.window + t:
+        raise ValueError(
+            f"T={t} fused decode on a {cap - g}-row ring would evict tokens "
+            "still inside early queries' windows (sequential equivalence "
+            "needs ring >= window + T): allocate with lookahead >= T-1")
+    impl = _resolve(impl, q)
+    dev = q.device
+    pos = _per_slot(pos, b, dev)
+    nn = (torch.full((b,), t, dtype=torch.int32, device=dev)
+          if num_new is None else _per_slot(num_new, b, dev))
+    k_new, v_new = new_kv
+    k_new = k_new.to(k_cache.dtype).contiguous()
+    v_new = v_new.to(v_cache.dtype).contiguous()
+    if impl == "kernel":
+        out = dec_mod.swat_decode_fused(q.contiguous(), k_cache, v_cache,
+                                        k_new, v_new, pos, nn, spec,
+                                        ring_cap=cap, scale=scale)
+        return out, k_cache, v_cache
+    out, kn, vn = dec_mod.swat_decode_fused_plain(
+        q, k_cache, v_cache, k_new, v_new, pos, nn, spec, ring_cap=cap,
+        scale=scale)
+    k_cache.copy_(kn)
+    v_cache.copy_(vn)
+    return out, k_cache, v_cache
