@@ -27,6 +27,24 @@ each of which raises on failure:
                beside the least time the card could take.
   6. trace   - torch.profiler over a short serve run: the device's busy
                share of the wall time and device time by kernel category.
+  7. backward - the dQ and dK/dV kernels against their plain version at the
+               training shapes (B=4, Hq=32, Hkv=8, L=2048, D=64, window
+               256, 4 globals, causal; plus group 1 and 8, softcap 30,
+               random blocks, the longformer-paper bidirectional spec and
+               the global-row pass), bf16 and fp32; two launches bitwise
+               equal; autograd through ops.swat_attention, kernel against
+               banded, both passes composed.
+  8. train   - full-width llama3.2-1b + SWAT, bf16, 6 AdamW steps (lr
+               3e-5) of 4 x 2048 tokens (remat "nothing"): losses finite
+               and falling, launch counts of all three attention kernels.
+  9. train e2e - one loss/grad at full width and 4 layers, kernel path
+               against the plain path.
+ 10. resume  - the smoke config trained 8 steps uninterrupted and with a
+               failure at step 6 resumed from the step-4 checkpoint give
+               bitwise-equal params (deterministic algorithms).
+ 11. train times - the backward kernels, their plain version and SDPA's
+               backward at the training shapes, the unembed product, and a
+               profiled train step split by kernel category.
 
 Prints the kernels JSON line and the card line, then as its last line
 {"ok": true, "device": {...}}.
@@ -36,6 +54,10 @@ import os
 import subprocess
 import sys
 import time
+
+# cuBLAS is deterministic only with a fixed workspace; set before the first
+# cuBLAS call (the resume drill runs under torch.use_deterministic_algorithms)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
@@ -52,6 +74,24 @@ LOGIT_BOUND = 0.25          # bf16 kernel path vs plain path, max |dlogit|
 AGREE_BOUND = 0.75          # greedy agreement, kernel vs plain path
 SPIN_CYCLES = 40_000_000    # ~20 ms at the H100's ~2 GHz: covers the host
                             # time of enqueuing the slowest plain version
+
+# lr 3e-5: at 3e-4 AdamW's first sign-sized updates on the random init
+# push the loss up before it falls (12.155 -> 12.330 over the 6 steps)
+TRAIN = dict(b=4, seq=2048, steps=6, lr=3e-5, warmup=2, e2e_layers=4)
+# backward kernels vs their plain version. fp32: the JAX package's own
+# gradient tolerance (tests/test_kernels.py). bf16: both compute in fp32
+# from the same bf16 inputs and round once at the end, so they differ by at
+# most one bf16 ulp (2^-8..2^-7 relative) plus fp32 summation order
+BWD_TOL = {"bfloat16": dict(atol=1e-2, rtol=1e-2),
+           "float32": dict(atol=5e-5, rtol=1e-3)}
+# autograd through ops.swat_attention, kernel vs banded. bf16: the banded
+# path rounds the probabilities to bf16 before P.V and autograd sums the
+# gathered K/V gradients in bf16 (up to 16 gathers of a global block), a
+# few bf16 ulps
+GRAD_TOL = {"bfloat16": dict(atol=6e-2, rtol=3e-2),
+            "float32": dict(atol=5e-5, rtol=1e-3)}
+TRAIN_LOSS_BOUND = 0.02     # |loss kernel - loss plain|, bf16, 4 layers
+TRAIN_GRAD_BOUND = 0.05     # max over leaves of |g_k - g_p| / |g_p|
 
 
 def log(msg):
@@ -380,6 +420,8 @@ def time_banded(torch, spec):
 
 _CATEGORIES = (("swat_decode", ("decode_fused_kernel",)),
                ("swat_attention_fwd", ("attention_fwd_kernel",)),
+               ("swat_attention_dq", ("attention_dq_kernel",)),
+               ("swat_attention_dkv", ("attention_dkv_kernel",)),
                ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")))
 
 
@@ -458,6 +500,360 @@ def trace_decode(torch, cfg, params):
     return out
 
 
+# ------------------------------------------------------------- phase 7 ---
+
+def _bwd_inputs(torch, gen, dtype, b, hq, hkv, lq, lkv, d, sp, pat):
+    from repro_torch.kernels import swat_attention as SA
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    q, k, v = mk(b, hq, lq, d), mk(b, hkv, lkv, d), mk(b, hkv, lkv, d)
+    do = mk(b, hq, lq, d)
+    o, lse = SA.swat_attention_fwd(q, k, v, sp, pattern=pat, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+def check_backward(torch, spec):
+    """dQ and dK/dV kernels against swat_attention_bwd_plain at the
+    training shapes; a second launch must be bitwise equal. Then autograd
+    through ops.swat_attention (both passes), kernel against banded.
+    Returns the largest bf16 error of dQ and of dK/dV on the main case."""
+    import dataclasses
+    from repro_torch.core.types import AttentionSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swat_backward as SB
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, d, l = MAIN["b"], MAIN["d"], TRAIN["seq"]
+    gspec = dataclasses.replace(spec, kind="dense", window=0, num_global=0,
+                                num_random=0)
+    cases = [("causal+globals group 4", spec, 32, 8, l),
+             ("group 1", spec, 8, 8, l),
+             ("group 8", spec, 32, 4, l),
+             ("softcap 30", dataclasses.replace(spec, softcap=30.0), 32, 8,
+              l),
+             ("random blocks", dataclasses.replace(spec, num_random=2,
+                                                   random_seed=7), 32, 8, l),
+             ("longformer bidirectional", AttentionSpec(
+                 kind="swat", window=256, num_global=1, causal=False),
+              12, 12, l),
+             ("global rows", gspec, 32, 8, spec.num_global)]
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        for tag, sp, hq, hkv, lq in cases:
+            pat = ops.get_pattern(sp, lq, l, 128, 128)
+            q, k, v, o, lse, do = _bwd_inputs(torch, gen, dtype, b, hq, hkv,
+                                              lq, l, d, sp, pat)
+            want = SB.swat_attention_bwd_plain(q, k, v, o, lse, do, sp, pat,
+                                               d ** -0.5)
+            got = SB.swat_attention_bwd(q, k, v, o, lse, do, sp, pattern=pat)
+            again = SB.swat_attention_bwd(q, k, v, o, lse, do, sp,
+                                          pattern=pat)
+            torch.cuda.synchronize()
+            name = f"swat_attention_bwd {dn} {tag}"
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{name}: two launches differ")
+            e = [check_close(f"{name} d{n}", g, w, dn, **BWD_TOL[dn])
+                 for n, g, w in zip("qkv", got, want)]
+            errs[(dn, tag)] = e
+            log(f"{name}: max abs err dq {e[0]:.3g} dk {e[1]:.3g} "
+                f"dv {e[2]:.3g}, bitwise deterministic")
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        mk = lambda *s: torch.randn(*s, generator=gen,
+                                    device="cuda").to(dtype)
+        q, k, v = mk(b, 32, l, d), mk(b, 8, l, d), mk(b, 8, l, d)
+        w = mk(b, 32, l, d)
+        grads = {}
+        for impl in ("kernel", "banded"):
+            qkv = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            out = ops.swat_attention(*qkv, spec, impl=impl)
+            grads[impl] = torch.autograd.grad((out.float() * w.float()).sum(),
+                                              qkv)
+        torch.cuda.synchronize()
+        for n, g, p in zip("qkv", grads["kernel"], grads["banded"]):
+            err = check_close(f"autograd {dn} d{n} kernel vs banded", g, p,
+                              dn, **GRAD_TOL[dn])
+            log(f"autograd {dn} d{n}: kernel vs banded max abs err {err:.3g}")
+    main = errs[("bfloat16", "causal+globals group 4")]
+    log(f"swat_attention_bwd: {len(errs)} cases, bitwise deterministic, "
+        "within tolerance; autograd kernel vs banded within tolerance")
+    return main[0], max(main[1], main[2])
+
+
+# ------------------------------------------------------------- phase 8 ---
+
+def _train_batches(torch, cfg, n):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN["seq"],
+                                  global_batch=TRAIN["b"], seed=1234))
+    return [{k: torch.as_tensor(v, device="cuda")
+             for k, v in data.global_batch(s).items()} for s in range(n)]
+
+
+def train(torch, cfg):
+    """6 AdamW steps at full width; launch counts zeroed just before and
+    read just after. Returns (summary, launches, (params, opt, step_fn,
+    batch)) for the profiled step of phase 11."""
+    import math
+    from repro_torch import tree
+    from repro_torch.core import model as Mod
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_backward as SB
+    from repro_torch.launch import steps as St
+    from repro_torch.optim import adamw
+    n = TRAIN["steps"]
+    params = Mod.init_model(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    opt = adamw.init_opt_state(params)
+    step_fn = St.make_train_step(
+        cfg, adamw.AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                               total_steps=n), remat_policy="nothing")
+    batches = _train_batches(torch, cfg, n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in (SA.LAUNCHES, SB.DQ_LAUNCHES, SB.DKV_LAUNCHES):
+        c.reset()
+    losses, gnorms, times = [], [], []
+    for s in range(n):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batches[s])
+        loss, gn = torch.stack([m["loss"], m["grad_norm"]]).tolist()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gnorms.append(gn)
+        log(f"train step {s}: loss {loss:.4f} grad_norm {gn:.4f} "
+            f"{times[-1] * 1e3:.1f} ms")
+    launches = {"swat_attention_fwd": SA.LAUNCHES.n,
+                "swat_attention_dq": SB.DQ_LAUNCHES.n,
+                "swat_attention_dkv": SB.DKV_LAUNCHES.n}
+    tokens = TRAIN["b"] * TRAIN["seq"]
+    steady = sum(times[1:]) / (n - 1)
+    summary = {"losses": losses, "grad_norms": gnorms,
+               "step_ms": [t * 1e3 for t in times],
+               "tokens_per_s_steps_2_6": tokens * (n - 1) / sum(times[1:]),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "params": n_params,
+               "model_tflop_per_step": 6 * n_params * tokens / 1e12,
+               "model_flop_share": 6 * n_params * tokens / steady
+               / PEAK_OPS["bfloat16"],
+               "launches": launches}
+    log("train: " + json.dumps(summary))
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"non-finite training metrics: {summary}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    layers = cfg.num_layers
+    need = {"swat_attention_fwd": 2 * layers * 2 * n,   # 2 passes, remat
+            "swat_attention_dq": 2 * layers * n,
+            "swat_attention_dkv": 2 * layers * n}
+    for name, lo in need.items():
+        if launches[name] < lo:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"in {n} train steps, expected >= {lo}")
+    return summary, launches, (params, opt, step_fn, batches[0])
+
+
+# ------------------------------------------------------------- phase 9 ---
+
+def train_end_to_end(torch, cfg):
+    """One loss and gradient at full width, depth cut to 4 layers so the
+    plain path fits the time: kernel path against the plain path."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.core import model as Mod
+    cfg4 = dataclasses.replace(cfg, num_layers=TRAIN["e2e_layers"])
+    params = Mod.init_model(cfg4, seed=0, device="cuda")
+    leaves = tree.leaves(params)
+    batch = _train_batches(torch, cfg4, 1)[0]
+    res = {}
+    for impl in ("kernel", "banded"):
+        for p in leaves:
+            p.requires_grad_(True)
+        total, _ = Mod.loss_fn(params, cfg4, batch, impl=impl)
+        res[impl] = (total.item(), torch.autograd.grad(total, leaves))
+    lk, gk = res["kernel"]
+    lp, gp = res["banded"]
+    rel = [float((a.float() - b.float()).norm() / b.float().norm().clamp(
+        min=1e-30)) for a, b in zip(gk, gp)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    paths = [p for p, _ in tree.flatten_with_paths(params)]
+    out = {"layers": cfg4.num_layers, "loss_kernel": lk, "loss_plain": lp,
+           "loss_diff": abs(lk - lp), "loss_bound": TRAIN_LOSS_BOUND,
+           "max_leaf_rel_grad_err": rel[worst], "worst_leaf": paths[worst],
+           "grad_bound": TRAIN_GRAD_BOUND}
+    log("train e2e kernel vs plain: " + json.dumps(out))
+    if not (out["loss_diff"] <= TRAIN_LOSS_BOUND
+            and out["max_leaf_rel_grad_err"] <= TRAIN_GRAD_BOUND):
+        raise AssertionError(f"train step kernel path vs plain path: {out}")
+    return out
+
+
+# ------------------------------------------------------------ phase 10 ---
+
+def resume_drill(torch):
+    """The JAX package's bit-exact resume test on the card: an
+    uninterrupted 8-step run and a run that fails at step 6, then resumes
+    from the step-4 checkpoint, end with bitwise-equal params."""
+    import shutil
+    import tempfile
+    from repro_torch import tree
+    from repro_torch.configs import get_smoke_config, with_swat
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+    cfg = with_swat(get_smoke_config("llama3.2-1b"), window=16, num_global=4)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+
+    def make(sub, fail_at=-1):
+        return Trainer(
+            cfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8),
+            TrainConfig(total_steps=8, ckpt_every=4,
+                        ckpt_dir=os.path.join(root, sub), log_every=100,
+                        fail_at_step=fail_at, device="cuda"),
+            DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                       global_batch=4, seed=7))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref = make("ref").train()
+        try:
+            make("x", fail_at=6).train()
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        else:
+            raise AssertionError("the failure drill did not fail")
+        out = make("x").train()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    a = tree.leaves(ref["state"]["params"])
+    b = tree.leaves(out["state"]["params"])
+    same = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    res = {"leaves": len(a), "bitwise_equal": same,
+           "resumed_steps": len(out["history"]),
+           "final_loss": out["history"][-1]["loss"]}
+    log("resume drill: " + json.dumps(res))
+    if not same:
+        raise AssertionError("resumed params differ from the uninterrupted "
+                             "run's")
+    return res
+
+
+# ------------------------------------------------------------ phase 11 ---
+
+def time_backward(torch, spec):
+    """dQ and dK/dV at the training shapes, their plain version (which
+    computes all three gradients) and SDPA's backward (forward+backward
+    minus forward) on head-expanded K/V with the same boolean mask."""
+    import torch.nn.functional as F
+    from repro_torch.core import patterns
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swat_backward as SB
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, hq, hkv, d, l = MAIN["b"], MAIN["hq"], MAIN["hkv"], MAIN["d"], \
+        TRAIN["seq"]
+    pat = ops.get_pattern(spec, l, l, 128, 128)
+    q, k, v, o, lse, do = _bwd_inputs(torch, gen, torch.bfloat16, b, hq, hkv,
+                                      l, l, d, spec, pat)
+    delta = (do.float() * o.float()).sum(-1)
+    kw = dict(q_offset=0, kv_offset=0, bound=l)
+    scale = d ** -0.5
+    dq_ms = time_ms(torch, lambda: SB.launch_dq(q, k, v, do, lse, delta,
+                                                spec, pat, scale, **kw))
+    dkv_ms = time_ms(torch, lambda: SB.launch_dkv(q, k, v, do, lse, delta,
+                                                  spec, pat, scale, **kw))
+    p_ms = time_ms(torch, lambda: SB.swat_attention_bwd_plain(
+        q, k, v, o, lse, do, spec, pat, scale))
+    dm = torch.as_tensor(patterns.dense_mask(spec, l, l), device="cuda")
+    qr = q.detach().clone().requires_grad_()
+    ke = k.repeat_interleave(hq // hkv, dim=1).requires_grad_()
+    ve = v.repeat_interleave(hq // hkv, dim=1).requires_grad_()
+
+    def fwd():
+        return F.scaled_dot_product_attention(qr, ke, ve, attn_mask=dm)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qr, ke, ve), do)
+
+    with torch.no_grad():
+        f_ms = time_ms(torch, fwd)
+    l_ms = time_ms(torch, fwd_bwd) - f_ms
+    n_vis = int(dm.sum()) * b * hq
+    itm, rows_q, rows_kv = 2, b * hq * l, b * hkv * l
+    dq_bytes = itm * d * (3 * rows_q + 2 * rows_kv) + 4 * 2 * rows_q
+    dkv_bytes = itm * d * (2 * rows_q + 4 * rows_kv) + 4 * 2 * rows_q
+    out = {"visible_pairs": n_vis,
+           "dq": (dq_ms, p_ms, l_ms, dq_bytes, 6 * d * n_vis),
+           "dkv": (dkv_ms, p_ms, l_ms, dkv_bytes, 8 * d * n_vis)}
+    log(f"backward times: dq {dq_ms:.4f} ms, dkv {dkv_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, SDPA backward {l_ms:.4f} ms (forward {f_ms:.4f}); "
+        f"{n_vis} visible pairs")
+    return out
+
+
+def time_unembed(torch, params, cfg):
+    """The decode step's unembed product (B=4 rows against the tied
+    128256 x 2048 bf16 head): the fp32-output product the port uses, and
+    the bf16-rounded product it replaced. Also reports whether
+    aten::mm.dtype has a backward in this PyTorch."""
+    import torch.nn.functional as F
+    x = torch.randn(MAIN["b"], cfg.d_model, device="cuda").to(torch.bfloat16)
+    emb = params["embed"]
+    new_ms = time_ms(torch, lambda: torch.mm(x, emb.t(),
+                                             out_dtype=torch.float32))
+    old_ms = time_ms(torch, lambda: F.linear(x, emb).float())
+    a = x.detach().clone().requires_grad_()
+    has_bwd = True
+    try:
+        torch.mm(a, emb.t(), out_dtype=torch.float32).sum().backward()
+    except RuntimeError as e:
+        if "not implemented" not in str(e):
+            raise
+        has_bwd = False
+    out = {"fp32_out_ms": new_ms, "bf16_rounded_ms": old_ms,
+           "mm_dtype_has_backward": has_bwd}
+    log("unembed: " + json.dumps(out))
+    return out
+
+
+def trace_train_step(torch, state):
+    """torch.profiler over one warm full-width train step: device time by
+    kernel category and the device's busy share of the step."""
+    from torch.profiler import ProfilerActivity, profile
+    params, opt, step_fn, batch = state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, m = step_fn(params, opt, batch)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dt = torch.autograd.DeviceType
+    kernels = [e for e in prof.events() if e.device_type == dt.CUDA]
+    out = {"wall_ms": wall_ms, "device_kernels": len(kernels)}
+    if not kernels:
+        out["device_time"] = "not measured (no device events traced)"
+        log("train trace: " + json.dumps(out))
+        return out
+    by_cat, by_name = {}, {}
+    for e in kernels:
+        name = e.name.lower()
+        cat = next((c for c, keys in _CATEGORIES
+                    if any(k_ in name for k_ in keys)), "other")
+        ms = e.time_range.elapsed_us() / 1e3
+        by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + ms
+    busy = _union_ms([e.time_range for e in kernels])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out.update(device_ms_by_category=dict(sorted(by_cat.items())),
+               device_busy_ms=busy, busy_share=busy / wall_ms,
+               top_kernels_ms=dict(top))
+    log("train trace: " + json.dumps(out))
+    return out
+
+
 def bound(bytes_, ops_, dtype_name="bfloat16"):
     tb = bytes_ / HBM_BYTES_PER_S * 1e3
     to = ops_ / PEAK_OPS[dtype_name] * 1e3
@@ -511,8 +907,18 @@ def main():
     dk, dp, dl, db, do = time_decode(torch, spec)
     fk, fp, fl, fb, fo = time_banded(torch, spec)
     trace = trace_decode(torch, cfg, params)
+    unembed = time_unembed(torch, params, cfg)
     db_ms, db_by = bound(db, do)
     fb_ms, fb_by = bound(fb, fo)
+    del params
+
+    dq_err, dkv_err = check_backward(torch, spec)
+    tr, tr_launches, tr_state = train(torch, cfg)
+    bt = time_backward(torch, spec)
+    ttrace = trace_train_step(torch, tr_state)
+    del tr_state
+    tr_e2e = train_end_to_end(torch, cfg)
+    resume = resume_drill(torch)
     kernels = [
         {"name": "swat_decode_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/swat_decode.cu",
@@ -527,9 +933,27 @@ def main():
          "max_abs_err": fwd_err, "ms": fk, "plain_ms": fp,
          "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": fl},
     ]
+    for name, key, err in (("swat_attention_dq", "dq", dq_err),
+                           ("swat_attention_dkv", "dkv", dkv_err)):
+        ms, p_ms, l_ms, bytes_, ops_ = bt[key]
+        b_ms, b_by = bound(bytes_, ops_)
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "src/repro_torch/csrc/swat_attention_bwd.cu",
+             "replaces": ("src/repro/kernels/swat_backward.py:51"
+                          if key == "dq" else
+                          "src/repro/kernels/swat_backward.py:93"),
+             "launches": tr_launches[name], "max_abs_err": err, "ms": ms,
+             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": l_ms})
     log(f"serve summary: {json.dumps(summary)}")
     log(f"e2e: {json.dumps(e2e)}")
     log(f"trace: {json.dumps(trace)}")
+    log(f"unembed: {json.dumps(unembed)}")
+    log(f"train summary: {json.dumps(tr)}")
+    log(f"train trace: {json.dumps(ttrace)}")
+    log(f"train e2e: {json.dumps(tr_e2e)}")
+    log(f"resume: {json.dumps(resume)}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

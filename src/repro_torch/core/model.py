@@ -9,16 +9,19 @@ unstacks them). Caches follow the same rule: a list over super-blocks of
 
 `impl` selects the attention implementation (see `kernels/ops.py`); the
 default is the CUDA kernels for CUDA tensors and the plain versions for CPU
-tensors. Other layer kinds (mamba, MoE, cross-attention) raise
-NotImplementedError: they belong to later slices.
+tensors. Training differentiates `loss_fn` with autograd, recomputing each
+super-block in the backward pass under `REMAT_POLICIES`. Other layer kinds
+(mamba, MoE, cross-attention) raise NotImplementedError: they belong to
+later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
-import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import layers as L
 from repro_torch.core.types import AttentionSpec, ModelConfig
@@ -112,17 +115,28 @@ def embed_tokens(params: Params, cfg: ModelConfig,
     return x
 
 
+def _head_product(x2d: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """x2d @ head as the fp32-accumulated product, returned in fp32 and
+    never rounded to the operands' dtype (the JAX package's
+    preferred_element_type=float32). On CUDA without autograd it is one
+    `aten::mm.dtype` call, which reads the bf16 head as it is; that op has
+    no backward in PyTorch, so where autograd records (training) and on the
+    CPU (which has no kernel for it) both operands are upcast to fp32."""
+    recording = torch.is_grad_enabled() and (x2d.requires_grad
+                                             or head.requires_grad)
+    if x2d.is_cuda and x2d.dtype != torch.float32 and not recording:
+        return torch.mm(x2d, head, out_dtype=torch.float32)
+    return x2d.float() @ head.float()
+
+
 def _unembed(params: Params, cfg: ModelConfig, x) -> torch.Tensor:
-    """fp32 logits. With bf16 weights the product accumulates in fp32 inside
-    the matmul and is rounded to bf16 before the fp32 cast (PyTorch has no
-    portable bf16 x bf16 -> fp32 product; an fp32 copy of the 128k x 2048
-    head would double the unembed's bytes per decode step)."""
+    """fp32 logits: the fp32-accumulated product of the final-normed
+    activations and the (tied or separate) head, as in the JAX package."""
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = F.linear(x, params["embed"])
-    else:
-        logits = x @ params["lm_head"]
-    return L.softcap(logits.float(), cfg.final_softcap)
+    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    logits = _head_product(x.reshape(-1, x.shape[-1]), head)
+    logits = logits.reshape(*x.shape[:-1], head.shape[1])
+    return L.softcap(logits, cfg.final_softcap)
 
 
 def _ffn(p: Params, cfg: ModelConfig, x):
@@ -132,12 +146,37 @@ def _ffn(p: Params, cfg: ModelConfig, x):
     return x
 
 
-def forward_logits(params: Params, cfg: ModelConfig, batch, *,
-                   impl: Optional[str] = None) -> torch.Tensor:
-    """Full-sequence logits (B, L, V), fp32."""
-    _check_supported(cfg)
-    x = embed_tokens(params, cfg, batch)
-    for blk in params["blocks"]:
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep the outputs of 2-D matrix products
+    (the projections and the MLP, `x @ W`), recompute everything else —
+    the JAX package's checkpoint_dots_with_no_batch_dims."""
+    if op in _SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = {
+    # recompute the whole super-block in the backward pass: least live
+    # memory, most recompute
+    "nothing": None,
+    # save the matmul outputs: more activation memory, no recompute of the
+    # heavy products
+    "dots": _save_dots,
+}
+
+
+def _stack_forward(blocks, cfg: ModelConfig, x, *, impl: Optional[str],
+                   remat: bool, remat_policy: str = "nothing"):
+    """Run every super-block. With `remat` (and autograd recording), each
+    super-block is a `torch.utils.checkpoint` region under
+    REMAT_POLICIES[remat_policy]: its activations are recomputed in the
+    backward pass (the JAX package's jax.checkpoint around the scan body)."""
+    policy = REMAT_POLICIES[remat_policy]
+
+    def block_fn(x, blk):
         for i, kind in enumerate(cfg.layer_pattern):
             p = blk[f"l{i}"]
             h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
@@ -145,7 +184,55 @@ def forward_logits(params: Params, cfg: ModelConfig, batch, *,
                                       attn_cfg(cfg, kind, index=i), h,
                                       impl=impl)
             x = _ffn(p, cfg, x)
+        return x
+
+    kw = {}
+    if policy is not None:
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, policy)
+    for blk in blocks:
+        if remat and torch.is_grad_enabled():
+            x = ckpt.checkpoint(block_fn, x, blk, use_reentrant=False, **kw)
+        else:
+            x = block_fn(x, blk)
+    return x
+
+
+def forward_logits(params: Params, cfg: ModelConfig, batch, *,
+                   impl: Optional[str] = None, remat: bool = False,
+                   remat_policy: str = "nothing") -> torch.Tensor:
+    """Full-sequence logits (B, L, V), fp32. `remat` recomputes each
+    super-block in the backward pass (training); serving leaves it off."""
+    _check_supported(cfg)
+    x = embed_tokens(params, cfg, batch)
+    x = _stack_forward(params["blocks"], cfg, x, impl=impl, remat=remat,
+                       remat_policy=remat_policy)
     return _unembed(params, cfg, x)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch, *,
+            impl: Optional[str] = None, remat: bool = True,
+            aux_weight: float = 0.01, remat_policy: str = "nothing"):
+    """Next-token cross entropy in fp32. batch["labels"]: (B, L) int;
+    positions with label < 0 are masked out. Returns (total, {"loss",
+    "aux_loss", "tokens"}) as 0-dim tensors; aux is zero for the ported
+    (attention-only) layer kinds."""
+    logits = forward_logits(params, cfg, batch, impl=impl, remat=remat,
+                            remat_policy=remat_policy)
+    labels = batch["labels"].long()
+    logits = logits[:, :-1].float()
+    targets = labels[:, 1:]
+    valid = targets >= 0
+    tsafe = torch.where(valid, targets, 0)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, tsafe[..., None])[..., 0]
+    nll = torch.where(valid, lse - picked, 0.0)
+    denom = torch.clamp(valid.sum(), min=1)
+    loss = nll.sum() / denom
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux_loss": aux,
+                   "tokens": denom.to(torch.float32)}
 
 
 # --------------------------------------------------------------- serving ---

@@ -1,6 +1,7 @@
 """Convert the JAX package's param and cache pytrees, given as numpy arrays,
-into the port's layout. Takes numpy only: the caller (the parity tests)
-turns JAX arrays into numpy; this module never imports JAX.
+into the port's layout, and back. Takes and gives numpy only: the caller
+(the parity tests) moves arrays between numpy and JAX; this module never
+imports JAX.
 
 JAX stacks the super-blocks: every leaf under `blocks/l{i}/...` (and every
 cache leaf) has a leading num_super_blocks axis. The port keeps a Python
@@ -53,13 +54,37 @@ def caches_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     return _unstack(tree, cfg.num_super_blocks, device)
 
 
+def _np32(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 widened to fp32 (exact)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def caches_to_numpy(caches: List[Dict[str, Any]]) -> Dict[str, Any]:
     """Port caches -> the JAX stacked layout as numpy (for comparisons)."""
     def stack(*leaves):
-        return np.stack([t.detach().float().cpu().numpy()
-                         if t.dtype == torch.bfloat16
-                         else t.detach().cpu().numpy() for t in leaves])
+        return np.stack([_np32(t) for t in leaves])
     first = caches[0]
     return {name: {leaf: stack(*[c[name][leaf] for c in caches])
                    for leaf in layer}
             for name, layer in first.items()}
+
+
+def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
+                    ) -> Dict[str, Any]:
+    """Port params (or a gradient tree shaped like them) -> the JAX stacked
+    layout as numpy: `blocks/l{i}/...` leaves gain a leading
+    num_super_blocks axis. The inverse of `params_from_jax`, for comparing
+    gradients and trained params leaf by leaf."""
+    if len(params["blocks"]) != cfg.num_super_blocks:
+        raise ValueError(f"{len(params['blocks'])} super-blocks, config has "
+                         f"{cfg.num_super_blocks}")
+
+    def stack(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack(*[lf[k] for lf in leaves]) for k in leaves[0]}
+        return np.stack([_np32(t) for t in leaves])
+
+    out = {k: _map(_np32, v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = stack(*params["blocks"])
+    return out

@@ -2,12 +2,16 @@
 
 Implementations (impl=):
   kernel  - the hand-written CUDA kernels (`swat_attention.py`,
-            `swat_decode.py`). For CUDA tensors they launch the kernel or
-            raise; for CPU tensors the wrappers run their plain versions.
+            `swat_backward.py`, `swat_decode.py`). For CUDA tensors they
+            launch the kernel or raise; for CPU tensors the wrappers run
+            their plain versions. `swat_attention` goes through
+            `_SwatAttentionFn`, whose backward is the dQ and dK/dV kernels.
             The default for CUDA tensors.
   banded  - the plain exact-band PyTorch version (twin of the JAX
-            package's `_xla_banded`). The default for CPU tensors.
-  ref     - O(N^2) masked reference (tests, tiny shapes).
+            package's `_xla_banded`), differentiated by autograd. The
+            default for CPU tensors.
+  ref     - O(N^2) masked reference (tests, tiny shapes), differentiated by
+            autograd.
 
 "banded" and "ref" run wherever their tensors lie; a caller names them
 explicitly to hold the kernel path against the plain path (the CPU tests,
@@ -16,10 +20,8 @@ chip_smoke.py's end-to-end phase). The engine and the launcher never pass
 
 Global tokens (Longformer) are composed here as in the JAX package: the
 band+global-column pass covers every non-global row; a second dense pass
-over the first g rows replaces their output.
-
-Only the forward is ported: the autograd Function and its backward kernels
-belong to the training slice.
+over the first g rows replaces their output. Gradients flow through both
+passes.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.core import patterns
 from repro_torch.core.types import AttentionSpec
 from repro_torch.kernels import ref as ref_impl
 from repro_torch.kernels import swat_attention as fwd_mod
+from repro_torch.kernels import swat_backward as bwd_mod
 from repro_torch.kernels import swat_decode as dec_mod
 
 NEG_INF = fwd_mod.NEG_INF
@@ -57,12 +60,37 @@ def _resolve(impl: Optional[str], t: torch.Tensor) -> str:
     return impl
 
 
+class _SwatAttentionFn(torch.autograd.Function):
+    """One banded-attention pass with a hand-written backward (the port of
+    the JAX package's `_pallas_attention` custom VJP). Forward: the banded
+    forward with its row LSE; q, k, v, O and the LSE are saved. Backward:
+    `swat_attention_bwd` (the dQ and dK/dV kernels on CUDA tensors, their
+    plain version on CPU tensors). spec, pattern and scale get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, spec, pattern, scale):
+        out, lse = fwd_mod.swat_attention_fwd(q, k, v, spec, pattern=pattern,
+                                              scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.spec, ctx.pattern, ctx.scale = spec, pattern, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = bwd_mod.swat_attention_bwd(
+            q, k, v, out, lse, do, ctx.spec, pattern=ctx.pattern,
+            scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def swat_attention(q, k, v, spec: AttentionSpec, *,
                    block_q: int = 128, block_kv: int = 128,
                    scale: Optional[float] = None,
                    impl: Optional[str] = None) -> torch.Tensor:
     """Fused window/global/random attention. q: (B, Hq, Lq, D);
-    k, v: (B, Hkv, Lkv, D). Forward only."""
+    k, v: (B, Hkv, Lkv, D). Differentiable for every impl."""
     lq, lkv, d = q.shape[2], k.shape[2], q.shape[3]
     scale = float(d ** -0.5 if scale is None else scale)
     impl = _resolve(impl, q)
@@ -72,8 +100,7 @@ def swat_attention(q, k, v, spec: AttentionSpec, *,
 
     def run(qq, sp, pp):
         if impl == "kernel":
-            return fwd_mod.swat_attention_fwd(qq, k, v, sp, pattern=pp,
-                                              scale=scale)
+            return _SwatAttentionFn.apply(qq, k, v, sp, pp, scale)
         return fwd_mod.banded_plain(qq, k, v, sp, pp, scale)
 
     out = run(q, spec, pat)

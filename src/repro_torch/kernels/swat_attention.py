@@ -36,7 +36,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _dense_plain(q, k, v, spec: AttentionSpec, scale: float,
                  return_lse: bool):
-    """Plain masked attention (twin of `ops._xla_dense`)."""
+    """Plain masked attention (twin of `ops._xla_dense`; the running max is
+    detached, as the twin's stop_gradient)."""
     b, hq, lq, d = q.shape
     _, hkv, lkv, _ = k.shape
     group = hq // hkv
@@ -48,7 +49,7 @@ def _dense_plain(q, k, v, spec: AttentionSpec, scale: float,
         mask = (torch.arange(lkv, device=q.device)[None, :]
                 <= torch.arange(lq, device=q.device)[:, None])
         s = torch.where(mask, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True).detach()
     p = torch.exp(s - m)
     den = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
     o = dots.einsum_f32("bhglk,bhkd->bhgld", (p / den).to(v.dtype), v)
@@ -56,6 +57,43 @@ def _dense_plain(q, k, v, spec: AttentionSpec, scale: float,
     if return_lse:
         return o, (m + torch.log(den)).reshape(b, hq, lq)
     return o
+
+
+def slot_mask(spec: AttentionSpec, pattern: patterns.BlockPattern,
+              device, *, q_offset: int = 0, kv_offset: int = 0,
+              bound: int):
+    """The gathered kv rows of every q block and their visibility.
+
+    Returns (flat, mask): flat (nq, num_slots*block_kv) int64 local kv row
+    indices (the pattern's slot blocks, row by row) and mask (nq, block_q,
+    num_slots*block_kv) bool, `element_mask` in global token coordinates
+    (band, global columns, RANDOM slots, causality, kv bounds) with PAD
+    slots masked."""
+    bq, bk = pattern.block_q, pattern.block_kv
+    nq, ns = pattern.num_q_blocks, pattern.num_slots
+    kv_map = torch.as_tensor(pattern.kv_block_map, device=device).long()
+    kinds = torch.as_tensor(pattern.slot_kinds, device=device)
+    flat = (kv_map[:, :, None] * bk
+            + torch.arange(bk, device=device)[None, None, :]
+            ).reshape(nq, ns * bk)
+    q_idx = (q_offset + torch.arange(nq, device=device)[:, None] * bq
+             + torch.arange(bq, device=device)[None, :])[:, :, None]
+    k_idx = (kv_offset + flat)[:, None, :]                       # (nq,1,S)
+    full = kinds.repeat_interleave(bk, dim=1)[:, None, :]        # (nq,1,S)
+    mask = (k_idx >= 0) & (k_idx < bound) & (full != patterns.PAD)
+    if spec.is_sparse:
+        band = k_idx >= q_idx - spec.window
+        if not spec.causal:
+            band = band & (k_idx <= q_idx + spec.window)
+        allowed = band
+        if spec.num_global:
+            allowed = allowed | (k_idx < spec.num_global)
+        if spec.num_random:
+            allowed = allowed | (full == patterns.RANDOM)
+        mask = mask & allowed
+    if spec.causal:
+        mask = mask & (k_idx <= q_idx)
+    return flat, mask
 
 
 def banded_plain(q, k, v, spec: AttentionSpec, pattern: patterns.BlockPattern,
@@ -66,7 +104,8 @@ def banded_plain(q, k, v, spec: AttentionSpec, pattern: patterns.BlockPattern,
     slot kv blocks (twin of `ops._xla_banded`). Masks use global token
     coordinates (q_offset / kv_offset / seq_kv_bound, as the kernel does);
     K/V rows past the buffer read as zeros. Returns O (B, Hq, Lq, D), and
-    the fp32 row LSE (B, Hq, Lq) with return_lse."""
+    the fp32 row LSE (B, Hq, Lq) with return_lse. Differentiable (the
+    running max is detached, as the JAX twin's stop_gradient)."""
     b, hq, lq, d = q.shape
     _, hkv, lkv, _ = k.shape
     bound = kv_offset + lkv if seq_kv_bound is None else seq_kv_bound
@@ -81,43 +120,23 @@ def banded_plain(q, k, v, spec: AttentionSpec, pattern: patterns.BlockPattern,
     group = hq // hkv
     bq, bk = pattern.block_q, pattern.block_kv
     nq, ns = pattern.num_q_blocks, pattern.num_slots
-    dev = q.device
     lq_pad, lkv_pad = nq * bq, pattern.num_kv_blocks * bk
     if lq_pad != lq:
         q = torch.nn.functional.pad(q, (0, 0, 0, lq_pad - lq))
     if lkv_pad != lkv:
         k = torch.nn.functional.pad(k, (0, 0, 0, lkv_pad - lkv))
         v = torch.nn.functional.pad(v, (0, 0, 0, lkv_pad - lkv))
+    flat, mask = slot_mask(spec, pattern, q.device, q_offset=q_offset,
+                           kv_offset=kv_offset, bound=bound)
     qb = q.reshape(b, hkv, group, nq, bq, d)
-    kv_map = torch.as_tensor(pattern.kv_block_map, device=dev).long()
-    kinds = torch.as_tensor(pattern.slot_kinds, device=dev)
-    flat = (kv_map[:, :, None] * bk
-            + torch.arange(bk, device=dev)[None, None, :]).reshape(nq, ns * bk)
     kg = k[:, :, flat.reshape(-1)].reshape(b, hkv, nq, ns * bk, d)
     vg = v[:, :, flat.reshape(-1)].reshape(b, hkv, nq, ns * bk, d)
     s = dots.einsum_f32("bhgnqd,bhnkd->bhgnqk", qb * scale, kg)
     if spec.softcap:
         s = spec.softcap * torch.tanh(s / spec.softcap)
-    q_idx = (q_offset + torch.arange(nq, device=dev)[:, None] * bq
-             + torch.arange(bq, device=dev)[None, :])[:, :, None]  # (nq,bq,1)
-    k_idx = (kv_offset + flat)[:, None, :]                          # (nq,1,S)
-    full = kinds.repeat_interleave(bk, dim=1)[:, None, :]           # (nq,1,S)
-    mask = (k_idx >= 0) & (k_idx < bound) & (full != patterns.PAD)
-    if spec.is_sparse:
-        band = k_idx >= q_idx - spec.window
-        if not spec.causal:
-            band = band & (k_idx <= q_idx + spec.window)
-        allowed = band
-        if spec.num_global:
-            allowed = allowed | (k_idx < spec.num_global)
-        if spec.num_random:
-            allowed = allowed | (full == patterns.RANDOM)
-        mask = mask & allowed
-    if spec.causal:
-        mask = mask & (k_idx <= q_idx)
     mask = mask[None, None, None]
     s = torch.where(mask, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True).detach()
     p = torch.where(mask, torch.exp(s - m), 0.0)
     den = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
     o = dots.einsum_f32("bhgnqk,bhnkd->bhgnqd", (p / den).to(v.dtype), vg)
@@ -140,38 +159,38 @@ def _pattern_tensors(pattern: patterns.BlockPattern, device: torch.device):
                             device=device).contiguous())
 
 
-def _check(q, k, v, pattern):
+def _check(q, k, v, pattern, fn: str = "swat_attention_fwd"):
     dev = q.device
-    for name, t in dict(q=q, k=k, v=v).items():
+    for arg, t in dict(q=q, k=k, v=v).items():
         if t.device != dev:
-            raise ValueError(f"swat_attention_fwd: {name} on {t.device}, "
+            raise ValueError(f"{fn}: {arg} on {t.device}, "
                              f"q on {dev}")
         if not t.is_contiguous():
-            raise ValueError(f"swat_attention_fwd: {name} must be "
+            raise ValueError(f"{fn}: {arg} must be "
                              "contiguous")
         if t.dtype != q.dtype:
-            raise TypeError(f"swat_attention_fwd: {name} is {t.dtype}, "
+            raise TypeError(f"{fn}: {arg} is {t.dtype}, "
                             f"q is {q.dtype}")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"swat_attention_fwd: dtype {q.dtype} not supported "
+        raise TypeError(f"{fn}: dtype {q.dtype} not supported "
                         "(float32 or bfloat16)")
     b, hq, lq, d = q.shape
     if k.dim() != 4 or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"swat_attention_fwd: k shape {tuple(k.shape)} vs "
+        raise ValueError(f"{fn}: k shape {tuple(k.shape)} vs "
                          f"q {tuple(q.shape)}")
     if v.shape != k.shape:
-        raise ValueError("swat_attention_fwd: k and v shapes differ")
+        raise ValueError(f"{fn}: k and v shapes differ")
     if hq % k.shape[1]:
-        raise ValueError(f"swat_attention_fwd: {hq} q heads vs "
+        raise ValueError(f"{fn}: {hq} q heads vs "
                          f"{k.shape[1]} kv heads")
     if d not in HEAD_DIMS:
-        raise ValueError(f"swat_attention_fwd: head dim {d} not in "
+        raise ValueError(f"{fn}: head dim {d} not in "
                          f"{HEAD_DIMS}")
     if pattern.block_q > MAX_BLOCK_Q:
-        raise ValueError(f"swat_attention_fwd: block_q {pattern.block_q} > "
+        raise ValueError(f"{fn}: block_q {pattern.block_q} > "
                          f"{MAX_BLOCK_Q}")
     if pattern.num_q_blocks * pattern.block_q < lq:
-        raise ValueError("swat_attention_fwd: pattern does not cover q")
+        raise ValueError(f"{fn}: pattern does not cover q")
 
 
 def swat_attention_fwd(q, k, v, spec: AttentionSpec, *,

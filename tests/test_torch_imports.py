@@ -18,8 +18,13 @@ PORT_MODULES = [
     "repro_torch.kernels.dots", "repro_torch.kernels.ref",
     "repro_torch.kernels._build", "repro_torch.kernels.swat_decode",
     "repro_torch.kernels.swat_attention", "repro_torch.kernels.ops",
+    "repro_torch.kernels.swat_backward", "repro_torch.tree",
     "repro_torch.serving.sampling", "repro_torch.serving.scheduler",
     "repro_torch.serving.engine", "repro_torch.launch.serve",
+    "repro_torch.optim.adamw", "repro_torch.optim.compress",
+    "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+    "repro_torch.launch.steps", "repro_torch.runtime.trainer",
+    "repro_torch.launch.train",
 ]
 
 
@@ -52,10 +57,23 @@ _BANNED = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)"
 def test_port_sources_name_no_jax_or_repro_import():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 15
+    names = {str(f.relative_to(ROOT / "src")) for f in files[:-1]}
+    assert {"repro_torch/optim/adamw.py", "repro_torch/data/pipeline.py",
+            "repro_torch/checkpoint/manager.py",
+            "repro_torch/runtime/trainer.py",
+            "repro_torch/launch/train.py"} <= names
+    assert len(files) > 25
     for f in files:
         hits = _BANNED.findall(f.read_text())
         assert not hits, (f, hits)
+
+
+def _run_without_card(launcher):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run(
+        [sys.executable, "-m", f"repro_torch.launch.{launcher}", "--arch",
+         "llama3.2-1b", "--smoke"], capture_output=True, text=True, env=env,
+        timeout=120)
 
 
 def test_serve_launcher_refuses_to_run_without_a_card():
@@ -63,10 +81,15 @@ def test_serve_launcher_refuses_to_run_without_a_card():
     instead of serving on the CPU."""
     if torch.cuda.is_available():
         return
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "llama3.2-1b", "--smoke"], capture_output=True, text=True, env=env,
-        timeout=120)
+    out = _run_without_card("serve")
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_train_launcher_refuses_to_run_without_a_card():
+    """The same for training: the default device is cuda."""
+    if torch.cuda.is_available():
+        return
+    out = _run_without_card("train")
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr
