@@ -18,8 +18,8 @@ each of which raises on failure:
   3. serve   - full-width llama3.2-1b + SWAT (window 256, 4 globals), bf16,
                random weights from seed 0: 8 requests, 4 slots, prompt 512,
                64 new tokens, greedy, through ServingEngine. Launch counts
-               are zeroed just before and read just after; both kernels
-               must have run on every layer.
+               are zeroed just before and read just after; they must equal
+               one per layer and step (and pass, for the forward).
   4. e2e     - the kernel path against the plain path on the card: prefill
                last-token logits and 8 teacher-forced decode steps.
   5. times   - each kernel, its plain version and one PyTorch library call
@@ -45,6 +45,34 @@ each of which raises on failure:
  11. train times - the backward kernels, their plain version and SDPA's
                backward at the training shapes, the unembed product, and a
                profiled train step split by kernel category.
+ 12. plain decode - the plain-mode decode kernel against its plain version,
+               bf16 and fp32, both GQA layouts, two launches bitwise equal:
+               whisper's cross attention (B=8, 6 heads, T=1, D=64, 1500
+               encoder rows, dense non-causal), kernel_bench.py's
+               unpacked shape (B=8, group 4, 2 kv heads, W=512, wrapped)
+               and a causal window + globals + softcap ring with T=4.
+ 13. gemma2 D=256 - all five kernel entry points against their plain
+               versions at gemma2-2b's shapes (head dim 256, 8 q heads
+               over 4 kv heads, L=8192): the local layer (window 4096,
+               softcap 50; decode on its wrapped 4097-row ring) and the
+               dense causal global layer (softcap 50; decode on its
+               8192-row cache), bf16 and fp32; then the kernels' times at
+               the local layer.
+ 14. whisper - full-width whisper-tiny + SWAT (window 128, 4 globals),
+               bf16, random weights from seed 0: 8 clips of 1500 encoder
+               frames, prefill of a 16-token prompt, 200 greedy decode
+               steps through model.prefill / model.decode_step; launch
+               counts of the three serving kernels equal to the expected
+               counts.
+ 15. whisper e2e - the same run with every kernel swapped for its plain
+               version: fp32 greedy tokens equal on every step and fp32
+               logits within WHISPER_FP32_LOGIT_BOUND; bf16 logits,
+               teacher-forced on the kernel path's tokens, within
+               WHISPER_LOGIT_BOUND.
+ 16. whisper times - encoder, prefill and decode step times, tokens/s,
+               peak memory, a traced decode block split by kernel, and the
+               plain decode kernel, its plain version and SDPA at the cross
+               shape.
 
 Prints the kernels JSON line and the card line, then as its last line
 {"ok": true, "device": {...}}.
@@ -92,6 +120,21 @@ GRAD_TOL = {"bfloat16": dict(atol=6e-2, rtol=3e-2),
             "float32": dict(atol=5e-5, rtol=1e-3)}
 TRAIN_LOSS_BOUND = 0.02     # |loss kernel - loss plain|, bf16, 4 layers
 TRAIN_GRAD_BOUND = 0.05     # max over leaves of |g_k - g_p| / |g_p|
+
+# whisper-tiny + SWAT at full width (4+4 layers, d_model 384, 6 heads, head
+# dim 64, vocab 51865): 8 clips of ENCODER_FRAMES, a 16-token prompt, 200
+# greedy decode steps (the decoder ring of 133 rows wraps within them)
+WHISPER = dict(clips=8, frames=1500, prompt=16, steps=200, max_len=448,
+               window=128, num_global=4)
+# bf16, kernel vs plain path, teacher-forced: about 4x the 0.0163 that the
+# sound runs read on the H100 (a logit's spread at this init is ~0.4)
+WHISPER_LOGIT_BOUND = 0.06
+# fp32, kernel vs plain path on equal tokens: both accumulate in fp32 and
+# differ in summation order only, far below bf16's ~1e-2
+WHISPER_FP32_LOGIT_BOUND = 1e-3
+# gemma2-2b's attention shapes (configs/gemma2_2b.py): head dim 256, 8 q
+# heads over 4 kv heads, local window 4096, softcaps 50
+GEMMA = dict(b=1, hq=8, hkv=4, d=256, seq=8192, window=4096, softcap=50.0)
 
 
 def log(msg):
@@ -267,12 +310,15 @@ def serve(torch, cfg, params):
         if min(r.tokens) < 0 or max(r.tokens) >= cfg.vocab_size:
             raise AssertionError(f"request {r.rid}: token out of range")
     layers = cfg.num_layers
-    if launches["swat_decode"] < layers * st["decode_steps"]:
-        raise AssertionError(f"swat_decode launched {launches} times for "
-                             f"{st['decode_steps']} decode steps")
-    if launches["swat_attention_fwd"] < layers * st["prefill_batches"]:
-        raise AssertionError(f"swat_attention_fwd launched {launches} times "
-                             f"for {st['prefill_batches']} prefill batches")
+    passes = 2 if cfg.attention.num_global else 1   # band + global rows
+    expected = {"swat_decode": layers * st["decode_steps"],
+                "swat_attention_fwd": layers * passes
+                * st["prefill_batches"]}
+    if launches != expected:
+        raise AssertionError(f"serve launches {launches}, expected "
+                             f"{expected} for {st['decode_steps']} decode "
+                             f"steps and {st['prefill_batches']} prefill "
+                             "batches")
     summary = {
         "requests": len(res), "tokens": n_tok, "wall_s": wall,
         "tok_per_s": n_tok / wall,
@@ -418,7 +464,8 @@ def time_banded(torch, spec):
 
 # ------------------------------------------------------------- phase 6 ---
 
-_CATEGORIES = (("swat_decode", ("decode_fused_kernel",)),
+_CATEGORIES = (("swat_decode_plain", ("decode_plain_",)),
+               ("swat_decode", ("decode_fused_kernel",)),
                ("swat_attention_fwd", ("attention_fwd_kernel",)),
                ("swat_attention_dq", ("attention_dq_kernel",)),
                ("swat_attention_dkv", ("attention_dkv_kernel",)),
@@ -646,10 +693,9 @@ def train(torch, cfg):
     need = {"swat_attention_fwd": 2 * layers * 2 * n,   # 2 passes, remat
             "swat_attention_dq": 2 * layers * n,
             "swat_attention_dkv": 2 * layers * n}
-    for name, lo in need.items():
-        if launches[name] < lo:
-            raise AssertionError(f"{name} launched {launches[name]} times "
-                                 f"in {n} train steps, expected >= {lo}")
+    if launches != need:
+        raise AssertionError(f"train launches {launches} in {n} steps, "
+                             f"expected {need}")
     return summary, launches, (params, opt, step_fn, batches[0])
 
 
@@ -854,6 +900,471 @@ def trace_train_step(torch, state):
     return out
 
 
+# ------------------------------------------------------------ phase 12 ---
+
+def _plain_cases(torch, gen, dtype):
+    """(tag, q, k_cache, v_cache, pos, spec, ring_cap) at phase 12's three
+    shapes; random cache rows (the comparison needs no FIFO history)."""
+    from repro_torch.core.types import AttentionSpec
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
+    n = WHISPER["frames"]
+    ring = AttentionSpec(kind="swat", window=256, num_global=4, causal=True,
+                         softcap=30.0)
+    ring_cap = 256 + 1 + 3 + 4
+    return [
+        ("whisper cross", mk(8, 6, 1, 64), mk(8, 6, n, 64), mk(8, 6, n, 64),
+         i32([n] * 8), AttentionSpec(kind="dense", causal=False), n),
+        ("kernel_bench unpacked", mk(8, 8, 1, 64), mk(8, 2, 512, 64),
+         mk(8, 2, 512, 64), i32([512 + 8] * 8),
+         AttentionSpec(kind="dense", causal=True), 512),
+        ("ring T=4", mk(4, 32, 4, 64), mk(4, 8, 320, 64), mk(4, 8, 320, 64),
+         i32([4, 100, 1037, 5000]), ring, ring_cap),
+    ]
+
+
+def check_decode_plain(torch):
+    """The plain-mode decode kernel against its plain version, both GQA
+    layouts, bf16 and fp32; two launches bitwise equal. Then
+    ops.decode_attention on the cross shape, kernel route (positional
+    masks from pos = cache_len) against the JAX ref routing (valid-prefix
+    mask). Returns the bf16 error at the whisper cross shape."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swat_decode as SD
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    main_err, n = None, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        for tag, q, kc, vc, pos, spec, cap in _plain_cases(torch, gen, dtype):
+            want = SD.swat_decode_plain_ref(q, kc, vc, pos, spec,
+                                            ring_cap=cap)
+            for pack in (True, False):
+                got = SD.swat_decode_plain(q, kc, vc, pos, spec,
+                                           ring_cap=cap, pack_gqa=pack)
+                again = SD.swat_decode_plain(q, kc, vc, pos, spec,
+                                             ring_cap=cap, pack_gqa=pack)
+                torch.cuda.synchronize()
+                name = f"swat_decode_plain {dn} {tag} pack_gqa={pack}"
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name}: two launches differ")
+                err = check_close(name, got, want, dn)
+                n += 1
+                log(f"{name}: max abs err {err:.3g}, bitwise repeatable")
+                if (dn, tag, pack) == ("bfloat16", "whisper cross", True):
+                    main_err = err
+            if tag == "whisper cross":
+                cl = pos.reshape(-1, 1, 1, 1)
+                got = ops.decode_attention(q, kc, vc, cl, spec,
+                                           impl="kernel")
+                ref = ops.decode_attention(q, kc, vc, cl, spec, impl="ref")
+                torch.cuda.synchronize()
+                check_close(f"ops.decode_attention {dn} cross kernel vs ref",
+                            got, ref, dn)
+    log(f"swat_decode_plain: {n} cases within tolerance and bitwise "
+        "repeatable; ops.decode_attention kernel route vs the ref routing "
+        "within tolerance")
+    return main_err
+
+
+# ------------------------------------------------------------ phase 13 ---
+
+def _band_pairs(seq, window):
+    """Visible (query, key) pairs of one causal band of `window` (or dense
+    causal for window 0) over `seq` tokens."""
+    if not window:
+        return seq * (seq + 1) // 2
+    return sum(min(i, window) + 1 for i in range(seq))
+
+
+def _gemma_ring(torch, mk, cap=GEMMA["window"] + 1):
+    """Decode inputs on a gemma2 cache of `cap` rows (default the local
+    layer's ring, window 4096 + 1 rows), allocated to a multiple of 64: 4
+    slots, one new token each. Returns (q, k_cache, v_cache, new_k, new_v,
+    num_new, ring_cap)."""
+    g = GEMMA
+    w = -(-cap // 64) * 64
+    return (mk(4, g["hq"], 1, g["d"]), mk(4, g["hkv"], w, g["d"]),
+            mk(4, g["hkv"], w, g["d"]), mk(4, g["hkv"], 1, g["d"]),
+            mk(4, g["hkv"], 1, g["d"]),
+            torch.ones(4, dtype=torch.int32, device="cuda"), cap)
+
+
+def check_gemma2(torch):
+    """All five kernel entry points against their plain versions at
+    gemma2-2b's shapes (D=256), bf16 and fp32, then the kernels' bf16
+    times at the local layer. Returns {kernel: max bf16 err} and the
+    times."""
+    from repro_torch.core.types import AttentionSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_backward as SB
+    from repro_torch.kernels import swat_decode as SD
+    g = GEMMA
+    b, hq, hkv, d, l = g["b"], g["hq"], g["hkv"], g["d"], g["seq"]
+    scale = d ** -0.5
+    local = AttentionSpec(kind="swat", window=g["window"], causal=True,
+                          softcap=g["softcap"])
+    glob = AttentionSpec(kind="dense", causal=True, softcap=g["softcap"])
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    errs = {}
+
+    def note(key, dn, err):
+        if dn == "bfloat16":
+            errs[key] = max(errs.get(key, 0.0), err)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        mk = lambda *s: torch.randn(*s, generator=gen,
+                                    device="cuda").to(dtype)
+        q, k, v, do = (mk(b, hq, l, d), mk(b, hkv, l, d), mk(b, hkv, l, d),
+                       mk(b, hq, l, d))
+        for tag, sp in (("local", local), ("global", glob)):
+            pat = ops.get_pattern(sp, l, l, 128, 128)
+            name = f"gemma2 D=256 {dn} {tag}"
+            wo, wl = SA.banded_plain(q, k, v, sp, pat, scale,
+                                     return_lse=True)
+            o, lse = SA.swat_attention_fwd(q, k, v, sp, pattern=pat,
+                                           return_lse=True)
+            torch.cuda.synchronize()
+            note("swat_attention_fwd", dn,
+                 check_close(name + " forward", o, wo, dn))
+            check_close(name + " lse", lse, wl, dn, atol=1e-3, rtol=1e-4)
+            del wo, wl
+            want = SB.swat_attention_bwd_plain(q, k, v, o, lse, do, sp, pat,
+                                               scale)
+            got = SB.swat_attention_bwd(q, k, v, o, lse, do, sp, pattern=pat)
+            torch.cuda.synchronize()
+            e = [check_close(f"{name} d{c}", x, y, dn, **BWD_TOL[dn])
+                 for c, x, y in zip("qkv", got, want)]
+            note("swat_attention_dq", dn, e[0])
+            note("swat_attention_dkv", dn, max(e[1], e[2]))
+            log(f"{name}: forward and dq/dk/dv within tolerance (max abs "
+                f"err dq {e[0]:.3g} dk {e[1]:.3g} dv {e[2]:.3g})")
+            del want, got, o, lse
+            torch.cuda.empty_cache()
+        del q, k, v, do
+        torch.cuda.empty_cache()
+        # decode on the local layer's ring (window 4096, wrapped) and on the
+        # global layer's dense causal cache (one row per token, 8192 rows);
+        # `lens` counts tokens before the step's insert
+        local_cap = g["window"] + 1
+        for tag, sp, cap, lens in (
+                ("local", local, local_cap, [4100, 9000, 100, local_cap]),
+                ("global", glob, l, [l - 1, 8000, 100, 4096])):
+            qd, kc, vc, nk, nv, ones, cap = _gemma_ring(torch, mk, cap)
+            lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            name = f"gemma2 D=256 {dn} {tag}"
+            want, kw, vw = SD.swat_decode_fused_plain(
+                qd, kc, vc, nk, nv, lens, ones, sp, ring_cap=cap)
+            got = SD.swat_decode_fused(qd, kc, vc, nk, nv, lens, ones, sp,
+                                       ring_cap=cap)
+            torch.cuda.synchronize()
+            if not (torch.equal(kc, kw) and torch.equal(vc, vw)):
+                raise AssertionError(f"{name} fused decode: caches not "
+                                     "bitwise equal")
+            note("swat_decode_fused", dn,
+                 check_close(f"{name} fused decode", got, want, dn))
+            # plain decode on the caches after the insert: lens + 1 tokens,
+            # the query the newest
+            tot = lens + 1
+            want = SD.swat_decode_plain_ref(qd, kc, vc, tot, sp,
+                                            ring_cap=cap)
+            for pack in (True, False):
+                got = SD.swat_decode_plain(qd, kc, vc, tot, sp, ring_cap=cap,
+                                           pack_gqa=pack)
+                torch.cuda.synchronize()
+                note("swat_decode_plain", dn, check_close(
+                    f"{name} plain decode pack_gqa={pack}", got, want, dn))
+            del qd, kc, vc, nk, nv, kw, vw
+            torch.cuda.empty_cache()
+    log("gemma2 D=256: forward, dq, dk/dv, fused and plain decode within "
+        "tolerance, bf16 and fp32, local and global layers: "
+        + json.dumps(errs))
+
+    # bf16 times at the local layer (kernels only; a few calls each)
+    mk = lambda *s: torch.randn(*s, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+    q, k, v, do = (mk(b, hq, l, d), mk(b, hkv, l, d), mk(b, hkv, l, d),
+                   mk(b, hq, l, d))
+    pat = ops.get_pattern(local, l, l, 128, 128)
+    o, lse = SA.swat_attention_fwd(q, k, v, local, pattern=pat,
+                                   return_lse=True)
+    delta = (do.float() * o.float()).sum(-1)
+    kw = dict(q_offset=0, kv_offset=0, bound=l)
+    n_vis = _band_pairs(l, g["window"]) * b * hq
+    itm, rows_q, rows_kv = 2, b * hq * l, b * hkv * l
+    times = {
+        "swat_attention_fwd": (
+            time_ms(torch, lambda: SA.swat_attention_fwd(
+                q, k, v, local, pattern=pat, return_lse=True), iters=5),
+            bound(itm * d * (2 * rows_q + 2 * rows_kv) + 4 * rows_q,
+                  4 * d * n_vis)),
+        "swat_attention_dq": (
+            time_ms(torch, lambda: SB.launch_dq(q, k, v, do, lse, delta,
+                                                local, pat, scale, **kw),
+                    iters=3),
+            bound(itm * d * (3 * rows_q + 2 * rows_kv) + 4 * 2 * rows_q,
+                  6 * d * n_vis)),
+        "swat_attention_dkv": (
+            time_ms(torch, lambda: SB.launch_dkv(q, k, v, do, lse, delta,
+                                                 local, pat, scale, **kw),
+                    iters=3),
+            bound(itm * d * (2 * rows_q + 4 * rows_kv) + 4 * 2 * rows_q,
+                  8 * d * n_vis)),
+    }
+    del q, k, v, do, o, lse, delta
+    qd, kc, vc, nk, nv, ones, cap = _gemma_ring(torch, mk)
+    lens = torch.full((4,), 9000, dtype=torch.int32, device="cuda")
+    # every slot sees the whole window (cap rows): q in, out, K/V rows read
+    # (fused: cap-1 cached rows plus the new one, which it also writes)
+    io_q = 2 * 4 * hq
+    dec_ops = 4 * d * 4 * hq * cap
+    times["swat_decode_fused"] = (
+        time_ms(torch, lambda: SD.swat_decode_fused(
+            qd, kc, vc, nk, nv, lens, ones, local, ring_cap=cap)),
+        bound(itm * d * (io_q + 2 * 4 * hkv * (cap + 1)), dec_ops))
+    times["swat_decode_plain"] = (
+        time_ms(torch, lambda: SD.swat_decode_plain(
+            qd, kc, vc, lens, local, ring_cap=cap)),
+        bound(itm * d * (io_q + 2 * 4 * hkv * cap), dec_ops))
+    out = {k_: {"ms": t, "bound_ms": bd[0], "bound_by": bd[1]}
+           for k_, (t, bd) in times.items()}
+    log("gemma2 D=256 times (bf16, local layer; decode B=4 on a 4097-row "
+        "ring): " + json.dumps(out))
+    del qd, kc, vc, nk, nv
+    torch.cuda.empty_cache()
+    return errs, out
+
+
+# ------------------------------------------------------------ phase 14 ---
+
+def whisper_setup(torch, dtype_name):
+    """Full-width whisper-tiny + SWAT in `dtype_name`, random weights from
+    seed 0, and a batch of 8 clips of random frame embeddings (the conv
+    frontend is a stub) with 16-token prompts, from seed 9."""
+    import dataclasses
+    from repro_torch.configs import get_config, with_swat
+    from repro_torch.core import model as Mod
+    cfg = with_swat(get_config("whisper-tiny"), window=WHISPER["window"],
+                    num_global=WHISPER["num_global"])
+    cfg = dataclasses.replace(cfg, dtype=dtype_name)
+    params = Mod.init_model(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    enc = torch.randn(WHISPER["clips"], WHISPER["frames"], cfg.d_model,
+                      generator=gen, device="cuda")
+    tok = torch.randint(0, cfg.vocab_size,
+                        (WHISPER["clips"], WHISPER["prompt"]),
+                        generator=gen, device="cuda")
+    return cfg, params, {"enc_embeddings": enc, "tokens": tok}
+
+
+def whisper_run(torch, cfg, params, batch, impl, steps, forced=None,
+                keep_logits=False):
+    """Prefill, then `steps` greedy decode steps (fed with `forced[i]`
+    instead of the path's own token when given). Returns (tokens
+    (steps+1, B) on the card, per-step last logits or None, host seconds
+    of the prefill and of the decode steps). Two host syncs: after the
+    prefill and after the last step."""
+    from repro_torch.core import model as Mod
+    t0 = time.perf_counter()
+    logits, caches = Mod.prefill(params, cfg, batch, WHISPER["max_len"],
+                                 impl=impl)
+    tok = logits[:, 0].argmax(-1)
+    toks, kept = [tok], ([logits[:, 0]] if keep_logits else None)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(steps):
+        feed = tok if forced is None else forced[i]
+        logits, caches = Mod.decode_step(params, cfg,
+                                         {"tokens": feed[:, None]}, caches,
+                                         impl=impl)
+        tok = logits[:, 0].argmax(-1)
+        toks.append(tok)
+        if keep_logits:
+            kept.append(logits[:, 0])
+    toks = torch.stack(toks)
+    torch.cuda.synchronize()
+    return toks, kept, {"prefill_s": t1 - t0,
+                        "decode_s": time.perf_counter() - t1}
+
+
+def whisper(torch):
+    """Phase 14 (the main run, bf16, launch counts), 15 (kernel vs plain
+    path, bf16 teacher-forced and fp32 free-running) and 16 (times)."""
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_decode as SD
+    steps, clips = WHISPER["steps"], WHISPER["clips"]
+    cfg, params, batch = whisper_setup(torch, "bfloat16")
+    whisper_run(torch, cfg, params, batch, None, 2)     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"swat_attention_fwd": SA.LAUNCHES,
+                "swat_decode_fused": SD.LAUNCHES,
+                "swat_decode_plain": SD.PLAIN_LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    toks, _, host = whisper_run(torch, cfg, params, batch, None, steps)
+    launches = {k: c.n for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    toks_host = toks.cpu()
+    n_enc, n_dec = cfg.encoder_layers, cfg.num_layers
+    passes = 2 if cfg.attention.num_global else 1  # band + global rows
+    expected = {"swat_attention_fwd": n_enc * passes + n_dec * passes
+                + n_dec,                 # encoder, decoder self, cross
+                "swat_decode_fused": n_dec * steps,
+                "swat_decode_plain": n_dec * steps}
+    if launches != expected:
+        raise AssertionError(f"whisper launches {launches}, expected "
+                             f"{expected}")
+    if int(toks_host.min()) < 0 or int(toks_host.max()) >= cfg.vocab_size:
+        raise AssertionError("whisper: token out of range")
+    summary = {"clips": clips, "frames": WHISPER["frames"],
+               "prompt": WHISPER["prompt"], "decode_steps": steps,
+               "tokens_per_clip": steps + 1,
+               "prefill_ms": host["prefill_s"] * 1e3,
+               "decode_ms_per_step": host["decode_s"] * 1e3 / steps,
+               "decode_tokens_per_s": clips * steps / host["decode_s"],
+               "peak_mem_gb": peak, "launches": launches,
+               "expected_launches": expected,
+               "distinct_tokens": int(toks_host.unique().numel())}
+    log("whisper: " + json.dumps(summary))
+
+    # phase 15a: bf16, both paths teacher-forced on the main run's tokens
+    _, logits_k, _ = whisper_run(torch, cfg, params, batch, None, steps,
+                                 forced=toks[:-1], keep_logits=True)
+    _, logits_p, _ = whisper_run(torch, cfg, params, batch, "banded", steps,
+                                 forced=toks[:-1], keep_logits=True)
+    if not all(bool(torch.isfinite(x).all()) for x in logits_k):
+        raise AssertionError("whisper: non-finite logits")
+    diffs = [max_err(a, b) for a, b in zip(logits_k, logits_p)]
+    agree = sum((a.argmax(-1) == b.argmax(-1)).float().mean().item()
+                for a, b in zip(logits_k, logits_p)) / len(logits_k)
+    del logits_k, logits_p
+    e2e = {"bf16_max_abs_logit_diff": max(diffs),
+           "bf16_logit_bound": WHISPER_LOGIT_BOUND,
+           "bf16_greedy_agreement": agree, "steps": steps}
+
+    # phase 16: device times and a traced decode block, bf16 model
+    times = whisper_times(torch, cfg, params, batch)
+    log("whisper times: " + json.dumps(times))
+    del params
+    torch.cuda.empty_cache()
+
+    # phase 15b: fp32, both paths free-running: greedy tokens equal, and
+    # (on those equal tokens) logits within WHISPER_FP32_LOGIT_BOUND
+    cfg32, p32, b32 = whisper_setup(torch, "float32")
+    tk, lk, _ = whisper_run(torch, cfg32, p32, b32, None, steps,
+                            keep_logits=True)
+    tp, lp, _ = whisper_run(torch, cfg32, p32, b32, "banded", steps,
+                            keep_logits=True)
+    same = torch.equal(tk, tp)
+    first_diff = (None if same else
+                  int((tk != tp).any(dim=1).nonzero()[0, 0]))
+    fp32_diff = max(max_err(a, b) for a, b in zip(lk, lp))
+    del lk, lp
+    e2e.update(fp32_tokens_equal=same, fp32_first_differing_step=first_diff,
+               fp32_max_abs_logit_diff=fp32_diff,
+               fp32_logit_bound=WHISPER_FP32_LOGIT_BOUND,
+               fp32_distinct_tokens=int(tk.unique().numel()))
+    log("whisper e2e kernel vs plain: " + json.dumps(e2e))
+    del p32
+    torch.cuda.empty_cache()
+    if not same:
+        raise AssertionError(f"whisper fp32: kernel path tokens differ from "
+                             f"the plain path's from step {first_diff}")
+    if not fp32_diff <= WHISPER_FP32_LOGIT_BOUND:
+        raise AssertionError(f"whisper fp32 kernel vs plain path: {e2e}")
+    if not max(diffs) <= WHISPER_LOGIT_BOUND:
+        raise AssertionError(f"whisper bf16 kernel vs plain path: {e2e}")
+    return summary, e2e, times
+
+
+def whisper_times(torch, cfg, params, batch):
+    """Encoder and prefill device times (CUDA events, mean of 5), and a
+    profiled decode block of 8 steps split by kernel category."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import model as Mod
+
+    def timed(fn, n=5):
+        fn()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / n
+
+    with torch.no_grad():
+        enc_ms = timed(lambda: Mod.encode(params, cfg, batch))
+    pre_ms = timed(lambda: Mod.prefill(params, cfg, batch,
+                                       WHISPER["max_len"]))
+    logits, caches = Mod.prefill(params, cfg, batch, WHISPER["max_len"])
+    tok = logits[:, 0].argmax(-1)
+    n = 8
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            logits, caches = Mod.decode_step(params, cfg,
+                                             {"tokens": tok[:, None]}, caches)
+            tok = logits[:, 0].argmax(-1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out = {"encoder_ms": enc_ms, "prefill_ms": pre_ms, "trace_steps": n,
+           "trace_wall_ms": wall_ms}
+    dt = torch.autograd.DeviceType
+    kernels = [e for e in prof.events() if e.device_type == dt.CUDA]
+    if not kernels:
+        out["device_time"] = "not measured (no device events traced)"
+        return out
+    by_cat = {}
+    for e in kernels:
+        name = e.name.lower()
+        cat = next((c for c, keys in _CATEGORIES
+                    if any(k_ in name for k_ in keys)), "other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = _union_ms([e.time_range for e in kernels])
+    calls = n * cfg.num_layers
+    plain = {}
+    for e in kernels:
+        for part in ("partial", "combine"):
+            if f"decode_plain_{part}" in e.name:
+                plain[part] = (plain.get(part, 0.0)
+                               + e.time_range.elapsed_us() / calls)
+    out.update(device_kernels_per_step=len(kernels) / n,
+               plain_decode_us_per_call=plain,
+               device_ms_per_step_by_category={
+                   k: v / n for k, v in sorted(by_cat.items())},
+               device_busy_ms_per_step=busy / n,
+               device_busy_share=busy / wall_ms)
+    return out
+
+
+def time_decode_plain(torch):
+    """Kernel #3 at whisper's cross shape (B=8, 6 heads, T=1, D=64, 1500
+    encoder rows, bf16): the kernel, its plain version, and SDPA on the
+    same q, K, V (dense, no mask: the same function)."""
+    import torch.nn.functional as F
+    from repro_torch.core.types import AttentionSpec
+    from repro_torch.kernels import swat_decode as SD
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    b, h, d, n = WHISPER["clips"], 6, 64, WHISPER["frames"]
+    mk = lambda *s: torch.randn(*s, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+    q, kc, vc = mk(b, h, 1, d), mk(b, h, n, d), mk(b, h, n, d)
+    pos = torch.full((b,), n, dtype=torch.int32, device="cuda")
+    spec = AttentionSpec(kind="dense", causal=False)
+    k_ms = time_ms(torch, lambda: SD.swat_decode_plain(q, kc, vc, pos, spec))
+    p_ms = time_ms(torch, lambda: SD.swat_decode_plain_ref(q, kc, vc, pos,
+                                                           spec))
+    l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, kc, vc))
+    bytes_ = 2 * d * (2 * b * h + 2 * b * h * n)
+    ops_ = 4 * d * b * h * n
+    return k_ms, p_ms, l_ms, bytes_, ops_
+
+
 def bound(bytes_, ops_, dtype_name="bfloat16"):
     tb = bytes_ / HBM_BYTES_PER_S * 1e3
     to = ops_ / PEAK_OPS[dtype_name] * 1e3
@@ -919,6 +1430,12 @@ def main():
     del tr_state
     tr_e2e = train_end_to_end(torch, cfg)
     resume = resume_drill(torch)
+
+    plain_err = check_decode_plain(torch)
+    g2_errs, g2_times = check_gemma2(torch)
+    wh, wh_e2e, wh_times = whisper(torch)
+    pk, pp, pl, pb, po = time_decode_plain(torch)
+    pb_ms, pb_by = bound(pb, po)
     kernels = [
         {"name": "swat_decode_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/swat_decode.cu",
@@ -932,6 +1449,12 @@ def main():
          "launches": summary["launches"]["swat_attention_fwd"],
          "max_abs_err": fwd_err, "ms": fk, "plain_ms": fp,
          "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": fl},
+        {"name": "swat_decode_plain", "route": "cuda",
+         "source": "src/repro_torch/csrc/swat_decode.cu",
+         "replaces": "src/repro/kernels/swat_decode.py:368",
+         "launches": wh["launches"]["swat_decode_plain"],
+         "max_abs_err": plain_err, "ms": pk, "plain_ms": pp,
+         "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": pl},
     ]
     for name, key, err in (("swat_attention_dq", "dq", dq_err),
                            ("swat_attention_dkv", "dkv", dkv_err)):
@@ -954,6 +1477,13 @@ def main():
     log(f"train trace: {json.dumps(ttrace)}")
     log(f"train e2e: {json.dumps(tr_e2e)}")
     log(f"resume: {json.dumps(resume)}")
+    log(f"gemma2 D=256 errors (bf16): {json.dumps(g2_errs)}")
+    log(f"gemma2 D=256 times: {json.dumps(g2_times)}")
+    log(f"whisper: {json.dumps(wh)}")
+    log(f"whisper e2e: {json.dumps(wh_e2e)}")
+    log(f"whisper times: {json.dumps(wh_times)}")
+    log(f"plain decode at the cross shape: kernel {pk:.4f} ms, plain "
+        f"{pp:.4f} ms, SDPA {pl:.4f} ms, bound {pb_ms:.5f} ms ({pb_by})")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,6 +10,7 @@ given, and its `step`), where the JAX engine donated the cache buffers.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -76,6 +77,21 @@ def apply_rope(x: torch.Tensor, positions: Optional[torch.Tensor] = None,
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=32)
+def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:
+    """(length, d) fp32 absolute position table (whisper): sin in the even
+    columns, cos in the odd ones, angle pos / 10000^(2i/d). Built once per
+    (length, d, device): decode adds it on every step. Callers must not
+    write to it."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, dim / d)
+    pe = torch.zeros((length, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
+
+
 # ------------------------------------------------------------ attention ----
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +104,7 @@ class AttentionLayerCfg:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     use_rope: bool = True
+    cross: bool = False          # cross-attention (whisper decoder)
 
 
 def init_attention(gen: torch.Generator, cfg: AttentionLayerCfg, dtype,
@@ -119,14 +136,17 @@ def _project_qkv(params: Params, cfg: AttentionLayerCfg, x, kv_x):
 
 
 def attention_layer(params: Params, cfg: AttentionLayerCfg, x, *,
-                    positions=None, impl: Optional[str] = None,
+                    kv_x=None, positions=None, impl: Optional[str] = None,
                     return_kv: bool = False):
-    """Full-sequence self-attention (prefill). x: (B, L, Dm). With
-    `return_kv`, returns (out, k, v) with the roped k and v (B, Hkv, L, D)
-    that `prefill_kv_cache` stores, so prefill projects each layer once."""
+    """Full-sequence attention (prefill, training). x: (B, L, Dm); kv_x:
+    (B, Lkv, Dm) for cross attention (defaults to x). With `return_kv`,
+    returns (out, k, v) with the (roped, for rotary self-attention) k and v
+    (B, Hkv, Lkv, D) that `prefill_kv_cache` stores, or the cross cache
+    holds, so prefill projects each layer once."""
     b, l, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x, x)
-    if cfg.use_rope:
+    kv_x = x if kv_x is None else kv_x
+    q, k, v = _project_qkv(params, cfg, x, kv_x)
+    if cfg.use_rope and not cfg.cross:
         pos = (torch.arange(l, device=x.device) if positions is None
                else positions)
         rope = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
@@ -135,6 +155,23 @@ def attention_layer(params: Params, cfg: AttentionLayerCfg, x, *,
     out = kops.swat_attention(q, k, v, cfg.spec, impl=impl)
     out = out.transpose(1, 2).reshape(b, l, -1) @ params["wo"]
     return (out, k, v) if return_kv else out
+
+
+def cross_attention_decode(params: Params, cfg: AttentionLayerCfg, x, cache,
+                           enc_len: torch.Tensor, *,
+                           impl: Optional[str] = None):
+    """Cross-attention of T decoder tokens over the encoder's K/V held in
+    `cache` ("xk"/"xv", (B, Hkv, Lenc, D)). x: (B, T, Dm); enc_len: (B,)
+    int32 encoder rows per slot. A plain-mode `decode_attention` (the
+    plain decode CUDA kernel on the card). Returns (B, T, Dm)."""
+    b, t, _ = x.shape
+    q = x @ params["wq"]
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+    out = kops.decode_attention(q.contiguous(), cache["xk"], cache["xv"],
+                                enc_len, cfg.spec, impl=impl)
+    return out.transpose(1, 2).reshape(b, t, -1) @ params["wo"]
 
 
 # KV cache ------------------------------------------------------------------

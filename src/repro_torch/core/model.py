@@ -1,18 +1,21 @@
-"""Attention-only decoder LM (the port of the JAX package's `core/model.py`
-for the layer kinds "attn" and "local_attn").
+"""Attention decoder LMs and the whisper encoder-decoder (the port of the
+JAX package's `core/model.py` for the layer kinds "attn", "local_attn" and
+"xattn").
 
 Params are a plain dict with the JAX package's leaf layouts, except that
-the stacked super-blocks (`blocks/l{i}/...` with a leading num_super_blocks
-axis) are a Python list of per-super-block dicts (`interop.params_from_jax`
-unstacks them). Caches follow the same rule: a list over super-blocks of
-{"l{i}": ring cache}. Decode updates caches IN PLACE.
+the stacked super-blocks (`blocks/l{i}/...` and `enc_blocks/l0/...`, each
+with a leading num_super_blocks axis) are Python lists of per-super-block
+dicts (`interop.params_from_jax` unstacks them). Caches follow the same
+rule: a list over super-blocks of {"l{i}": ring cache}; an "xattn" layer's
+cache also holds the encoder's cross K/V ("xk", "xv"). Decode updates
+caches IN PLACE.
 
 `impl` selects the attention implementation (see `kernels/ops.py`); the
 default is the CUDA kernels for CUDA tensors and the plain versions for CPU
 tensors. Training differentiates `loss_fn` with autograd, recomputing each
-super-block in the backward pass under `REMAT_POLICIES`. Other layer kinds
-(mamba, MoE, cross-attention) raise NotImplementedError: they belong to
-later slices.
+super-block in the backward pass under `REMAT_POLICIES`; `prefill` and
+`decode_step` run without autograd. The layer kinds "mamba*" and "*_moe"
+raise NotImplementedError: they belong to later slices.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from repro_torch.core.types import AttentionSpec, ModelConfig
 
 Params = Dict[str, Any]
 Caches = List[Dict[str, Dict[str, torch.Tensor]]]
-_KINDS = ("attn", "local_attn")
+_KINDS = ("attn", "local_attn", "xattn")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -40,20 +43,19 @@ def _check_supported(cfg: ModelConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {bad} are not ported (only {_KINDS})")
-    if not cfg.embed_inputs or not cfg.use_rope or cfg.encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: frontend stubs, sinusoidal positions and "
-            "encoder-decoder models are not ported")
 
 
-def attn_cfg(cfg: ModelConfig, kind: str,
+def attn_cfg(cfg: ModelConfig, kind: str, cross: bool = False,
              index: Optional[int] = None) -> L.AttentionLayerCfg:
-    """index: position within cfg.layer_pattern; when cfg.window_schedule
+    """cross: the whisper decoder's cross-attention (dense, non-causal).
+    index: position within cfg.layer_pattern; when cfg.window_schedule
     names a window there, it overrides this layer's attention spec (sparse
     specs keep num_global/softcap; dense specs become causal swat
     windows)."""
     spec = cfg.local_attention if kind == "local_attn" else cfg.attention
-    if (index is not None and cfg.window_schedule is not None
+    if cross:
+        spec = AttentionSpec(kind="dense", causal=False)
+    elif (index is not None and cfg.window_schedule is not None
             and cfg.window_schedule[index] is not None):
         w = cfg.window_schedule[index]
         if spec.is_sparse:
@@ -65,10 +67,36 @@ def attn_cfg(cfg: ModelConfig, kind: str,
         d_model=cfg.d_model, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
         spec=spec, qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta,
-        use_rope=cfg.use_rope)
+        use_rope=cfg.use_rope, cross=cross)
+
+
+@functools.lru_cache(maxsize=64)
+def cfg_encoder(cfg: ModelConfig) -> ModelConfig:
+    """Whisper encoder: bidirectional self-attention, no causality."""
+    return dataclasses.replace(
+        cfg, layer_pattern=("attn",), use_rope=False, window_schedule=None,
+        attention=dataclasses.replace(cfg.attention, causal=False))
 
 
 # ------------------------------------------------------------------ init ---
+
+def _init_super_block(gen: torch.Generator, cfg: ModelConfig, dt,
+                      device) -> Params:
+    blk = {}
+    for i, kind in enumerate(cfg.layer_pattern):
+        p: Params = {"norm1": L.init_rmsnorm(cfg.d_model, device)}
+        p["mixer"] = L.init_attention(gen, attn_cfg(cfg, kind, index=i), dt,
+                                      device)
+        if kind == "xattn":
+            p["norm_x"] = L.init_rmsnorm(cfg.d_model, device)
+            p["cross"] = L.init_attention(
+                gen, attn_cfg(cfg, kind, cross=True), dt, device)
+        if cfg.d_ff > 0:
+            p["norm2"] = L.init_rmsnorm(cfg.d_model, device)
+            p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)
+        blk[f"l{i}"] = p
+    return blk
+
 
 def init_model(cfg: ModelConfig, *, seed: int = 0,
                device="cuda") -> Params:
@@ -81,27 +109,23 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = _dtype(cfg)
-    params: Params = {
-        "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                              device=device) * 0.02).to(dt)}
-    blocks = []
-    for _ in range(cfg.num_super_blocks):
-        blk = {}
-        for i, kind in enumerate(cfg.layer_pattern):
-            p: Params = {"norm1": L.init_rmsnorm(cfg.d_model, device)}
-            p["mixer"] = L.init_attention(gen, attn_cfg(cfg, kind, index=i),
-                                          dt, device)
-            if cfg.d_ff > 0:
-                p["norm2"] = L.init_rmsnorm(cfg.d_model, device)
-                p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)
-            blk[f"l{i}"] = p
-        blocks.append(blk)
-    params["blocks"] = blocks
+    params: Params = {}
+    if cfg.embed_inputs:
+        params["embed"] = (torch.randn((cfg.vocab_size, cfg.d_model),
+                                       generator=gen, device=device)
+                           * 0.02).to(dt)
+    params["blocks"] = [_init_super_block(gen, cfg, dt, device)
+                        for _ in range(cfg.num_super_blocks)]
     params["final_norm"] = L.init_rmsnorm(cfg.d_model, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab_size),
                                          generator=gen, device=device)
                              * 0.02).to(dt)
+    if cfg.encoder_decoder:
+        ecfg = cfg_encoder(cfg)
+        params["enc_blocks"] = [_init_super_block(gen, ecfg, dt, device)
+                                for _ in range(cfg.encoder_layers)]
+        params["enc_norm"] = L.init_rmsnorm(cfg.d_model, device)
     return params
 
 
@@ -109,9 +133,20 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 
 def embed_tokens(params: Params, cfg: ModelConfig,
                  batch: Dict[str, Any]) -> torch.Tensor:
-    x = params["embed"][batch["tokens"].long()]
+    """Token embeddings, or the precomputed `"embeddings"` of a frontend
+    stub (VLM patches, audio frames) cast to the model dtype; sinusoidal
+    absolute positions are added when the config has no rope (whisper)."""
+    if "embeddings" in batch:
+        x = batch["embeddings"].to(_dtype(cfg))
+    elif cfg.embed_inputs:
+        x = params["embed"][batch["tokens"].long()]
+    else:
+        raise ValueError("batch needs 'tokens' or 'embeddings'")
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if not cfg.use_rope:
+        x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                       x.device).to(x.dtype)[None]
     return x
 
 
@@ -169,8 +204,10 @@ REMAT_POLICIES = {
 
 
 def _stack_forward(blocks, cfg: ModelConfig, x, *, impl: Optional[str],
-                   remat: bool, remat_policy: str = "nothing"):
-    """Run every super-block. With `remat` (and autograd recording), each
+                   remat: bool, remat_policy: str = "nothing",
+                   enc_out=None):
+    """Run every super-block (enc_out: the encoder's output, which "xattn"
+    layers attend). With `remat` (and autograd recording), each
     super-block is a `torch.utils.checkpoint` region under
     REMAT_POLICIES[remat_policy]: its activations are recomputed in the
     backward pass (the JAX package's jax.checkpoint around the scan body)."""
@@ -183,6 +220,11 @@ def _stack_forward(blocks, cfg: ModelConfig, x, *, impl: Optional[str],
             x = x + L.attention_layer(p["mixer"],
                                       attn_cfg(cfg, kind, index=i), h,
                                       impl=impl)
+            if kind == "xattn":
+                h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
+                x = x + L.attention_layer(p["cross"],
+                                          attn_cfg(cfg, kind, cross=True), h,
+                                          kv_x=enc_out, impl=impl)
             x = _ffn(p, cfg, x)
         return x
 
@@ -198,15 +240,31 @@ def _stack_forward(blocks, cfg: ModelConfig, x, *, impl: Optional[str],
     return x
 
 
+def encode(params: Params, cfg: ModelConfig, batch, *,
+           impl: Optional[str] = None) -> torch.Tensor:
+    """Whisper encoder over precomputed frame embeddings
+    (batch["enc_embeddings"], (B, Lenc, Dm); the conv frontend is a stub):
+    sinusoidal positions, the bidirectional (SWAT band, under with_swat)
+    self-attention stack, final norm."""
+    x = batch["enc_embeddings"].to(_dtype(cfg))
+    x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                   x.device).to(x.dtype)[None]
+    x = _stack_forward(params["enc_blocks"], cfg_encoder(cfg), x, impl=impl,
+                       remat=False)
+    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
 def forward_logits(params: Params, cfg: ModelConfig, batch, *,
                    impl: Optional[str] = None, remat: bool = False,
                    remat_policy: str = "nothing") -> torch.Tensor:
     """Full-sequence logits (B, L, V), fp32. `remat` recomputes each
     super-block in the backward pass (training); serving leaves it off."""
     _check_supported(cfg)
+    enc_out = (encode(params, cfg, batch, impl=impl)
+               if cfg.encoder_decoder else None)
     x = embed_tokens(params, cfg, batch)
     x = _stack_forward(params["blocks"], cfg, x, impl=impl, remat=remat,
-                       remat_policy=remat_policy)
+                       remat_policy=remat_policy, enc_out=enc_out)
     return _unembed(params, cfg, x)
 
 
@@ -216,7 +274,7 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, *,
     """Next-token cross entropy in fp32. batch["labels"]: (B, L) int;
     positions with label < 0 are masked out. Returns (total, {"loss",
     "aux_loss", "tokens"}) as 0-dim tensors; aux is zero for the ported
-    (attention-only) layer kinds."""
+    layer kinds (no MoE)."""
     logits = forward_logits(params, cfg, batch, impl=impl, remat=remat,
                             remat_policy=remat_policy)
     labels = batch["labels"].long()
@@ -238,52 +296,87 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, *,
 # --------------------------------------------------------------- serving ---
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                lookahead: int = 0, device="cuda") -> Caches:
-    """Per-super-block decode caches (zeroed rings, step 0)."""
+                enc_len: int = 0, lookahead: int = 0,
+                device="cuda") -> Caches:
+    """Per-super-block decode caches (zeroed rings, step 0); "xattn" layers
+    also get zeroed cross K/V ("xk", "xv") of max(enc_len, 1) rows."""
     _check_supported(cfg)
-    return [{f"l{i}": L.init_kv_cache(attn_cfg(cfg, kind, index=i), batch,
-                                      max_len, dtype=_dtype(cfg),
-                                      lookahead=lookahead, device=device)
+    dt = _dtype(cfg)
+
+    def layer(i, kind):
+        cache = L.init_kv_cache(attn_cfg(cfg, kind, index=i), batch, max_len,
+                                dtype=dt, lookahead=lookahead, device=device)
+        if kind == "xattn":
+            shape = (batch, cfg.num_kv_heads, max(enc_len, 1),
+                     cfg.resolved_head_dim)
+            cache["xk"] = torch.zeros(shape, dtype=dt, device=device)
+            cache["xv"] = torch.zeros(shape, dtype=dt, device=device)
+        return cache
+
+    return [{f"l{i}": layer(i, kind)
              for i, kind in enumerate(cfg.layer_pattern)}
             for _ in range(cfg.num_super_blocks)]
 
 
+@torch.no_grad()
 def decode_step(params: Params, cfg: ModelConfig, batch, caches: Caches, *,
                 impl: Optional[str] = None, lookahead: int = 0):
-    """T tokens for every sequence (usually T=1). batch: {"tokens": (B, T)}.
-    Per-slot cache steps: rows may sit at different positions. T > 1 needs
-    caches allocated with lookahead >= T-1. Caches update IN PLACE. Returns
-    (logits (B, T, V) fp32, caches)."""
+    """T tokens for every sequence (usually T=1). batch: {"tokens": (B, T)}
+    (or {"embeddings": (B, T, Dm)}). Per-slot cache steps: rows may sit at
+    different positions. T > 1 needs caches allocated with lookahead >=
+    T-1. "xattn" layers attend the cross K/V that prefill stored. Caches
+    update IN PLACE. Runs without autograd. Returns (logits (B, T, V)
+    fp32, caches)."""
     _check_supported(cfg)
     x = embed_tokens(params, cfg, batch)
-    b, t = batch["tokens"].shape
+    b, t = x.shape[:2]
     # every layer's cache advances together, so the rope tables at
-    # step + arange(T) and the per-slot row count are the same for all
-    # layers: build them once per step (each is several launches)
-    step = caches[0]["l0"]["step"]
-    pos = step.long()[:, None, None] + torch.arange(t, device=step.device)
-    rope = L.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
+    # step + arange(T), the per-slot row count and the encoder length are
+    # the same for all layers: build them once per step (each is several
+    # launches)
+    first = caches[0]["l0"]
+    step = first["step"]
+    rope = None
+    if cfg.use_rope:
+        pos = step.long()[:, None, None] + torch.arange(t, device=step.device)
+        rope = L.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
     num_new = torch.full((b,), t, dtype=torch.int32, device=step.device)
+    enc_len = (torch.full((b,), first["xk"].shape[2], dtype=torch.int32,
+                          device=step.device) if "xk" in first else None)
     for blk, blk_cache in zip(params["blocks"], caches):
         for i, kind in enumerate(cfg.layer_pattern):
-            p = blk[f"l{i}"]
+            p, cache = blk[f"l{i}"], blk_cache[f"l{i}"]
             h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
             y, _ = L.attention_decode(p["mixer"],
                                       attn_cfg(cfg, kind, index=i), h,
-                                      blk_cache[f"l{i}"], impl=impl,
-                                      lookahead=lookahead, rope=rope,
-                                      num_new=num_new)
-            x = _ffn(p, cfg, x + y)
+                                      cache, impl=impl, lookahead=lookahead,
+                                      rope=rope, num_new=num_new)
+            x = x + y
+            if kind == "xattn":
+                h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
+                x = x + L.cross_attention_decode(
+                    p["cross"], attn_cfg(cfg, kind, cross=True), h, cache,
+                    enc_len, impl=impl)
+            x = _ffn(p, cfg, x)
     return _unembed(params, cfg, x), caches
 
 
+@torch.no_grad()
 def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
             impl: Optional[str] = None, lengths=None, lookahead: int = 0):
     """Run the prompt, return (last-position logits (B, 1, V), primed
     caches). lengths: optional (B,) real prompt lengths of a right-padded
     batch — per-row cache steps, and logits gathered at each row's last
-    real token. Causality makes the pad tail inert."""
+    real token. Causality makes the pad tail inert. Encoder-decoder
+    configs run the encoder over batch["enc_embeddings"] first, and each
+    "xattn" layer stores the encoder's cross K/V in its cache ("xk",
+    "xv"); they take no `lengths`, as in the JAX package. Runs without
+    autograd."""
     _check_supported(cfg)
+    if lengths is not None and cfg.encoder_decoder:
+        raise ValueError("padded prefill: decoder-only models")
+    enc_out = (encode(params, cfg, batch, impl=impl)
+               if cfg.encoder_decoder else None)
     x = embed_tokens(params, cfg, batch)
     b, l, _ = x.shape
     caches: Caches = []
@@ -295,9 +388,17 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
             h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
             y, k, v = L.attention_layer(p["mixer"], acfg, h, impl=impl,
                                         return_kv=True)
-            new_caches[f"l{i}"] = L.prefill_kv_cache(
-                acfg, k, v, max_len, lengths=lengths, lookahead=lookahead)
-            x = _ffn(p, cfg, x + y)
+            cache = L.prefill_kv_cache(acfg, k, v, max_len, lengths=lengths,
+                                       lookahead=lookahead)
+            x = x + y
+            if kind == "xattn":
+                h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
+                y, cache["xk"], cache["xv"] = L.attention_layer(
+                    p["cross"], attn_cfg(cfg, kind, cross=True), h,
+                    kv_x=enc_out, impl=impl, return_kv=True)
+                x = x + y
+            new_caches[f"l{i}"] = cache
+            x = _ffn(p, cfg, x)
         caches.append(new_caches)
     if lengths is None:
         last = x[:, -1:]

@@ -37,6 +37,11 @@
 // block visits it, so its CTAs do ~nq times the row visits of the others:
 // a load imbalance left for later work.
 //
+// Head dim 256 (gemma2-2b): both kernels keep their structure, but a
+// thread's D-wide register rows (q and dQ; dK and dV) spill to local memory,
+// and dK/dV keeps the thread's own K and V rows in local memory too, since
+// at block_kv 128 they would need 266 KB of shared memory. Right, and slow.
+//
 // Deterministic by construction: no atomics and no split reductions; every
 // accumulator is summed by one thread in a fixed order, so two launches on
 // the same inputs give bitwise-equal outputs.
@@ -231,6 +236,11 @@ __global__ void attention_dq_kernel(
 
 // ---------------------------------------------------------------- dK/dV ---
 
+// Whether a dK/dV thread keeps its own K and V rows in shared memory (padded
+// rows, conflict-free float4 reads) or, at D=256, in its own local memory.
+template <int D>
+__host__ __device__ constexpr bool own_rows_in_smem() { return D <= 128; }
+
 template <typename T, int D>
 __global__ void attention_dkv_kernel(
     const T* __restrict__ q,      // (B, Hq, Lq, D)
@@ -246,10 +256,11 @@ __global__ void attention_dkv_kernel(
     int hq, int hkv, int lq, int lkv, int num_slots, int block_q,
     int block_kv, Spec sp) {
   constexpr int DP = D + 4;
+  constexpr bool kOwnSmem = own_rows_in_smem<D>();
   extern __shared__ float4 smem4[];
   float* kown = reinterpret_cast<float*>(smem4);  // (blockDim.x, DP)
-  float* vown = kown + blockDim.x * DP;           // (blockDim.x, DP)
-  float* qs = vown + blockDim.x * DP;             // (QT, D), q * scale
+  float* vown = kown + (kOwnSmem ? blockDim.x * DP : 0);  // (blockDim.x, DP)
+  float* qs = vown + (kOwnSmem ? blockDim.x * DP : 0);    // (QT, D), q*scale
   float* dos = qs + QT * D;                       // (QT, D)
   float* ls = dos + QT * D;                       // (QT)
   float* dls = ls + QT;                           // (QT)
@@ -264,8 +275,12 @@ __global__ void attention_dkv_kernel(
   const int k_idx = sp.kv_offset + col;
   const size_t krow = ((size_t)b * hkv + hk) * lkv + col;
 
-  float* kr = kown + c * DP;
-  float* vr = vown + c * DP;
+  // above D=128 the own rows (2 x 128 x 260 floats) outgrow shared memory
+  // and stay with the thread, in local memory
+  alignas(16) float kloc[kOwnSmem ? 4 : D];
+  alignas(16) float vloc[kOwnSmem ? 4 : D];
+  float* kr = kOwnSmem ? kown + c * DP : kloc;
+  float* vr = kOwnSmem ? vown + c * DP : vloc;
   float dk_acc[D];
   float dv_acc[D];
 #pragma unroll
@@ -366,8 +381,8 @@ int launch_dq(const Args& a, Spec sp, cudaStream_t stream) {
 template <typename T, int D>
 int launch_dkv(const Args& a, Spec sp, cudaStream_t stream) {
   const int threads = ((a.block_kv + 31) / 32) * 32;
-  const size_t smem =
-      (2 * (size_t)threads * (D + 4) + 2 * QT * D + 2 * QT) * sizeof(float);
+  const size_t own = own_rows_in_smem<D>() ? 2 * (size_t)threads * (D + 4) : 0;
+  const size_t smem = (own + 2 * QT * D + 2 * QT) * sizeof(float);
   auto kern = attention_dkv_kernel<T, D>;
   if (int err = set_smem(kern, smem)) return err;
   dim3 grid(a.nblocks, a.hkv, a.b);
@@ -391,6 +406,7 @@ int dispatch_d(int d, const Args& a, Spec sp, cudaStream_t stream) {
     SWAT_BWD_CASE(32)
     SWAT_BWD_CASE(64)
     SWAT_BWD_CASE(128)
+    SWAT_BWD_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -10,7 +10,9 @@
 // pair, ~(window+1) pairs per causal row, against Q, K, V, O and the LSE
 // moved once. At the serving prefill shapes (L=512, window 256, head dim 64)
 // the two bounds (bytes at 3.35 TB/s, bf16 flops at the tensor-core peak)
-// are of the same order. This first version computes QK^T and PV with plain
+// are of the same order. At head dim 256 (gemma2-2b) a thread's q row and
+// accumulator (2 x 256 floats) exceed the 255-register limit and live in
+// local memory: right, and slow. This first version computes QK^T and PV with plain
 // fp32 FMAs from shared-memory tiles (no tensor cores, no TMA), so its real
 // ceiling is the fp32 FMA rate: it is compute bound. The design keeps every
 // intermediate (scores, probabilities, the running max, sum and accumulator)
@@ -186,6 +188,7 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
     SWAT_FWD_CASE(32)
     SWAT_FWD_CASE(64)
     SWAT_FWD_CASE(128)
+    SWAT_FWD_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }

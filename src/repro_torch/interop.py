@@ -3,9 +3,11 @@ into the port's layout, and back. Takes and gives numpy only: the caller
 (the parity tests) moves arrays between numpy and JAX; this module never
 imports JAX.
 
-JAX stacks the super-blocks: every leaf under `blocks/l{i}/...` (and every
-cache leaf) has a leading num_super_blocks axis. The port keeps a Python
-list with one dict per super-block, so the converters unstack that axis.
+JAX stacks the super-blocks: every leaf under `blocks/l{i}/...` and
+`enc_blocks/l0/...` (whisper's encoder, one super-block per encoder layer),
+and every cache leaf (the "xattn" cross K/V "xk"/"xv" included), has a
+leading num_super_blocks axis. The port keeps a Python list with one dict
+per super-block, so the converters unstack that axis.
 """
 from __future__ import annotations
 
@@ -42,10 +44,11 @@ def _unstack(tree, n: int, device) -> List[Dict[str, Any]]:
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device="cuda") -> Dict[str, Any]:
     """JAX `model.init_model` params (numpy leaves) -> port params."""
-    out = {k: _map(lambda a: to_torch(a, device), v)
-           for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = _unstack(tree["blocks"], cfg.num_super_blocks, device)
-    return out
+    stacked = {"blocks": cfg.num_super_blocks,
+               "enc_blocks": cfg.encoder_layers}
+    return {k: (_unstack(v, stacked[k], device) if k in stacked
+                else _map(lambda a: to_torch(a, device), v))
+            for k, v in tree.items()}
 
 
 def caches_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
@@ -76,15 +79,16 @@ def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
     layout as numpy: `blocks/l{i}/...` leaves gain a leading
     num_super_blocks axis. The inverse of `params_from_jax`, for comparing
     gradients and trained params leaf by leaf."""
-    if len(params["blocks"]) != cfg.num_super_blocks:
-        raise ValueError(f"{len(params['blocks'])} super-blocks, config has "
-                         f"{cfg.num_super_blocks}")
+    stacked = {"blocks": cfg.num_super_blocks,
+               "enc_blocks": cfg.encoder_layers}
+    for k, n in stacked.items():
+        if k in params and len(params[k]) != n:
+            raise ValueError(f"{len(params[k])} {k}, config has {n}")
 
     def stack(*leaves):
         if isinstance(leaves[0], dict):
             return {k: stack(*[lf[k] for lf in leaves]) for k in leaves[0]}
         return np.stack([_np32(t) for t in leaves])
 
-    out = {k: _map(_np32, v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = stack(*params["blocks"])
-    return out
+    return {k: (stack(*v) if k in stacked else _map(_np32, v))
+            for k, v in params.items()}

@@ -126,25 +126,56 @@ def decode_attention(q, k_cache, v_cache, cache_len, spec: AttentionSpec, *,
                      scale: Optional[float] = None, impl: Optional[str] = None,
                      new_kv=None, num_new=None, pos=None,
                      ring_cap: Optional[int] = None):
-    """Fused decode of T >= 1 tokens vs a ring KV cache. q: (B, Hq, T, D);
-    caches (B, Hkv, W, D); new_kv = (k_new, v_new), each (B, Hkv, T, D).
-    The step's K/V rows are inserted at their ring slots AND attended in
-    the same call. `pos` (required) counts tokens BEFORE the insert;
-    `num_new` optionally limits how many of the T rows are real per slot.
-    `ring_cap` is the LOGICAL rotation modulus (defaults to the cache
-    width). Returns (out, k_cache, v_cache): the caches are the given
-    tensors, updated IN PLACE for every impl (where the JAX engine donated
-    them).
+    """Decode T >= 1 tokens vs a (ring) KV cache. q: (B, Hq, T, D); caches
+    (B, Hkv, W, D). cache_len / pos / num_new are per-slot (scalar, (B,) or
+    (B,1,1,1)). `ring_cap` is the LOGICAL rotation modulus (defaults to the
+    cache width).
 
-    Only the fused mode is ported; the plain mode (new_kv=None) is a later
-    slice and raises NotImplementedError."""
-    if new_kv is None:
-        raise NotImplementedError(
-            "decode_attention without new_kv (plain decode) is not ported")
+    * plain (new_kv=None): the cache already holds everything; `cache_len`
+      is the valid count (or `pos` the absolute token count) and the query
+      tokens are its newest. Returns out. impl "kernel" runs the plain-mode
+      CUDA kernel (`swat_decode_plain`) with positional masks from
+      pos = cache_len, as the JAX package's pallas impl does; the plain
+      impls follow the JAX ref routing: positional masks for T > 1 or a
+      ring wider than the band, else the valid-prefix mask. The JAX model
+      calls this mode at its default impl="ref" (whisper's cross attention,
+      `model.py:378`); the port sends it to the kernel on the card, where
+      it runs no plain version.
+    * fused (new_kv = (k_new, v_new), each (B, Hkv, T, D)): the step's K/V
+      rows are inserted at their ring slots AND attended in the same call.
+      `pos` (required) counts tokens BEFORE the insert; `num_new`
+      optionally limits how many of the T rows are real per slot. Returns
+      (out, k_cache, v_cache): the caches are the given tensors, updated
+      IN PLACE for every impl (where the JAX engine donated them)."""
     b, _, t, _ = q.shape
     w_phys = k_cache.shape[2]
     cap = w_phys if ring_cap is None else int(ring_cap)
     g = spec.num_global if spec.is_sparse else 0
+    impl = _resolve(impl, q)
+    dev = q.device
+    if new_kv is None:
+        wide = bool(spec.is_sparse and spec.window
+                    and cap > spec.window + 1 + g)
+        if wide and pos is None:
+            raise ValueError(
+                "window masking on a cache wider than window+1+globals needs "
+                "absolute per-slot `pos=` (cache_len is clamped and loses "
+                "the ring phase after a wrap)")
+        if cache_len is None and pos is None:
+            raise ValueError("plain decode needs cache_len (valid prefix) or "
+                             "pos (absolute token count)")
+        cl = _per_slot(cache_len if cache_len is not None else 0, b, dev)
+        pos = cl if pos is None else _per_slot(pos, b, dev)
+        if impl == "kernel":
+            return dec_mod.swat_decode_plain(q.contiguous(), k_cache,
+                                             v_cache, pos, spec,
+                                             ring_cap=cap, scale=scale)
+        if t > 1 or wide:
+            return dec_mod.swat_decode_plain_ref(q, k_cache, v_cache, pos,
+                                                 spec, ring_cap=cap,
+                                                 scale=scale)
+        return ref_impl.decode_ref(q, k_cache, v_cache, spec, cache_len=cl,
+                                   scale=scale)
     if pos is None:
         raise ValueError("fused insert needs per-slot `pos`")
     if t > cap - g:
@@ -156,8 +187,6 @@ def decode_attention(q, k_cache, v_cache, cache_len, spec: AttentionSpec, *,
             f"T={t} fused decode on a {cap - g}-row ring would evict tokens "
             "still inside early queries' windows (sequential equivalence "
             "needs ring >= window + T): allocate with lookahead >= T-1")
-    impl = _resolve(impl, q)
-    dev = q.device
     pos = _per_slot(pos, b, dev)
     nn = (torch.full((b,), t, dtype=torch.int32, device=dev)
           if num_new is None else _per_slot(num_new, b, dev))

@@ -84,16 +84,19 @@ def ring_insert_ref(cache, new, pos, num_new, *, ring_cap: int,
     return cache
 
 
-def decode_ref(q, k_cache, v_cache, spec: AttentionSpec, *, total, q0,
-               scale: Optional[float] = None,
+def decode_ref(q, k_cache, v_cache, spec: AttentionSpec, *, total=None,
+               q0=None, cache_len=None, scale: Optional[float] = None,
                ring_cap: Optional[int] = None) -> torch.Tensor:
-    """Decode T query tokens against a (ring) cache with positional masks.
-    q: (B, Hq, T, D), caches: (B, Hkv, W, D); total / q0: (B,) tokens in
-    the cache and the first query's token index. Every slot's absolute
-    token index is rebuilt from the ring layout (`ring_slot_positions`) and
-    query token q0+t sees a slot iff its token is causally past and within
-    spec.window (globals always). (The JAX oracle's clamped-prefix mode
-    serves plain decode, which is not ported yet.)
+    """Decode T query tokens against a (ring) cache. q: (B, Hq, T, D),
+    caches: (B, Hkv, W, D). Two masking modes, as in the JAX oracle:
+
+    * positional (total / q0 given, (B,) tokens in the cache and the first
+      query's token index): every slot's absolute token index is rebuilt
+      from the ring layout (`ring_slot_positions`) and query token q0+t
+      sees a slot iff its token is causally past and within spec.window
+      (globals always).
+    * prefix (cache_len given, (B,) or scalar; T = 1 only): the first
+      min(cache_len, W) slots are valid, with no window or causal terms.
 
     Scores and P.V accumulate in fp32; the probabilities are rounded to the
     cache dtype before P.V, as the JAX oracle does."""
@@ -105,19 +108,27 @@ def decode_ref(q, k_cache, v_cache, spec: AttentionSpec, *, total, q0,
     s = dots.einsum_f32("bhrd,bhwd->bhrw", qg, k_cache) * scale
     s = _soft_cap(s, spec.softcap)
     dev = q.device
-    cap = wcap if ring_cap is None else ring_cap
-    g = spec.num_global if spec.is_sparse else 0
-    t_s, ok = ring_slot_positions(total, wcap, ring_cap=cap, num_global=g)
-    trow = torch.arange(group * t, device=dev) % t
-    qp = torch.as_tensor(q0, device=dev).reshape(b, 1).long() + trow[None]
-    vis = ok[:, None, :]                                      # (B, G*T, W)
-    if spec.causal:
-        vis = vis & (t_s[:, None, :] <= qp[:, :, None])
-    if spec.is_sparse and spec.window:
-        keep = t_s[:, None, :] >= qp[:, :, None] - spec.window
-        if g > 0:
-            keep = keep | (torch.arange(wcap, device=dev) < g)[None, None]
-        vis = vis & keep
+    if total is None:
+        if t != 1:
+            raise ValueError("multi-token decode_ref needs positional masks")
+        cl = torch.as_tensor(cache_len, device=dev).reshape(-1, 1).long()
+        vis = (torch.arange(wcap, device=dev)[None, :]
+               < torch.clamp(cl, max=wcap))[:, None, :]     # (B, 1, W)
+        vis = vis.expand(b, group * t, wcap)
+    else:
+        cap = wcap if ring_cap is None else ring_cap
+        g = spec.num_global if spec.is_sparse else 0
+        t_s, ok = ring_slot_positions(total, wcap, ring_cap=cap, num_global=g)
+        trow = torch.arange(group * t, device=dev) % t
+        qp = torch.as_tensor(q0, device=dev).reshape(b, 1).long() + trow[None]
+        vis = ok[:, None, :]                                  # (B, G*T, W)
+        if spec.causal:
+            vis = vis & (t_s[:, None, :] <= qp[:, :, None])
+        if spec.is_sparse and spec.window:
+            keep = t_s[:, None, :] >= qp[:, :, None] - spec.window
+            if g > 0:
+                keep = keep | (torch.arange(wcap, device=dev) < g)[None, None]
+            vis = vis & keep
     valid = vis[:, None]                                      # (B,1,G*T,W)
     s = torch.where(valid, s, float("-inf"))
     p = torch.softmax(s, dim=-1)

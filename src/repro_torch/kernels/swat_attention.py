@@ -29,7 +29,7 @@ from repro_torch.kernels import dots
 
 NEG_INF = -1e30
 LAUNCHES = _build.LaunchCounter()
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_BLOCK_Q = 256   # one thread per query row
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -1,21 +1,30 @@
-"""SWAT fused ring-decode: the CUDA kernel's wrapper and its plain version.
+"""SWAT ring decode: the CUDA kernels' wrappers and their plain versions.
 
-Port of the JAX package's `kernels/swat_decode.py` in fused mode (the
-`swat_decode_fused` pallas_call). T new tokens per slot are written into
-their ring slots (token pos+j -> slot g + (pos+j-g) mod ring, pinned globals
-below g, rows j >= num_new not written) and the window is attended in the
-same kernel, with positional masks rebuilt from the per-slot `pos`. The
-kernel source is `repro_torch/csrc/swat_decode.cu`.
+Port of the JAX package's `kernels/swat_decode.py`, whose one Pallas kernel
+(`_decode_kernel`) runs in two modes; each has its own CUDA entry point in
+`repro_torch/csrc/swat_decode.cu`.
 
-`swat_decode_fused` launches the kernel for CUDA tensors and raises on
-anything the kernel does not take. For CPU tensors, and only for them, it
-runs `swat_decode_fused_plain` (ring_insert_ref + decode_ref). Either way
-the caches are updated IN PLACE (the JAX kernel aliased them
-input->output; the engine donated them).
+* Fused (`swat_decode_fused`, the `swat_decode_fused` pallas_call). T new
+  tokens per slot are written into their ring slots (token pos+j -> slot
+  g + (pos+j-g) mod ring, pinned globals below g, rows j >= num_new not
+  written) and the window is attended in the same kernel, with positional
+  masks rebuilt from the per-slot `pos`. The caches are updated IN PLACE
+  (the JAX kernel aliased them input->output; the engine donated them).
+* Plain (`swat_decode_plain`, the `swat_decode` pallas_call). The cache
+  already holds every token; `pos` is the number of tokens in it and the T
+  queries are its newest (q0 = pos - T). Nothing is written. The kv range
+  is split across CTAs and the partial softmax states are combined in a
+  second pass. Both GQA layouts of the JAX kernel are kept: packed
+  (group*T rows per kv head) and unpacked (T rows per q head).
+
+Each wrapper launches its kernel for CUDA tensors and raises on anything
+the kernel does not take. For CPU tensors, and only for them, it runs its
+plain version (`swat_decode_fused_plain`, `swat_decode_plain_ref`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -24,9 +33,10 @@ from repro_torch.core.types import AttentionSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_impl
 
-LAUNCHES = _build.LaunchCounter()
-HEAD_DIMS = (16, 32, 64, 128)
-MAX_ROWS = 128   # group*T query rows per CTA (one thread row each)
+LAUNCHES = _build.LaunchCounter()         # fused kernel
+PLAIN_LAUNCHES = _build.LaunchCounter()   # plain kernel
+HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_ROWS = 128   # query rows per CTA (group*T packed, T unpacked)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -123,7 +133,7 @@ def swat_decode_fused(q, k_cache, v_cache, new_k, new_v, pos, num_new,
     b, hq, t, d = q.shape
     hkv, w = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
-    fn = _kernel()
+    fn = _kernel("swat_decode_fused", 10)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -137,10 +147,142 @@ def swat_decode_fused(q, k_cache, v_cache, new_k, new_v, pos, num_new,
     return out
 
 
-def _kernel():
-    fn = _build.load("swat_decode").swat_decode_fused
+def _kernel(name: str, n_ints: int):
+    """The `csrc/swat_decode.cu` entry point `name`: 8 pointers, `n_ints`
+    ints, scale and softcap, the dtype code and the stream."""
+    fn = getattr(_build.load("swat_decode"), name)
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 8 + [ci] * 10 + [cf, cf, ci, vp]
+        fn.argtypes = [vp] * 8 + [ci] * n_ints + [cf, cf, ci, vp]
         fn.restype = ctypes.c_int
     return fn
+
+
+# ------------------------------------------------------------ plain mode ---
+
+def swat_decode_plain_ref(q, k_cache, v_cache, pos, spec: AttentionSpec, *,
+                          ring_cap: Optional[int] = None,
+                          scale: Optional[float] = None):
+    """Plain PyTorch version of the plain-mode kernel: `decode_ref` with
+    positional masks, total = pos tokens in the cache and the queries its
+    newest T (q0 = pos - T). The GQA layout does not change the result."""
+    cap, _, _ = _ring_geometry(spec, k_cache.shape[2], ring_cap)
+    t = q.shape[2]
+    return ref_impl.decode_ref(q, k_cache, v_cache, spec, total=pos,
+                               q0=pos.long() - t, scale=scale, ring_cap=cap)
+
+
+def _check_plain(q, k_cache, v_cache, pos, cap, g, pack_gqa):
+    dev = q.device
+    tensors = dict(q=q, k_cache=k_cache, v_cache=v_cache, pos=pos)
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"swat_decode_plain: {name} on {t.device}, q on "
+                             f"{dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"swat_decode_plain: {name} must be contiguous")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"swat_decode_plain: dtype {q.dtype} not supported "
+                        "(float32 or bfloat16)")
+    for name in ("k_cache", "v_cache"):
+        if tensors[name].dtype != q.dtype:
+            raise TypeError(f"swat_decode_plain: {name} is "
+                            f"{tensors[name].dtype}, q is {q.dtype}")
+    if pos.dtype != torch.int32:
+        raise TypeError("swat_decode_plain: pos must be int32")
+    for name in ("k_cache", "v_cache"):
+        if tensors[name].data_ptr() % 16:
+            raise ValueError(f"swat_decode_plain: {name} must be 16-byte "
+                             "aligned (the kernel loads 16-byte vectors)")
+    b, hq, t, d = q.shape
+    if k_cache.dim() != 4 or k_cache.shape[0] != b or k_cache.shape[3] != d:
+        raise ValueError(f"swat_decode_plain: cache shape "
+                         f"{tuple(k_cache.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if v_cache.shape != k_cache.shape:
+        raise ValueError("swat_decode_plain: k_cache and v_cache shapes "
+                         "differ")
+    hkv, w = k_cache.shape[1], k_cache.shape[2]
+    if hq % hkv:
+        raise ValueError(f"swat_decode_plain: {hq} q heads vs {hkv} kv "
+                         "heads")
+    if tuple(pos.shape) != (b,):
+        raise ValueError(f"swat_decode_plain: pos must have shape ({b},)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"swat_decode_plain: head dim {d} not in "
+                         f"{HEAD_DIMS}")
+    rows = (hq // hkv) * t if pack_gqa else t
+    if rows > MAX_ROWS:
+        raise ValueError(f"swat_decode_plain: {rows} query rows per CTA > "
+                         f"{MAX_ROWS}")
+    if not g < cap <= w:
+        raise ValueError(f"swat_decode_plain: ring geometry cap={cap} g={g} "
+                         f"W={w} (need g < cap <= W)")
+
+
+@functools.lru_cache(maxsize=8)
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=8)
+def _plain_tile(d: int) -> int:
+    """kv rows per tile of the plain-mode kernel at head dim d, from the
+    kernel's own source (`swat_decode_plain_tile`)."""
+    fn = _build.load("swat_decode").swat_decode_plain_tile
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(d)
+
+
+def plain_splits(n_heads: int, cap: int, kt: int, sms: int):
+    """(chunk, nsplit): the kv range [0, cap) cut into nsplit chunks of
+    `chunk` rows, a multiple of the kernel's tile `kt`, none empty, so that
+    n_heads * nsplit CTAs cover the card's `sms` SMs about twice."""
+    nsplit = min(max(1, -(-2 * sms // n_heads)), -(-cap // kt))
+    per_split = -(-cap // nsplit)
+    chunk = -(-per_split // kt) * kt
+    return chunk, -(-cap // chunk)
+
+
+def swat_decode_plain(q, k_cache, v_cache, pos, spec: AttentionSpec, *,
+                      ring_cap: Optional[int] = None,
+                      scale: Optional[float] = None,
+                      pack_gqa: bool = True) -> torch.Tensor:
+    """q: (B, Hq, T, D); caches: (B, Hkv, W, D), read only; pos: int32 (B,)
+    tokens in each slot's cache (the queries are its newest T). Returns out
+    (B, Hq, T, D). pack_gqa: one CTA row block per kv head holding its
+    group*T query rows (True), or per q head with its T rows (False). The
+    kv range is split across CTAs by `plain_splits`."""
+    cap, g, window = _ring_geometry(spec, k_cache.shape[2], ring_cap)
+    scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
+    if q.device.type == "cpu":
+        return swat_decode_plain_ref(q, k_cache, v_cache, pos, spec,
+                                     ring_cap=cap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"swat_decode_plain: no kernel for device "
+                         f"{q.device}")
+    _check_plain(q, k_cache, v_cache, pos, cap, g, pack_gqa)
+    b, hq, t, d = q.shape
+    hkv, w = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    grid_h, rows = (hkv, group * t) if pack_gqa else (hq, t)
+    chunk, nsplit = plain_splits(b * grid_h, cap, _plain_tile(d),
+                                 _num_sms(q.device))
+    out = torch.empty_like(q)
+    part_ml = torch.empty((2, b * grid_h, nsplit, rows), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((b * grid_h, nsplit, rows, d),
+                           dtype=torch.float32, device=q.device)
+    fn = _kernel("swat_decode_plain", 14)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                    pos.data_ptr(), part_ml[0].data_ptr(),
+                    part_ml[1].data_ptr(), part_acc.data_ptr(),
+                    out.data_ptr(), b, grid_h, 1 if pack_gqa else group, hkv,
+                    rows, t, d, w, cap, g, window, int(spec.causal), chunk,
+                    nsplit, scale, float(spec.softcap), _DTYPES[q.dtype],
+                    stream)
+    PLAIN_LAUNCHES.n += 1
+    _build.check_status("swat_decode_plain", status)
+    return out

@@ -32,13 +32,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
     loss, aux_loss, tokens, grad_norm, lr."""
     def train_step(params, opt_state, batch, residual=None):
         leaves = tree.leaves(params)
-        with torch.enable_grad():
+        # the params carry requires_grad only inside this step: afterwards
+        # serving on them (prefill, decode, the engine) records no autograd
+        try:
+            with torch.enable_grad():
+                for p in leaves:
+                    p.requires_grad_(True)
+                total, metrics = Mod.loss_fn(params, cfg, batch, impl=impl,
+                                             remat=remat,
+                                             remat_policy=remat_policy)
+                grads = torch.autograd.grad(total, leaves)
+        finally:
             for p in leaves:
-                p.requires_grad_(True)
-            total, metrics = Mod.loss_fn(params, cfg, batch, impl=impl,
-                                         remat=remat,
-                                         remat_policy=remat_policy)
-            grads = torch.autograd.grad(total, leaves)
+                p.requires_grad_(False)
         grads = tree.unflatten(params, list(grads))
         if grad_compression:
             grads, residual = compress.compress_decompress(grads, residual)

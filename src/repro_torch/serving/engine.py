@@ -107,6 +107,11 @@ class ServingEngine:
         _refuse("mesh", mesh, None)
         _refuse("faults", faults, None)
         _refuse("metrics", metrics, False)
+        if cfg.encoder_decoder:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves decoder-only models, as the "
+                "JAX engine does; drive encoder-decoder models through "
+                "model.prefill / model.decode_step")
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
@@ -170,6 +175,7 @@ class ServingEngine:
         with torch.profiler.record_function("engine.prefill"):
             self._prefill_batch(plan, slots)
 
+    @torch.no_grad()
     def _prefill_batch(self, plan: PrefillPlan, slots: List[int]):
         t0 = time.perf_counter()
         dev = self.device
@@ -229,6 +235,7 @@ class ServingEngine:
         with torch.profiler.record_function("engine.decode_block"):
             return self._decode_steps(n, live)
 
+    @torch.no_grad()
     def _decode_steps(self, n: int, live: List[int]) -> List[Result]:
         t0 = time.perf_counter()
         dev = self.device

@@ -78,3 +78,46 @@ def test_missing_toolkit_raises(tree, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", os.fspath(tree[2] / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
+
+
+_ENTRIES = [  # (source stem, entry point, wrapper module, _kernel args)
+    ("swat_decode", "swat_decode_fused", "swat_decode",
+     ("swat_decode_fused", 10)),
+    ("swat_decode", "swat_decode_plain", "swat_decode",
+     ("swat_decode_plain", 14)),
+    ("swat_attention_fwd", "swat_attention_fwd", "swat_attention", ()),
+    ("swat_attention_bwd", "swat_attention_dq", "swat_backward",
+     ("swat_attention_dq", 9)),
+    ("swat_attention_bwd", "swat_attention_dkv", "swat_backward",
+     ("swat_attention_dkv", 10)),
+]
+
+
+@pytest.mark.parametrize("stem,entry,module,args", _ENTRIES,
+                         ids=[e[1] for e in _ENTRIES])
+def test_ctypes_signatures_match_the_sources(stem, entry, module, args,
+                                             monkeypatch):
+    """Each wrapper's argtypes follow the `extern "C"` signature in its
+    source, argument by argument: a pointer, int or float passed as another
+    type is cut or misread without any error."""
+    import ctypes
+    import importlib
+    import re
+
+    class _Fn:
+        argtypes = None
+
+    class _Lib:
+        def __getattr__(self, name):
+            fn = _Fn()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "load", lambda stem: _Lib())
+    src = (_build.CSRC / f"{stem}.cu").read_text()
+    sig = re.search(r'extern "C" int ' + entry + r"\((.*?)\)", src, re.S)
+    want = [ctypes.c_void_p if "*" in a else
+            ctypes.c_float if a.split()[0] == "float" else ctypes.c_int
+            for a in sig.group(1).split(",")]
+    wrapper = importlib.import_module(f"repro_torch.kernels.{module}")
+    assert wrapper._kernel(*args).argtypes == want

@@ -50,6 +50,28 @@ def test_port_imports_without_jax_or_repro():
     assert "clean" in out.stdout
 
 
+def test_port_imports_without_triton_or_cuda():
+    """Every port module imports with `triton` blocked and without touching
+    CUDA: kernels are built and launched only inside the calls that need
+    them, never at import time."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['triton'] = None\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "from repro_torch.kernels import _build\n"
+        "assert not _build._LIBS\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+
+
 _BANNED = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)"
                      r"|from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
 
