@@ -14,12 +14,16 @@ each of which raises on failure:
                outputs within bf16 atol 3e-2 / fp32 atol 2e-5 rtol 1e-4;
                banded forward: O at the same tolerances, LSE atol 1e-3,
                for the band pass, the global-row pass, and both composed
-               by ops.swat_attention).
+               by ops.swat_attention; also at head dim 128 and on
+               whisper's ragged 1500-row encoder band). Each forward
+               launch must count on its route's counter: bf16 at head dim
+               64/128/256 on the tensor-core kernel, fp32 on the SIMT one.
   3. serve   - full-width llama3.2-1b + SWAT (window 256, 4 globals), bf16,
                random weights from seed 0: 8 requests, 4 slots, prompt 512,
                64 new tokens, greedy, through ServingEngine. Launch counts
                are zeroed just before and read just after; they must equal
-               one per layer and step (and pass, for the forward).
+               one per layer and step (and pass, for the forward), every
+               forward launch on the tensor-core route.
   4. e2e     - the kernel path against the plain path on the card: prefill
                last-token logits and 8 teacher-forced decode steps.
   5. times   - each kernel, its plain version and one PyTorch library call
@@ -30,21 +34,29 @@ each of which raises on failure:
   7. backward - the dQ and dK/dV kernels against their plain version at the
                training shapes (B=4, Hq=32, Hkv=8, L=2048, D=64, window
                256, 4 globals, causal; plus group 1 and 8, softcap 30,
-               random blocks, the longformer-paper bidirectional spec and
-               the global-row pass), bf16 and fp32; two launches bitwise
-               equal; autograd through ops.swat_attention, kernel against
-               banded, both passes composed.
+               random blocks, the longformer-paper bidirectional spec,
+               the global-row pass, head dim 128 and whisper's ragged
+               1500-row encoder band), bf16 and fp32, each launch on its
+               route's counter; two launches bitwise equal (the split
+               dK/dV rows and their combine included); the combine
+               kernel bitwise equal to its plain version; autograd
+               through ops.swat_attention, kernel against banded, both
+               passes composed.
   8. train   - full-width llama3.2-1b + SWAT, bf16, 6 AdamW steps (lr
                3e-5) of 4 x 2048 tokens (remat "nothing"): losses finite
-               and falling, launch counts of all three attention kernels.
+               and falling, launch counts of all three attention kernels
+               (forward and dK/dV on the tensor-core route, one combine
+               per band pass).
   9. train e2e - one loss/grad at full width and 4 layers, kernel path
                against the plain path.
  10. resume  - the smoke config trained 8 steps uninterrupted and with a
                failure at step 6 resumed from the step-4 checkpoint give
                bitwise-equal params (deterministic algorithms).
  11. train times - the backward kernels, their plain version and SDPA's
-               backward at the training shapes, the unembed product, and a
-               profiled train step split by kernel category.
+               backward at the training shapes, the split combine, the
+               forward at L=2048 (band pass and global-row pass apart),
+               the unembed product, and a profiled train step split by
+               kernel category.
  12. plain decode - the plain-mode decode kernel against its plain version,
                bf16 and fp32, both GQA layouts, two launches bitwise equal:
                whisper's cross attention (B=8, 6 heads, T=1, D=64, 1500
@@ -63,12 +75,13 @@ each of which raises on failure:
                frames, prefill of a 16-token prompt, 200 greedy decode
                steps through model.prefill / model.decode_step; launch
                counts of the three serving kernels equal to the expected
-               counts.
+               counts, every forward launch on the tensor-core route.
  15. whisper e2e - the same run with every kernel swapped for its plain
                version: fp32 greedy tokens equal on every step and fp32
                logits within WHISPER_FP32_LOGIT_BOUND; bf16 logits,
                teacher-forced on the kernel path's tokens, within
-               WHISPER_LOGIT_BOUND.
+               WHISPER_LOGIT_BOUND. The fp32 run's forward launches all
+               count on the SIMT route.
  16. whisper times - encoder, prefill and decode step times, tokens/s,
                peak memory, a traced decode block split by kernel, and the
                plain decode kernel, its plain version and SDPA at the cross
@@ -132,6 +145,10 @@ WHISPER_LOGIT_BOUND = 0.06
 # fp32, kernel vs plain path on equal tokens: both accumulate in fp32 and
 # differ in summation order only, far below bf16's ~1e-2
 WHISPER_FP32_LOGIT_BOUND = 1e-3
+# whisper's encoder band (AttentionSpec fields): bidirectional window 128,
+# 4 global tokens
+WHISPER_BAND = dict(kind="swat", window=WHISPER["window"],
+                    num_global=WHISPER["num_global"], causal=False)
 # gemma2-2b's attention shapes (configs/gemma2_2b.py): head dim 256, 8 q
 # heads over 4 kv heads, local window 4096, softcaps 50
 GEMMA = dict(b=1, hq=8, hkv=4, d=256, seq=8192, window=4096, softcap=50.0)
@@ -151,6 +168,36 @@ def card_line():
 
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def route_counts():
+    """Launch counts of the forward's and dK/dV's routes and the combine."""
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_backward as SB
+    return {"fwd_tc": SA.ROUTE_LAUNCHES["tc"].n,
+            "fwd_simt": SA.ROUTE_LAUNCHES["simt"].n,
+            "dkv_tc": SB.DKV_ROUTE_LAUNCHES["tc"].n,
+            "dkv_simt": SB.DKV_ROUTE_LAUNCHES["simt"].n,
+            "combine": SB.COMBINE_LAUNCHES.n}
+
+
+def check_route(name, before, kernel, route, n=1):
+    """Since `before` (route_counts()), `kernel` ("fwd" or "dkv") was
+    launched n times, every time on `route` ("tc" or "simt")."""
+    now = route_counts()
+    other = "simt" if route == "tc" else "tc"
+    got = now[f"{kernel}_{route}"] - before[f"{kernel}_{route}"]
+    stray = now[f"{kernel}_{other}"] - before[f"{kernel}_{other}"]
+    if got != n or stray:
+        raise AssertionError(f"{name}: {got} {kernel} launches on the {route} "
+                             f"route and {stray} on the {other} route, "
+                             f"expected {n} and 0")
+
+
+def expected_route(dtype, d, kernel):
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_backward as SB
+    return (SA.route if kernel == "fwd" else SB.dkv_route)(dtype, d)
 
 
 def check_close(name, got, want, dtype_name, **tol):
@@ -215,6 +262,7 @@ def check_decode(torch, spec):
 
 def check_banded(torch, spec):
     import dataclasses
+    from repro_torch.core.types import AttentionSpec
     from repro_torch.kernels import ops
     from repro_torch.kernels import swat_attention as SA
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -235,10 +283,13 @@ def check_banded(torch, spec):
             pat = ops.get_pattern(sp, l, l, 128, 128)
             want, wl = SA.banded_plain(q, k, v, sp, pat, d ** -0.5,
                                        return_lse=True)
+            before = route_counts()
             got, gl = SA.swat_attention_fwd(q, k, v, sp, pattern=pat,
                                             return_lse=True)
             torch.cuda.synchronize()
             name = f"swat_attention_fwd {dn} {tag}"
+            check_route(name, before, "fwd",
+                        expected_route(dtype, d, "fwd"))
             err = check_close(name, got, want, dn)
             check_close(name + " lse", gl, wl, dn, atol=1e-3, rtol=1e-4)
             if (dn, tag) == ("bfloat16", "causal+globals"):
@@ -267,9 +318,32 @@ def check_banded(torch, spec):
                           want, dn)
         if dn == "bfloat16":        # the serve path's shapes and dtype
             main_err = max(main_err, gerr, err)
-    log("swat_attention_fwd: 10 cases (3 specs, the global-row pass, and "
-        "ops.swat_attention's two passes composed, x bf16/fp32), O and LSE "
-        "within tolerance")
+        # head dim 128 (granite-8b, qwen2.5-32b, moonshot, jamba), and
+        # whisper's encoder band: 1500 rows, not a multiple of any tile
+        for tag, sp, bb, hq_, hkv_, ll, dd in (
+                ("D=128", spec, b, hq, hkv, l, 128),
+                ("ragged whisper band", AttentionSpec(**WHISPER_BAND),
+                 WHISPER["clips"], 6, 6, WHISPER["frames"], 64)):
+            qq, kk, vv = mk(bb, hq_, ll, dd), mk(bb, hkv_, ll, dd), \
+                mk(bb, hkv_, ll, dd)
+            pat = ops.get_pattern(sp, ll, ll, 128, 128)
+            want, wl = SA.banded_plain(qq, kk, vv, sp, pat, dd ** -0.5,
+                                       return_lse=True)
+            before = route_counts()
+            got, gl = SA.swat_attention_fwd(qq, kk, vv, sp, pattern=pat,
+                                            return_lse=True)
+            torch.cuda.synchronize()
+            name = f"swat_attention_fwd {dn} {tag}"
+            check_route(name, before, "fwd",
+                        expected_route(dtype, dd, "fwd"))
+            err = check_close(name, got, want, dn)
+            check_close(name + " lse", gl, wl, dn, atol=1e-3, rtol=1e-4)
+            log(f"{name}: max abs err {err:.3g}")
+            del qq, kk, vv, want, wl, got, gl
+    log("swat_attention_fwd: 14 cases (3 specs, the global-row pass, "
+        "ops.swat_attention's two passes composed, head dim 128 and the "
+        "ragged whisper band, x bf16/fp32), O and LSE within tolerance, "
+        "each launch on its route")
     return main_err
 
 
@@ -298,9 +372,11 @@ def serve(torch, cfg, params):
     torch.cuda.reset_peak_memory_stats()
     SD.LAUNCHES.reset()
     SA.LAUNCHES.reset()
+    before = route_counts()
     eng, res, wall = run(MAIN["new_tokens"], prompts)
     launches = {"swat_decode": SD.LAUNCHES.n,
                 "swat_attention_fwd": SA.LAUNCHES.n}
+    check_route("serve", before, "fwd", "tc", n=SA.LAUNCHES.n)
     st = eng.stats
     n_tok = sum(len(r.tokens) for r in res)
     for r in res:
@@ -466,9 +542,12 @@ def time_banded(torch, spec):
 
 _CATEGORIES = (("swat_decode_plain", ("decode_plain_",)),
                ("swat_decode", ("decode_fused_kernel",)),
-               ("swat_attention_fwd", ("attention_fwd_kernel",)),
+               ("swat_attention_fwd", ("attention_fwd_kernel",
+                                       "attention_fwd_tc_kernel")),
                ("swat_attention_dq", ("attention_dq_kernel",)),
-               ("swat_attention_dkv", ("attention_dkv_kernel",)),
+               ("swat_attention_dkv", ("attention_dkv_kernel",
+                                       "attention_dkv_tc_kernel")),
+               ("swat_attention_dkv_combine", ("dkv_combine_kernel",)),
                ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")))
 
 
@@ -560,9 +639,12 @@ def _bwd_inputs(torch, gen, dtype, b, hq, hkv, lq, lkv, d, sp, pat):
 
 def check_backward(torch, spec):
     """dQ and dK/dV kernels against swat_attention_bwd_plain at the
-    training shapes; a second launch must be bitwise equal. Then autograd
-    through ops.swat_attention (both passes), kernel against banded.
-    Returns the largest bf16 error of dQ and of dK/dV on the main case."""
+    training shapes; a second launch must be bitwise equal, and each
+    dK/dV launch must count on its route (with one combine launch where
+    the chunk plan cut a row). The combine kernel is held bitwise against
+    its plain version on the main case's partials. Then autograd through
+    ops.swat_attention (both passes), kernel against banded. Returns the
+    largest bf16 error of dQ and of dK/dV on the main case."""
     import dataclasses
     from repro_torch.core.types import AttentionSpec
     from repro_torch.kernels import ops
@@ -571,38 +653,57 @@ def check_backward(torch, spec):
     b, d, l = MAIN["b"], MAIN["d"], TRAIN["seq"]
     gspec = dataclasses.replace(spec, kind="dense", window=0, num_global=0,
                                 num_random=0)
-    cases = [("causal+globals group 4", spec, 32, 8, l),
-             ("group 1", spec, 8, 8, l),
-             ("group 8", spec, 32, 4, l),
-             ("softcap 30", dataclasses.replace(spec, softcap=30.0), 32, 8,
-              l),
+    wl = WHISPER["frames"]
+    # (tag, spec, batch, q heads, kv heads, Lq, Lkv, head dim)
+    cases = [("causal+globals group 4", spec, b, 32, 8, l, l, d),
+             ("group 1", spec, b, 8, 8, l, l, d),
+             ("group 8", spec, b, 32, 4, l, l, d),
+             ("softcap 30", dataclasses.replace(spec, softcap=30.0), b, 32,
+              8, l, l, d),
              ("random blocks", dataclasses.replace(spec, num_random=2,
-                                                   random_seed=7), 32, 8, l),
+                                                   random_seed=7),
+              b, 32, 8, l, l, d),
              ("longformer bidirectional", AttentionSpec(
                  kind="swat", window=256, num_global=1, causal=False),
-              12, 12, l),
-             ("global rows", gspec, 32, 8, spec.num_global)]
+              b, 12, 12, l, l, d),
+             ("global rows", gspec, b, 32, 8, spec.num_global, l, d),
+             ("D=128", spec, b, 32, 8, l, l, 128),
+             ("ragged whisper band", AttentionSpec(**WHISPER_BAND),
+              WHISPER["clips"], 6, 6, wl, wl, d)]
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
-        for tag, sp, hq, hkv, lq in cases:
-            pat = ops.get_pattern(sp, lq, l, 128, 128)
-            q, k, v, o, lse, do = _bwd_inputs(torch, gen, dtype, b, hq, hkv,
-                                              lq, l, d, sp, pat)
+        for tag, sp, bb, hq, hkv, lq, lkv, dd in cases:
+            pat = ops.get_pattern(sp, lq, lkv, 128, 128)
+            q, k, v, o, lse, do = _bwd_inputs(torch, gen, dtype, bb, hq, hkv,
+                                              lq, lkv, dd, sp, pat)
             want = SB.swat_attention_bwd_plain(q, k, v, o, lse, do, sp, pat,
-                                               d ** -0.5)
+                                               dd ** -0.5)
+            before = route_counts()
             got = SB.swat_attention_bwd(q, k, v, o, lse, do, sp, pattern=pat)
             again = SB.swat_attention_bwd(q, k, v, o, lse, do, sp,
                                           pattern=pat)
             torch.cuda.synchronize()
             name = f"swat_attention_bwd {dn} {tag}"
+            route = expected_route(dtype, dd, "dkv")
+            check_route(name, before, "dkv", route, n=2)
+            split = SB.dkv_plan(pat.inverse()).combine.shape[0] > 0
+            combines = route_counts()["combine"] - before["combine"]
+            if combines != (2 if route == "tc" and split else 0):
+                raise AssertionError(f"{name}: {combines} combine launches "
+                                     f"for 2 dK/dV launches (split: {split})")
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 raise AssertionError(f"{name}: two launches differ")
             e = [check_close(f"{name} d{n}", g, w, dn, **BWD_TOL[dn])
                  for n, g, w in zip("qkv", got, want)]
             errs[(dn, tag)] = e
             log(f"{name}: max abs err dq {e[0]:.3g} dk {e[1]:.3g} "
-                f"dv {e[2]:.3g}, bitwise deterministic")
+                f"dv {e[2]:.3g}, bitwise deterministic, dK/dV on the "
+                f"{route} route, {combines} combine launches")
+            if (dn, tag) == ("bfloat16", "causal+globals group 4"):
+                combine_err = check_combine(torch, SB, q, k, v, o, lse, do,
+                                            sp, pat, got)
+            del q, k, v, o, lse, do, want, got, again
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
         mk = lambda *s: torch.randn(*s, generator=gen,
@@ -622,8 +723,34 @@ def check_backward(torch, spec):
             log(f"autograd {dn} d{n}: kernel vs banded max abs err {err:.3g}")
     main = errs[("bfloat16", "causal+globals group 4")]
     log(f"swat_attention_bwd: {len(errs)} cases, bitwise deterministic, "
-        "within tolerance; autograd kernel vs banded within tolerance")
-    return main[0], max(main[1], main[2])
+        "within tolerance, each dK/dV launch on its route; autograd kernel "
+        "vs banded within tolerance")
+    return main[0], max(main[1], main[2]), combine_err
+
+
+def check_combine(torch, SB, q, k, v, o, lse, do, sp, pat, full):
+    """The tensor-core dK/dV launch alone, then its combine launch and the
+    combine's plain version on the same partials: bitwise equal to each
+    other and to the full dK/dV of `full` (dq, dk, dv). Returns the max
+    abs difference of the combine against its plain version (0)."""
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv, part_k, part_v, combine = SB.launch_dkv_tc(
+        q, k, v, do, lse, delta, sp, pat, q.shape[3] ** -0.5,
+        bound=k.shape[2])
+    dk2, dv2 = dk.clone(), dv.clone()
+    SB.dkv_combine(part_k, part_v, combine, dk, dv)
+    SB.dkv_combine_plain(part_k, part_v, combine, dk2, dv2)
+    torch.cuda.synchronize()
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError("dkv_combine: kernel and plain version differ")
+    if not (torch.equal(dk, full[1]) and torch.equal(dv, full[2])):
+        raise AssertionError("dkv_combine: launch_dkv_tc + dkv_combine "
+                             "differ from swat_attention_bwd's dK/dV")
+    err = max(max_err(dk, dk2), max_err(dv, dv2))
+    log(f"dkv_combine: {combine.shape[0]} split kv block(s), "
+        f"{part_k.shape[0]} partials; bitwise equal to its plain version "
+        "and to the full dK/dV")
+    return err
 
 
 # ------------------------------------------------------------- phase 8 ---
@@ -660,6 +787,7 @@ def train(torch, cfg):
     torch.cuda.reset_peak_memory_stats()
     for c in (SA.LAUNCHES, SB.DQ_LAUNCHES, SB.DKV_LAUNCHES):
         c.reset()
+    before = route_counts()
     losses, gnorms, times = [], [], []
     for s in range(n):
         t0 = time.perf_counter()
@@ -673,6 +801,10 @@ def train(torch, cfg):
     launches = {"swat_attention_fwd": SA.LAUNCHES.n,
                 "swat_attention_dq": SB.DQ_LAUNCHES.n,
                 "swat_attention_dkv": SB.DKV_LAUNCHES.n}
+    check_route("train", before, "fwd", "tc", n=SA.LAUNCHES.n)
+    check_route("train", before, "dkv", "tc", n=SB.DKV_LAUNCHES.n)
+    combines = route_counts()["combine"] - before["combine"]
+    launches["swat_attention_dkv_combine"] = combines
     tokens = TRAIN["b"] * TRAIN["seq"]
     steady = sum(times[1:]) / (n - 1)
     summary = {"losses": losses, "grad_norms": gnorms,
@@ -692,7 +824,10 @@ def train(torch, cfg):
     layers = cfg.num_layers
     need = {"swat_attention_fwd": 2 * layers * 2 * n,   # 2 passes, remat
             "swat_attention_dq": 2 * layers * n,
-            "swat_attention_dkv": 2 * layers * n}
+            "swat_attention_dkv": 2 * layers * n,
+            # the band pass's plan cuts kv block 0; the global-row pass's
+            # plan cuts nothing
+            "swat_attention_dkv_combine": layers * n}
     if launches != need:
         raise AssertionError(f"train launches {launches} in {n} steps, "
                              f"expected {need}")
@@ -809,6 +944,14 @@ def time_backward(torch, spec):
                                                 spec, pat, scale, **kw))
     dkv_ms = time_ms(torch, lambda: SB.launch_dkv(q, k, v, do, lse, delta,
                                                   spec, pat, scale, **kw))
+    tc_ms = time_ms(torch, lambda: SB.launch_dkv_tc(
+        q, k, v, do, lse, delta, spec, pat, scale, **kw))
+    dk, dv, part_k, part_v, combine = SB.launch_dkv_tc(
+        q, k, v, do, lse, delta, spec, pat, scale, **kw)
+    c_ms = time_ms(torch, lambda: SB.dkv_combine(part_k, part_v, combine,
+                                                 dk, dv))
+    cp_ms = time_ms(torch, lambda: SB.dkv_combine_plain(
+        part_k, part_v, combine, dk, dv))
     p_ms = time_ms(torch, lambda: SB.swat_attention_bwd_plain(
         q, k, v, o, lse, do, spec, pat, scale))
     dm = torch.as_tensor(patterns.dense_mask(spec, l, l), device="cuda")
@@ -829,12 +972,73 @@ def time_backward(torch, spec):
     itm, rows_q, rows_kv = 2, b * hq * l, b * hkv * l
     dq_bytes = itm * d * (3 * rows_q + 2 * rows_kv) + 4 * 2 * rows_q
     dkv_bytes = itm * d * (2 * rows_q + 4 * rows_kv) + 4 * 2 * rows_q
+    # the combine reads the partials of the cut kv blocks and writes their
+    # dK and dV rows
+    rows_cut = sum(min(pat.block_kv, l - j * pat.block_kv)
+                   for j in combine[:, 0].tolist())
+    c_bytes = (2 * part_k.numel() * 4
+               + 2 * itm * d * b * hkv * rows_cut)
     out = {"visible_pairs": n_vis,
            "dq": (dq_ms, p_ms, l_ms, dq_bytes, 6 * d * n_vis),
-           "dkv": (dkv_ms, p_ms, l_ms, dkv_bytes, 8 * d * n_vis)}
-    log(f"backward times: dq {dq_ms:.4f} ms, dkv {dkv_ms:.4f} ms, plain "
-        f"{p_ms:.4f} ms, SDPA backward {l_ms:.4f} ms (forward {f_ms:.4f}); "
-        f"{n_vis} visible pairs")
+           "dkv": (tc_ms, p_ms, l_ms, dkv_bytes, 8 * d * n_vis),
+           "combine": (c_ms, cp_ms, None, c_bytes, part_k.numel() * 2),
+           "dkv_total_ms": dkv_ms}
+    log(f"backward times: dq {dq_ms:.4f} ms, dkv {dkv_ms:.4f} ms (the "
+        f"tensor-core launch {tc_ms:.4f} ms + combine {c_ms:.4f} ms; the "
+        f"combine's plain version {cp_ms:.4f} ms), plain {p_ms:.4f} ms, "
+        f"SDPA backward {l_ms:.4f} ms (forward {f_ms:.4f}); {n_vis} visible "
+        "pairs")
+    return out
+
+
+def time_forward_train(torch, spec):
+    """The forward at the training shape (B=4, 32 q heads over 8 kv heads,
+    L=2048, D=64, bf16): the band pass and the global-row pass apart, each
+    with its plain version, SDPA on the same q/K/V with the pass's mask,
+    and its bound. Returns {pass: (ms, plain_ms, sdpa_ms, bound_ms,
+    bound_by)}."""
+    import dataclasses
+    import torch.nn.functional as F
+    from repro_torch.core import patterns
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swat_attention as SA
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, hq, hkv, d, l = MAIN["b"], MAIN["hq"], MAIN["hkv"], MAIN["d"], \
+        TRAIN["seq"]
+    g = spec.num_global
+    mk = lambda *s: torch.randn(*s, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+    q, k, v = mk(b, hq, l, d), mk(b, hkv, l, d), mk(b, hkv, l, d)
+    ke = k.repeat_interleave(hq // hkv, dim=1)
+    ve = v.repeat_interleave(hq // hkv, dim=1)
+    gspec = dataclasses.replace(spec, kind="dense", window=0, num_global=0,
+                                num_random=0)
+    qg = q[:, :, :g].contiguous()
+    out = {}
+    for tag, sp, qq, lq in (("band pass", spec, q, l),
+                            ("global-row pass", gspec, qg, g)):
+        pat = ops.get_pattern(sp, lq, l, 128, 128)
+        k_ms = time_ms(torch, lambda: SA.swat_attention_fwd(
+            qq, k, v, sp, pattern=pat, return_lse=True))
+        p_ms = time_ms(torch, lambda: SA.banded_plain(
+            qq, k, v, sp, pat, d ** -0.5, return_lse=True))
+        if tag == "band pass":
+            dm = torch.as_tensor(patterns.dense_mask(sp, l, l), device="cuda")
+            n_vis = int(dm.sum())
+            kv_rows = l                       # every K/V row is visible
+        else:                                 # causal: row i sees keys <= i
+            dm = (torch.arange(l, device="cuda")[None, :]
+                  <= torch.arange(g, device="cuda")[:, None])
+            n_vis = g * (g + 1) // 2
+            kv_rows = g
+        l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qq, ke, ve, attn_mask=dm))
+        bytes_ = (2 * d * b * (2 * hq * lq + 2 * hkv * kv_rows)
+                  + 4 * b * hq * lq)
+        out[tag] = (k_ms, p_ms, l_ms, *bound(bytes_, 4 * d * b * hq * n_vis))
+    log("forward at L=2048 (bf16, tensor-core route): " + json.dumps(
+        {k_: dict(zip(("ms", "plain_ms", "sdpa_ms", "bound_ms", "bound_by"),
+                      v_)) for k_, v_ in out.items()}))
     return out
 
 
@@ -1023,17 +1227,23 @@ def check_gemma2(torch):
             name = f"gemma2 D=256 {dn} {tag}"
             wo, wl = SA.banded_plain(q, k, v, sp, pat, scale,
                                      return_lse=True)
+            before = route_counts()
             o, lse = SA.swat_attention_fwd(q, k, v, sp, pattern=pat,
                                            return_lse=True)
             torch.cuda.synchronize()
+            check_route(name + " forward", before, "fwd",
+                        expected_route(dtype, d, "fwd"))
             note("swat_attention_fwd", dn,
                  check_close(name + " forward", o, wo, dn))
             check_close(name + " lse", lse, wl, dn, atol=1e-3, rtol=1e-4)
             del wo, wl
             want = SB.swat_attention_bwd_plain(q, k, v, o, lse, do, sp, pat,
                                                scale)
+            before = route_counts()
             got = SB.swat_attention_bwd(q, k, v, o, lse, do, sp, pattern=pat)
             torch.cuda.synchronize()
+            check_route(name + " dK/dV", before, "dkv",
+                        expected_route(dtype, d, "dkv"))
             e = [check_close(f"{name} d{c}", x, y, dn, **BWD_TOL[dn])
                  for c, x, y in zip("qkv", got, want)]
             note("swat_attention_dq", dn, e[0])
@@ -1202,8 +1412,11 @@ def whisper(torch):
                 "swat_decode_plain": SD.PLAIN_LAUNCHES}
     for c in counters.values():
         c.reset()
+    before = route_counts()
     toks, _, host = whisper_run(torch, cfg, params, batch, None, steps)
     launches = {k: c.n for k, c in counters.items()}
+    check_route("whisper bf16", before, "fwd", "tc",
+                n=launches["swat_attention_fwd"])
     peak = torch.cuda.max_memory_allocated() / 1e9
     toks_host = toks.cpu()
     n_enc, n_dec = cfg.encoder_layers, cfg.num_layers
@@ -1252,8 +1465,11 @@ def whisper(torch):
     # phase 15b: fp32, both paths free-running: greedy tokens equal, and
     # (on those equal tokens) logits within WHISPER_FP32_LOGIT_BOUND
     cfg32, p32, b32 = whisper_setup(torch, "float32")
+    before, fwd_before = route_counts(), SA.LAUNCHES.n
     tk, lk, _ = whisper_run(torch, cfg32, p32, b32, None, steps,
                             keep_logits=True)
+    check_route("whisper fp32", before, "fwd", "simt",
+                n=SA.LAUNCHES.n - fwd_before)
     tp, lp, _ = whisper_run(torch, cfg32, p32, b32, "banded", steps,
                             keep_logits=True)
     same = torch.equal(tk, tp)
@@ -1365,6 +1581,37 @@ def time_decode_plain(torch):
     return k_ms, p_ms, l_ms, bytes_, ops_
 
 
+def ptxas_report(out):
+    """(kernel, registers, spill-store bytes) for every entry function in
+    the `nvcc -Xptxas -v` output of one source; kernel reads like
+    attention_fwd_tc_kernel<bf16,64>."""
+    import re
+    rows, name, spill = [], None, 0
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+kernel)(I(\w*?)EE|E)", m.group(1))
+            name = m.group(1)[-40:]
+            if k:
+                targs = k.group(3) or ""
+                dt = ("bf16" if "bfloat16" in targs else
+                      "fp32" if targs.startswith("f") else "")
+                dd = re.search(r"Li(\d+)E", targs + "E")
+                name = k.group(1) + (
+                    f"<{','.join(x for x in (dt, dd and dd.group(1)) if x)}>"
+                    if targs else "")
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spill))
+            name = None
+    return rows
+
+
 def bound(bytes_, ops_, dtype_name="bfloat16"):
     tb = bytes_ / HBM_BYTES_PER_S * 1e3
     to = ops_ / PEAK_OPS[dtype_name] * 1e3
@@ -1401,9 +1648,9 @@ def main():
     libs = _build.build_all()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
     for stem, out in sorted(_build.BUILD_LOG.items()):
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {stem}: {line.strip()}")
+        for kernel, regs, spill in ptxas_report(out):
+            log(f"ptxas {stem} {kernel}: {regs} registers, {spill} bytes "
+                "spilled")
 
     cfg = with_swat(get_config("llama3.2-1b"), window=MAIN["window"],
                     num_global=MAIN["num_global"])
@@ -1423,9 +1670,10 @@ def main():
     fb_ms, fb_by = bound(fb, fo)
     del params
 
-    dq_err, dkv_err = check_backward(torch, spec)
+    dq_err, dkv_err, combine_err = check_backward(torch, spec)
     tr, tr_launches, tr_state = train(torch, cfg)
     bt = time_backward(torch, spec)
+    ft = time_forward_train(torch, spec)
     ttrace = trace_train_step(torch, tr_state)
     del tr_state
     tr_e2e = train_end_to_end(torch, cfg)
@@ -1443,7 +1691,7 @@ def main():
          "launches": summary["launches"]["swat_decode"],
          "max_abs_err": dec_err, "ms": dk, "plain_ms": dp,
          "bound_ms": db_ms, "bound_by": db_by, "library_ms": dl},
-        {"name": "swat_attention_fwd", "route": "cuda",
+        {"name": "swat_attention_fwd_tc", "route": "cuda",
          "source": "src/repro_torch/csrc/swat_attention_fwd.cu",
          "replaces": "src/repro/kernels/swat_attention.py:64",
          "launches": summary["launches"]["swat_attention_fwd"],
@@ -1456,8 +1704,12 @@ def main():
          "max_abs_err": plain_err, "ms": pk, "plain_ms": pp,
          "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": pl},
     ]
-    for name, key, err in (("swat_attention_dq", "dq", dq_err),
-                           ("swat_attention_dkv", "dkv", dkv_err)):
+    # the combine has no single PyTorch call that computes it (library null)
+    for name, key, err, counted in (
+            ("swat_attention_dq", "dq", dq_err, "swat_attention_dq"),
+            ("swat_attention_dkv_tc", "dkv", dkv_err, "swat_attention_dkv"),
+            ("swat_attention_dkv_combine", "combine", combine_err,
+             "swat_attention_dkv_combine")):
         ms, p_ms, l_ms, bytes_, ops_ = bt[key]
         b_ms, b_by = bound(bytes_, ops_)
         kernels.append(
@@ -1466,7 +1718,7 @@ def main():
              "replaces": ("src/repro/kernels/swat_backward.py:51"
                           if key == "dq" else
                           "src/repro/kernels/swat_backward.py:93"),
-             "launches": tr_launches[name], "max_abs_err": err, "ms": ms,
+             "launches": tr_launches[counted], "max_abs_err": err, "ms": ms,
              "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": l_ms})
     log(f"serve summary: {json.dumps(summary)}")
@@ -1475,6 +1727,9 @@ def main():
     log(f"unembed: {json.dumps(unembed)}")
     log(f"train summary: {json.dumps(tr)}")
     log(f"train trace: {json.dumps(ttrace)}")
+    log(f"forward at L=2048: {json.dumps(ft)}")
+    log(f"dK/dV at L=2048: tensor-core launch + combine "
+        f"{bt['dkv_total_ms']:.4f} ms")
     log(f"train e2e: {json.dumps(tr_e2e)}")
     log(f"resume: {json.dumps(resume)}")
     log(f"gemma2 D=256 errors (bf16): {json.dumps(g2_errs)}")

@@ -1,5 +1,5 @@
 // SWAT block-sparse banded attention backward for Hopper (sm_90a): the
-// gradient of the row-wise fused band (paper Eq. 1) in two kernels, dQ and
+// gradient of the row-wise fused band (paper Eq. 1) in two passes, dQ and
 // dK/dV, both visiting only the blocks of the host-built block pattern.
 //
 // Replaces: src/repro/kernels/swat_backward.py::_dq_kernel (the
@@ -12,55 +12,71 @@
 // flops (the score, dO.V^T and ds.K) and dK/dV 8*D (the score, dO.V^T,
 // ds^T.Q and P^T.dO), against Q, K, V, dO, the LSE and delta read once and
 // the gradients written once. At the training shapes (B=4, 32 q heads,
-// 8 kv heads, L=2048, window 256, D=64) the two bounds are of the same
-// order (~0.03 ms each). This first version does the products with plain
-// fp32 FMAs from shared-memory tiles (no tensor cores, no TMA), so its real
-// ceiling is the fp32 FMA rate and shared-memory bandwidth: it is compute
-// bound. Both kernels keep scores, probabilities and the gradient
-// accumulators in registers, read every visited tile from device memory
-// once per CTA with coalesced loads, and write each output row exactly once.
-// Moving the products onto mma.sync/wgmma is later work.
+// 8 kv heads, L=2048, window 256, D=64) the byte and the bf16 tensor-core
+// bounds are of the same order (~0.03 ms each).
 //
-// dQ: one CTA per (q block, q head, batch), thread r owns query row r: its
-// scaled q row and fp32 dQ accumulator in registers, its dO row in its own
-// shared-memory row. The CTA walks its row of kv_block_map / slot_kinds (the
-// forward's schedule) in KT-row K/V tiles.
+// dK/dV has two routes, chosen by the wrapper from (dtype, head dim)
+// (kernels/swat_backward.py `dkv_route`); each is its own entry point:
 //
-// dK/dV: one CTA per (kv block, KV head, batch), thread c owns kv row c: its
-// K and V rows in its own shared-memory rows, the fp32 dK and dV
-// accumulators in registers. The CTA loops over the `group` q heads of its
-// kv head and, for each, over its row of the inverse pattern
-// (BlockPattern.inverse()), in QT-row Q/dO tiles. Summing the GQA group
-// inside the CTA replaces the TPU design's per-q-head (B, Hq, Lkv, D)
-// outputs summed outside (swat_backward.py:235-237): fewer bytes and no
-// cross-CTA reduction. Kv block 0 holds the global columns and every q
-// block visits it, so its CTAs do ~nq times the row visits of the others:
-// a load imbalance left for later work.
+//   dtype  head dim   entry point
+//   bf16   64, 128    swat_attention_dkv_tc (tensor cores), then
+//                     swat_attention_dkv_combine where the plan cut a row
+//   bf16   16, 32     swat_attention_dkv    (SIMT)
+//   bf16   256        swat_attention_dkv    (SIMT: a 64-row tile's D-wide
+//                                            dK and dV accumulators would
+//                                            take 256 registers a thread)
+//   fp32   any        swat_attention_dkv    (SIMT: the tensor cores would
+//                                            compute it in TF32)
 //
-// Head dim 256 (gemma2-2b): both kernels keep their structure, but a
-// thread's D-wide register rows (q and dQ; dK and dV) spill to local memory,
-// and dK/dV keeps the thread's own K and V rows in local memory too, since
-// at block_kv 128 they would need 266 KB of shared memory. Right, and slow.
+// dQ has one kernel, the SIMT one below, unchanged from the first port.
 //
-// Deterministic by construction: no atomics and no split reductions; every
-// accumulator is summed by one thread in a fixed order, so two launches on
-// the same inputs give bitwise-equal outputs.
+// Tensor-core dK/dV (attention_dkv_tc_kernel): the kv tile is stationary,
+// the paper's input-stationary reuse. One CTA (one warpgroup) holds 64 kv
+// rows of K and V in shared memory as bf16 and walks the GQA group's q
+// heads and its chunk of the inverse row's q blocks, bringing Q, dO, LSE
+// and delta tiles through a two-stage cp.async ring. Four products run on
+// wgmma with the kv rows as M: S^T = K Q^T and dP^T = V dO^T from shared
+// memory; then P^T = exp(S^T - lse) and dS^T = P^T (dP^T - delta) (times
+// the softcap chain) stay in registers as the A operands of dV += P^T dO
+// and dK += dS^T Q, whose B operands (dO and Q as stored) are read
+// MN-major through the transpose bit. P and dS go in as two bf16 parts
+// (the rounded value and the rest): one bf16 rounding moved dK and dV by
+// a few bf16 ulps, outside the backward's tolerance. The mask is a bit set
+// per row built from the band's query interval; steps with no visible
+// pair are neither loaded nor multiplied, and a warp whose rows see none
+// of a tile skips its arithmetic.
+// Balance without atomics: kv block 0 holds the global columns, so every q
+// block visits it. The host cuts every inverse row longer than the
+// longest count of non-GLOBAL slots into chunks (kernels/swat_backward.py
+// `dkv_plan`); each chunk is a CTA, the chunks of a cut row write fp32
+// partials, and dkv_combine_kernel sums them in chunk order. Registers
+// bound the design: the dK and dV accumulators are D registers a thread.
+//
+// SIMT kernels (attention_dq_kernel, attention_dkv_kernel): one thread per
+// query row (dQ) or kv row (dK/dV) with fp32 FMA loops against fp32 tiles
+// in shared memory; dK/dV sums the GQA group inside the CTA. Their
+// ceiling is the 67 TFLOP/s fp32 rate; at head dim 256 their register rows
+// spill, and dK/dV keeps a thread's own K and V rows in local memory.
+//
+// Deterministic by construction: no atomics; every sum runs in a fixed
+// order, so two launches on the same inputs give bitwise-equal outputs.
 //
 // Masking is explicit, not by zero padding: only visible pairs contribute,
 // visibility is element_mask (swat_attention.py:39) in global coordinates
-// (band causal or bidirectional, global columns, whole-block RANDOM slots,
-// kv bounds, causality), query rows at or past Lq and kv rows at or past
-// Lkv or the kv bound are skipped. p = exp(s - lse) with the forward's LSE;
+// (band.cuh), query rows at or past Lq and kv rows at or past Lkv or the
+// kv bound are skipped. p = exp(s - lse) with the forward's LSE;
 // ds = p * (dp - delta) times the softcap chain 1 - tanh^2.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "band.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr int KT = 32;  // kv rows per shared-memory tile (dQ)
 constexpr int QT = 32;  // q rows per shared-memory tile (dK/dV)
-constexpr int RANDOM_KIND = 3;
-constexpr int PAD_KIND = 0;
 constexpr size_t MAX_SMEM = 232448;  // per block on an H100
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -74,28 +90,6 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-struct Spec {
-  int sparse, window, causal, num_global, num_random;
-  int q_offset, kv_offset, seq_kv;
-  float scale, softcap;
-};
-
-// element_mask: is key k_idx visible to query q_idx (global coordinates) in
-// a slot of kind `kind`?
-__device__ __forceinline__ bool visible(const Spec& sp, int q_idx, int k_idx,
-                                        int kind) {
-  bool vis = k_idx < sp.seq_kv && k_idx >= 0;
-  if (sp.sparse) {
-    bool band = k_idx >= q_idx - sp.window;
-    if (!sp.causal) band = band && k_idx <= q_idx + sp.window;
-    const bool allowed = band || (sp.num_global && k_idx < sp.num_global) ||
-                         (sp.num_random && kind == RANDOM_KIND);
-    vis = vis && allowed;
-  }
-  if (sp.causal) vis = vis && k_idx <= q_idx;
-  return vis;
 }
 
 // dot of two D-float rows in shared memory / registers, 4 lanes at a time
@@ -424,6 +418,333 @@ int run(const Args& a, int d, Spec sp, int dtype, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ------------------------------------------ dK/dV on the tensor cores ---
+
+// kv rows per CTA: one warpgroup of 64, two CTAs an SM (a 128-row CTA of
+// two warpgroups was slower: its per-step barrier keeps them in lockstep)
+constexpr int TCB_ROWS = 64;
+constexpr int TCB_THREADS = 128;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// q rows per Q/dO tile: at D=128 a 64-row tile's score and dP tiles (64
+// registers) beside the dK and dV accumulators (128) would spill
+template <int D>
+__host__ __device__ constexpr int tc_qt() { return D <= 64 ? 64 : 32; }
+
+// bytes of one stage (Q, dO, lse, delta), rounded up so that every stage's
+// tiles start on a 1024-byte boundary, as the 128B swizzle needs
+template <int D>
+__host__ __device__ constexpr uint32_t dkv_tc_stage_bytes() {
+  return (2 * tc_qt<D>() * D * 2 + 2 * tc_qt<D>() * 4 + 1023) / 1024 * 1024;
+}
+
+constexpr int DKV_STAGES = 2;  // stages of the Q/dO ring
+
+template <int D>
+constexpr size_t dkv_tc_smem_bytes() {
+  // K and V tiles, the stages, room to align
+  return 2 * (size_t)TCB_ROWS * D * 2 +
+         DKV_STAGES * (size_t)dkv_tc_stage_bytes<D>() + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TCB_THREADS, 2) attention_dkv_tc_kernel(
+    const __nv_bfloat16* __restrict__ q,     // (B, Hq, Lq, D)
+    const __nv_bfloat16* __restrict__ k,     // (B, Hkv, Lkv, D)
+    const __nv_bfloat16* __restrict__ v,     // (B, Hkv, Lkv, D)
+    const __nv_bfloat16* __restrict__ dout,  // (B, Hq, Lq, D)
+    const float* __restrict__ lse,           // (B, Hq, Lq)
+    const float* __restrict__ delta,         // (B, Hq, Lq)
+    const int* __restrict__ chunks,  // (n_chunks, 4): kv block, s0, s1, part
+    const int* __restrict__ q_map,   // (nkv, num_inv_slots)
+    const int* __restrict__ ikinds,  // (nkv, num_inv_slots)
+    __nv_bfloat16* __restrict__ dk,  // (B, Hkv, Lkv, D)
+    __nv_bfloat16* __restrict__ dv,  // (B, Hkv, Lkv, D)
+    float* __restrict__ part_k,      // (n_parts, B, Hkv, block_kv, D)
+    float* __restrict__ part_v,      // (n_parts, B, Hkv, block_kv, D)
+    int hq, int hkv, int lq, int lkv, int num_slots, int block_q,
+    int block_kv, int nsub, Spec sp) {
+  constexpr int QT = tc_qt<D>();
+  constexpr uint32_t KB = TCB_ROWS * D * 2;  // bytes of the K (or V) tile
+  constexpr uint32_t QB = QT * D * 2;        // bytes of a Q (or dO) tile
+  constexpr uint32_t SB = dkv_tc_stage_bytes<D>();
+  constexpr int R = D / 2;    // dK and dV accumulator registers
+  constexpr int RS = QT / 2;  // score and dP registers
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sk = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sv = sk + KB;
+  const uint32_t st0 = sv + KB;  // stage s at st0 + s * SB: Q, dO, lse, delta
+  uint8_t* gen0 = smem_raw + (st0 - wg::smem_u32(smem_raw));
+
+  const int c = blockIdx.x / nsub;
+  const int j = chunks[4 * c];
+  const int s0 = chunks[4 * c + 1];
+  const int s1 = chunks[4 * c + 2];
+  const int part = chunks[4 * c + 3];
+  const int kr0 = j * block_kv + (blockIdx.x % nsub) * TCB_ROWS;
+  const int nkr = min(min(TCB_ROWS, (j + 1) * block_kv - kr0), lkv - kr0);
+  if (nkr <= 0) return;  // uniform across the CTA
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int group = hq / hkv;
+  const int nslot = s1 - s0;
+  const int ntq = (block_q + QT - 1) / QT;
+  const int total = group * nslot * ntq;
+  const int* qm = q_map + j * num_slots;
+  const int* km = ikinds + j * num_slots;
+  const int ck0 = sp.kv_offset + kr0;  // the CTA's live kv rows
+  const int ck1 = ck0 + nkr - 1;
+  const __nv_bfloat16* kh = k + ((size_t)b * hkv + hk) * lkv * D;
+  const __nv_bfloat16* vh = v + ((size_t)b * hkv + hk) * lkv * D;
+
+  // step f = (q head g, inverse slot s0 + s, q tile t), t fastest
+  auto rows = [&](int f, int* g, int* kind, int* first) {
+    const int t = f % ntq, rest = f / ntq;
+    const int s = s0 + rest % nslot;
+    *g = rest / nslot;
+    *kind = km[s];
+    *first = qm[s] * block_q + t * QT;
+    return min(min(QT, (qm[s] + 1) * block_q - *first), lq - *first);
+  };
+  auto next = [&](int f) {
+    for (; f < total; ++f) {
+      int g, kind, first;
+      const int nq = rows(f, &g, &kind, &first);
+      if (kind == PAD_KIND || nq <= 0) continue;
+      const int q0 = sp.q_offset + first;
+      if (any_visible(sp, q0, q0 + nq - 1, ck0, ck1, kind)) return f;
+    }
+    return total;
+  };
+  auto issue = [&](int f, int stage) {
+    int g, kind, first;
+    const int nq = rows(f, &g, &kind, &first);
+    const size_t hrow = ((size_t)b * hq + hk * group + g) * lq;
+    const uint32_t st = st0 + stage * SB;
+    wg::load_tile<D>(st, q + (hrow + first) * D, q, QT, nq, tid,
+                     TCB_THREADS);
+    wg::load_tile<D>(st + QB, dout + (hrow + first) * D, dout, QT, nq, tid,
+                     TCB_THREADS);
+    if (tid < QT) {
+      const bool in = tid < nq;
+      const size_t r = in ? hrow + first + tid : 0;
+      wg::cp_async4(st + 2 * QB + tid * 4, lse + r, in ? 4 : 0);
+      wg::cp_async4(st + 2 * QB + QT * 4 + tid * 4, delta + r, in ? 4 : 0);
+    }
+  };
+
+  wg::load_tile<D>(sk, kh + (size_t)kr0 * D, kh, TCB_ROWS, nkr, tid,
+                   TCB_THREADS);
+  wg::load_tile<D>(sv, vh + (size_t)kr0 * D, vh, TCB_ROWS, nkr, tid,
+                   TCB_THREADS);
+  // one commit group per step (empty past the last), so that waiting for
+  // all but the newest DKV_STAGES - 2 groups lands the step about to run
+  int cur = next(0);
+  int ahead = cur;  // the last step issued
+#pragma unroll
+  for (int st = 0; st < DKV_STAGES - 1; ++st) {
+    if (st > 0 && ahead < total) ahead = next(ahead + 1);
+    if (ahead < total) issue(ahead, st);
+    wg::cp_async_commit();
+  }
+
+  float dk_acc[R], dv_acc[R];
+#pragma unroll
+  for (int e = 0; e < R; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+  const int r_lo = warp * 16 + lane / 4;  // kv row of half 0; half 1 is +8
+  int stage = 0;
+  while (cur < total) {
+    wg::cp_async_wait<DKV_STAGES - 2>();  // this step's tiles (and K, V)
+    wg::fence_async_smem();               // have landed
+    __syncthreads();  // ... and every warp is done with the stage that
+                      // the next load refills
+    if (ahead < total) ahead = next(ahead + 1);
+    if (ahead < total) issue(ahead, (stage + DKV_STAGES - 1) % DKV_STAGES);
+    wg::cp_async_commit();
+    int g, kind, first;
+    const int nq = rows(cur, &g, &kind, &first);
+    const int q0 = sp.q_offset + first;
+    // (next() skipped the steps with no visible pair)
+    const bool full = nkr == TCB_ROWS && nq == QT &&
+                      all_visible(sp, q0, q0 + QT - 1, ck0, ck1, kind);
+    const uint32_t sq = st0 + stage * SB;
+    const uint32_t sdo = sq + QB;
+    const float* ls = reinterpret_cast<const float*>(
+        gen0 + stage * SB + 2 * QB);
+    const float* dls = ls + QT;
+    float s_t[RS], dp_t[RS];
+#pragma unroll
+    for (int e = 0; e < RS; ++e) s_t[e] = dp_t[e] = 0.f;
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)  // S^T = K Q^T
+      wg::mma_ss<QT>(s_t, wg::desc_k(sk, TCB_ROWS, 0, kk),
+                     wg::desc_k(sq, QT, 0, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)  // dP^T = V dO^T
+      wg::mma_ss<QT>(dp_t, wg::desc_k(sv, TCB_ROWS, 0, kk),
+                     wg::desc_k(sdo, QT, 0, kk), 1);
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    wg::fence_regs(s_t);
+    wg::fence_regs(dp_t);
+    // the queries each of this thread's two kv rows sees (bit j: the
+    // thread's column j; its first column is (lane & 3) * 2)
+    const int off = (lane & 3) * 2;
+    uint32_t vis[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rr = r_lo + 8 * hh;
+      const int2 r = query_range(sp, ck0 + rr, q0 + off, nq - off, kind);
+      vis[hh] = rr >= nkr ? 0u : full ? ~0u : cols_in(r.x, r.y);
+    }
+    // a warp whose 16 kv rows see no query of the tile (the global
+    // block's rows past the global columns) skips the arithmetic
+    if (!__any_sync(0xffffffffu, (vis[0] | vis[1]) != 0u)) {
+#pragma unroll
+      for (int e = 0; e < RS; ++e) s_t[e] = dp_t[e] = 0.f;
+    } else {
+#pragma unroll
+      for (int e = 0; e < RS; ++e) {
+        const int c = (e >> 2) * 8 + (e & 1);
+        const bool in =
+            (vis[(e >> 1) & 1] >> (2 * (e >> 2) + (e & 1))) & 1u;
+        float x = s_t[e] * sp.scale, chain = 1.f;
+        if (sp.softcap != 0.f) {
+          const float t = tanhf(x / sp.softcap);
+          chain = 1.f - t * t;
+          x = sp.softcap * t;
+        }
+        const float p =
+            in ? wg::ex2(fmaf(x, LOG2E, -ls[c + off] * LOG2E)) : 0.f;
+        s_t[e] = p;                                          // P^T
+        dp_t[e] = in ? p * (dp_t[e] - dls[c + off]) * chain : 0.f;  // dS^T
+      }
+    }
+    // bf16 A operands, each split into hi and lo parts: one bf16 rounding
+    // of P and dS would move dK and dV by a few bf16 ulps
+    uint32_t ph[QT / 16][4], pl[QT / 16][4], dh[QT / 16][4], dl[QT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      wg::a_frag_split(s_t, kk, ph[kk], pl[kk]);
+      wg::a_frag_split(dp_t, kk, dh[kk], dl[kk]);
+    }
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {  // dV += P^T dO
+      wg::mma_rs<D>(dv_acc, ph[kk], wg::desc_mn(sdo, QT, kk), 1);
+      wg::mma_rs<D>(dv_acc, pl[kk], wg::desc_mn(sdo, QT, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {  // dK += dS^T Q
+      wg::mma_rs<D>(dk_acc, dh[kk], wg::desc_mn(sq, QT, kk), 1);
+      wg::mma_rs<D>(dk_acc, dl[kk], wg::desc_mn(sq, QT, kk), 1);
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    wg::fence_regs(dv_acc);
+    wg::fence_regs(dk_acc);
+    cur = next(cur + 1);
+    stage = (stage + 1) % DKV_STAGES;
+  }
+  wg::cp_async_wait<0>();
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int rr = r_lo + 8 * hh;
+    if (rr >= nkr) continue;
+    const int row = kr0 + rr;  // local kv row
+    const int cc = (lane & 3) * 2;
+    if (part < 0) {  // the chunk is its kv block's only one: write dK/dV
+      const size_t off = (((size_t)b * hkv + hk) * lkv + row) * D + cc;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int e = 4 * n + 2 * hh;
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
+            __floats2bfloat162_rn(dk_acc[e] * sp.scale,
+                                  dk_acc[e + 1] * sp.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
+            __floats2bfloat162_rn(dv_acc[e], dv_acc[e + 1]);
+      }
+    } else {  // one of several: its fp32 partial, summed by dkv_combine
+      const size_t off =
+          ((((size_t)part * gridDim.z + b) * hkv + hk) * block_kv +
+           (row - j * block_kv)) * D + cc;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int e = 4 * n + 2 * hh;
+        *reinterpret_cast<float2*>(part_k + off + n * 8) =
+            make_float2(dk_acc[e] * sp.scale, dk_acc[e + 1] * sp.scale);
+        *reinterpret_cast<float2*>(part_v + off + n * 8) =
+            make_float2(dv_acc[e], dv_acc[e + 1]);
+      }
+    }
+  }
+}
+
+// dK/dV of the kv blocks whose inverse row was cut into chunks: the sum of
+// their fp32 partials in chunk order, cast to bf16. One thread per 4
+// consecutive values of a (split kv block, kv head, batch) slab.
+__global__ void dkv_combine_kernel(const float* __restrict__ part_k,
+                                   const float* __restrict__ part_v,
+                                   const int* __restrict__ combine,  // (n, 3)
+                                   __nv_bfloat16* __restrict__ dk,
+                                   __nv_bfloat16* __restrict__ dv, int hkv,
+                                   int lkv, int d, int block_kv) {
+  const int j = combine[3 * blockIdx.y];
+  const int p0 = combine[3 * blockIdx.y + 1];
+  const int np = combine[3 * blockIdx.y + 2];
+  const int nb = gridDim.z / hkv;
+  const int hk = blockIdx.z % hkv;
+  const int b = blockIdx.z / hkv;
+  const int idx = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (idx >= min(block_kv, lkv - j * block_kv) * d) return;
+  const size_t pstride = (size_t)nb * hkv * block_kv * d;  // one partial
+  const size_t pbase =
+      (((size_t)p0 * nb + b) * hkv + hk) * block_kv * d + idx;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int p = 0; p < np; ++p) {
+    const float4 a = *reinterpret_cast<const float4*>(part_k + pbase +
+                                                      p * pstride);
+    const float4 c = *reinterpret_cast<const float4*>(part_v + pbase +
+                                                      p * pstride);
+    sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+    sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
+  }
+  const size_t o =
+      (((size_t)b * hkv + hk) * lkv + (size_t)j * block_kv) * d + idx;
+  __nv_bfloat162* k2 = reinterpret_cast<__nv_bfloat162*>(dk + o);
+  __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(dv + o);
+  k2[0] = __floats2bfloat162_rn(sk.x, sk.y);
+  k2[1] = __floats2bfloat162_rn(sk.z, sk.w);
+  v2[0] = __floats2bfloat162_rn(sv.x, sv.y);
+  v2[1] = __floats2bfloat162_rn(sv.z, sv.w);
+}
+
+template <int D>
+int launch_dkv_tc(const Args& a, const int* chunks, float* part_k,
+                  float* part_v, Spec sp, cudaStream_t stream) {
+  const size_t smem = dkv_tc_smem_bytes<D>();
+  auto kern = attention_dkv_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nsub = (a.block_kv + TCB_ROWS - 1) / TCB_ROWS;
+  dim3 grid(a.nblocks * nsub, a.hkv, a.b);  // nblocks: the chunk count
+  kern<<<grid, TCB_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta, chunks,
+      a.map, a.kinds, static_cast<__nv_bfloat16*>(a.out0),
+      static_cast<__nv_bfloat16*>(a.out1), part_k, part_v, a.hq, a.hkv, a.lq,
+      a.lkv, a.num_slots, a.block_q, a.block_kv, nsub, sp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the gradients share
@@ -460,4 +781,55 @@ extern "C" int swat_attention_dkv(
   Spec sp{sparse, window, causal, num_global, num_random,
           q_offset, kv_offset, seq_kv, scale, softcap};
   return run<true>(a, d, sp, dtype, stream);
+}
+
+// The tensor-core dK/dV route: bf16 only (dtype 1), head dim 64 or 128.
+// chunks: int32 (n_chunks, 4) rows (kv block, first inverse slot, end slot,
+// partial index or -1), from the host's chunk plan. A chunk with a partial
+// index writes its fp32 partial into part_k / part_v (n_parts, B, Hkv,
+// block_kv, D), which swat_attention_dkv_combine then sums; the others
+// write dK/dV directly. Other arguments as swat_attention_dkv's.
+extern "C" int swat_attention_dkv_tc(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* chunks, const void* q_map,
+    const void* ikinds, void* dk, void* dv, void* part_k, void* part_v,
+    int b, int hq, int hkv, int lq, int lkv, int d, int n_chunks,
+    int num_slots, int block_q, int block_kv, int sparse, int window,
+    int causal, int num_global, int num_random, int q_offset, int kv_offset,
+    int seq_kv, float scale, float softcap, int dtype, void* stream) {
+  if (dtype != 1 || n_chunks < 1 || block_q < 1 || block_kv < 1 || hkv < 1 ||
+      hq % hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, dout, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), static_cast<const int*>(q_map),
+         static_cast<const int*>(ikinds), dk, dv, b, hq, hkv, lq, lkv,
+         n_chunks, num_slots, block_q, block_kv};
+  Spec sp{sparse, window, causal, num_global, num_random,
+          q_offset, kv_offset, seq_kv, scale, softcap};
+  auto st = static_cast<cudaStream_t>(stream);
+  const int* ch = static_cast<const int*>(chunks);
+  float* pk = static_cast<float*>(part_k);
+  float* pv = static_cast<float*>(part_v);
+  if (d == 64) return launch_dkv_tc<64>(a, ch, pk, pv, sp, st);
+  if (d == 128) return launch_dkv_tc<128>(a, ch, pk, pv, sp, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// combine: int32 (n_combine, 3) rows (kv block, first partial, partial
+// count). dk, dv: bf16 (B, Hkv, Lkv, D).
+extern "C" int swat_attention_dkv_combine(const void* part_k,
+                                          const void* part_v,
+                                          const void* combine, void* dk,
+                                          void* dv, int b, int hkv, int lkv,
+                                          int d, int n_combine, int block_kv,
+                                          void* stream) {
+  if (n_combine < 1 || b < 1 || hkv < 1 || d < 1 || d % 4 || block_kv < 1)
+    return (int)cudaErrorInvalidValue;
+  const int per_slab = (block_kv * d / 4 + 255) / 256;  // CTAs of 256
+  dim3 grid(per_slab, n_combine, hkv * b);
+  dkv_combine_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part_k), static_cast<const float*>(part_v),
+      static_cast<const int*>(combine), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), hkv, lkv, d, block_kv);
+  return (int)cudaGetLastError();
 }

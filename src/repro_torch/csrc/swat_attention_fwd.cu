@@ -4,40 +4,71 @@
 //
 // Replaces: src/repro/kernels/swat_attention.py::_attention_fwd_kernel (the
 // `swat_attention_fwd` pallas_call), reached by ops._pallas_attention. In the
-// port it carries prefill's attention on the card.
+// port it carries prefill's attention on the card and the forward of every
+// training step.
 //
-// What bounds it on an H100: the work is 4*D flops per visible (query, key)
-// pair, ~(window+1) pairs per causal row, against Q, K, V, O and the LSE
-// moved once. At the serving prefill shapes (L=512, window 256, head dim 64)
-// the two bounds (bytes at 3.35 TB/s, bf16 flops at the tensor-core peak)
-// are of the same order. At head dim 256 (gemma2-2b) a thread's q row and
-// accumulator (2 x 256 floats) exceed the 255-register limit and live in
-// local memory: right, and slow. This first version computes QK^T and PV with plain
-// fp32 FMAs from shared-memory tiles (no tensor cores, no TMA), so its real
-// ceiling is the fp32 FMA rate: it is compute bound. The design keeps every
-// intermediate (scores, probabilities, the running max, sum and accumulator)
-// in registers, reads each visited K/V tile from device memory once per CTA
-// with coalesced loads, and writes only O and the fp32 row LSE. Moving
-// QK^T/PV onto wgmma is later work.
+// What bounds it on an H100: 4*D flops per visible (query, key) pair, about
+// window+1 pairs per causal row, against Q, K, V, O and the fp32 LSE moved
+// once. At the serving and training shapes (window 256, head dim 64, L=512
+// or 2048) the byte bound and the bf16 tensor-core bound are of the same
+// order (a few to tens of microseconds); at head dim 256 (gemma2-2b,
+// window 4096) the operations bound it.
 //
-// Layout: one CTA per (q block, q head, batch); thread r owns query row
-// i*block_q + r and its online-softmax state. The CTA reads its own row of
-// kv_block_map / slot_kinds (device arrays uploaded once per pattern) and
-// loops over those kv blocks in KT-row shared-memory tiles; PAD slots are
-// skipped. GQA maps q head h to kv head h / group. The per-element mask is
-// element_mask (swat_attention.py:39): band (causal or bidirectional), global
-// columns, whole-block RANDOM visibility, causality and kv bounds, in global
-// token coordinates (q_offset / kv_offset / seq_kv_bound hooks). K/V rows past
-// the buffer read as zeros, as the TPU wrapper's zero padding does.
+// Two routes, chosen by the wrapper from (dtype, head dim)
+// (kernels/swat_attention.py `route`); each is its own entry point:
+//
+//   dtype  head dim       entry point
+//   bf16   64, 128, 256   swat_attention_fwd_tc   (tensor cores)
+//   bf16   16, 32         swat_attention_fwd      (SIMT)
+//   fp32   any            swat_attention_fwd      (SIMT)
+//
+// fp32 stays on the SIMT kernel: the tensor cores would compute it in TF32,
+// which keeps about three decimal digits.
+//
+// Tensor-core kernel (attention_fwd_tc_kernel). One CTA per (128 query rows
+// of a q block, q head, batch): two warpgroups of 64 query rows each.
+// - QK^T and PV run on wgmma (bf16 in, fp32 accumulate). Q stays in shared
+//   memory for the whole CTA, scaled and rounded to bf16 as the plain
+//   version scales it; the scores stay in registers and, rounded to
+//   bf16 (as the plain version rounds P before P.V), are the register A
+//   operand of PV. V is read MN-major through wgmma's transpose bit.
+// - K and V move as bf16 64-row tiles, loaded with 16-byte cp.async into a
+//   two-stage ring, so the next tile loads while this one is multiplied.
+//   Rows past Lkv or the block read as zeros (cp.async's zero fill) and are
+//   masked.
+// - Online softmax in registers: fp32 running max, sum and accumulator per
+//   row. The mask (band.cuh), a bit set per row built from the row's key
+//   intervals, is applied only on tiles that cross a band or causal edge, a
+//   bound or a ragged row or column; tiles with no visible pair for the
+//   CTA are neither loaded nor multiplied. So a GLOBAL slot outside the
+//   band visits only the tile that holds the global columns.
+// - Two CTAs an SM at D=64 (at most 128 registers a thread), so that one
+//   CTA's softmax overlaps the other's products and loads.
+// - Deterministic: every sum runs in a fixed order.
+// Registers bound the design: the fp32 accumulator is D/2 registers a
+// thread (128 at D=256) beside the 32 of the score tile.
+//
+// SIMT kernel (attention_fwd_kernel), unchanged from the first port: one
+// thread per query row, QK^T and PV as fp32 FMA loops against fp32 K/V
+// tiles in shared memory. Its ceiling is the 67 TFLOP/s fp32 rate; at D=256
+// its register rows spill.
+//
+// Both: the CTA reads its own row of kv_block_map / slot_kinds (device
+// arrays uploaded once per pattern); PAD slots are skipped; GQA maps q head
+// h to kv head h / group; the per-element mask is element_mask in global
+// token coordinates (q_offset / kv_offset / seq_kv_bound hooks). Outputs: O
+// in q's dtype and the fp32 row LSE (B, Hq, Lq).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "band.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int KT = 32;  // kv rows per shared-memory tile
-constexpr int RANDOM_KIND = 3;
-constexpr int PAD_KIND = 0;
+constexpr int KT = 32;  // kv rows per shared-memory tile (SIMT)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -51,12 +82,6 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
-
-struct Spec {
-  int sparse, window, causal, num_global, num_random;
-  int q_offset, kv_offset, seq_kv;
-  float scale, softcap;
-};
 
 template <typename T, int D>
 __global__ void attention_fwd_kernel(
@@ -195,6 +220,247 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 #undef SWAT_FWD_CASE
 }
 
+
+// ------------------------------------------------------- tensor cores ---
+
+constexpr int TC_ROWS = 128;  // query rows per CTA: two warpgroups of 64
+constexpr int TC_KT = 64;     // kv rows per K/V tile
+constexpr int TC_THREADS = 256;
+constexpr float LOG2E = 1.4426950408889634f;
+
+constexpr int TC_STAGES = 2;  // stages of the K/V ring
+
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  // Q tile, the stages of (K tile, V tile), and room to align to 1024
+  return (size_t)TC_ROWS * D * 2 +
+         2 * (size_t)TC_STAGES * TC_KT * D * 2 + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 2 : 1)
+    attention_fwd_tc_kernel(
+    const __nv_bfloat16* __restrict__ q,  // (B, Hq, Lq, D)
+    const __nv_bfloat16* __restrict__ k,  // (B, Hkv, Lkv, D)
+    const __nv_bfloat16* __restrict__ v,  // (B, Hkv, Lkv, D)
+    const int* __restrict__ kv_map,       // (nq, num_slots)
+    const int* __restrict__ kinds,        // (nq, num_slots)
+    __nv_bfloat16* __restrict__ out,      // (B, Hq, Lq, D)
+    float* __restrict__ lse,              // (B, Hq, Lq)
+    int hq, int hkv, int lq, int lkv, int num_slots, int block_q,
+    int block_kv, int nsub, Spec sp) {
+  constexpr uint32_t QB = TC_ROWS * D * 2;  // bytes of the Q tile
+  constexpr uint32_t KVB = TC_KT * D * 2;   // bytes of one K or V tile
+  constexpr int R = D / 2;                  // accumulator registers
+  constexpr int RS = TC_KT / 2;             // score registers
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+
+  const int i = blockIdx.x / nsub;
+  const int row0 = i * block_q + (blockIdx.x % nsub) * TC_ROWS;
+  const int nrow =
+      min(min(TC_ROWS, (i + 1) * block_q - row0), lq - row0);  // live rows
+  if (nrow <= 0) return;  // uniform across the CTA
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int hk = h / (hq / hkv);
+  const __nv_bfloat16* qh = q + ((size_t)b * hq + h) * lq * D;
+  const __nv_bfloat16* kh = k + ((size_t)b * hkv + hk) * lkv * D;
+  const __nv_bfloat16* vh = v + ((size_t)b * hkv + hk) * lkv * D;
+  const int* map_i = kv_map + i * num_slots;
+  const int* kind_i = kinds + i * num_slots;
+  const int ntile = (block_kv + TC_KT - 1) / TC_KT;
+  const int total = num_slots * ntile;
+  const int cq0 = sp.q_offset + row0;  // the CTA's live query rows
+  const int cq1 = cq0 + nrow - 1;
+  const int wn = min(64, nrow - 64 * wgi);  // this warpgroup's live rows
+  const int wq0 = cq0 + 64 * wgi;
+
+  // tile f = (slot f / ntile, 64-row tile f % ntile of its kv block)
+  auto cols = [&](int f, int* kind, int* c0) {
+    const int s = f / ntile, tt = f % ntile;
+    *kind = kind_i[s];
+    *c0 = map_i[s] * block_kv + tt * TC_KT;
+    return min(min(TC_KT, block_kv - tt * TC_KT), lkv - *c0);
+  };
+  // the first tile at or after f that holds a visible pair for the CTA
+  auto next = [&](int f) {
+    for (; f < total; ++f) {
+      int kind, c0;
+      const int ncol = cols(f, &kind, &c0);
+      if (kind == PAD_KIND || ncol <= 0) continue;
+      const int k0 = sp.kv_offset + c0;
+      if (any_visible(sp, cq0, cq1, k0, k0 + ncol - 1, kind)) return f;
+    }
+    return total;
+  };
+  auto issue = [&](int f, int stage) {
+    int kind, c0;
+    const int ncol = cols(f, &kind, &c0);
+    const uint32_t sk = sq + QB + stage * 2 * KVB;
+    wg::load_tile<D>(sk, kh + (size_t)c0 * D, kh, TC_KT, ncol, tid,
+                     TC_THREADS);
+    wg::load_tile<D>(sk + KVB, vh + (size_t)c0 * D, vh, TC_KT, ncol, tid,
+                     TC_THREADS);
+  };
+
+  // one commit group per tile (empty past the last), so that waiting for
+  // all but the newest TC_STAGES - 2 groups lands the tile about to be used
+  wg::load_tile<D>(sq, qh + (size_t)row0 * D, qh, TC_ROWS, nrow, tid,
+                   TC_THREADS);
+  wg::cp_async_commit();
+  int cur = next(0);
+  int ahead = cur;  // the last tile issued
+#pragma unroll
+  for (int st = 0; st < TC_STAGES - 1; ++st) {
+    if (st > 0 && ahead < total) ahead = next(ahead + 1);
+    if (ahead < total) issue(ahead, st);
+    wg::cp_async_commit();
+  }
+  // q * scale rounded to bf16, as the plain version computes it: each
+  // thread rescales the chunks it copied, once they have landed
+  wg::cp_async_wait<TC_STAGES - 1>();
+  wg::scale_tile<D>(smem_raw + (sq - wg::smem_u32(smem_raw)), TC_ROWS, tid,
+                    TC_THREADS, sp.scale);
+
+  float o[R];
+#pragma unroll
+  for (int e = 0; e < R; ++e) o[e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const int r_lo = warp * 16 + lane / 4;  // row of half 0; half 1 is +8
+  int stage = 0;
+  while (cur < total) {
+    wg::cp_async_wait<TC_STAGES - 2>();  // this tile (and Q) have landed
+    wg::fence_async_smem();
+    __syncthreads();  // ... and every warpgroup is done with the stage
+                      // that the next load refills
+    if (ahead < total) ahead = next(ahead + 1);
+    if (ahead < total) issue(ahead, (stage + TC_STAGES - 1) % TC_STAGES);
+    wg::cp_async_commit();
+    int kind, c0;
+    const int ncol = cols(cur, &kind, &c0);
+    const int k0 = sp.kv_offset + c0;
+    if (wn > 0 && any_visible(sp, wq0, wq0 + wn - 1, k0, k0 + ncol - 1,
+                              kind)) {  // uniform across the warpgroup
+      const bool full = wn == 64 && ncol == TC_KT &&
+                        all_visible(sp, wq0, wq0 + 63, k0, k0 + TC_KT - 1,
+                                    kind);
+      const uint32_t sk = sq + QB + stage * 2 * KVB;
+      float sc[RS];
+#pragma unroll
+      for (int e = 0; e < RS; ++e) sc[e] = 0.f;
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss<TC_KT>(sc, wg::desc_k(sq, TC_ROWS, 64 * wgi, kk),
+                          wg::desc_k(sk, TC_KT, 0, kk), 1);
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(sc);
+      if (sp.softcap != 0.f) {
+#pragma unroll
+        for (int e = 0; e < RS; ++e)
+          sc[e] = sp.softcap * tanhf(sc[e] / sp.softcap);
+      }
+      if (!full) {  // masked scores are -inf: p = 0
+        uint32_t vis[2];  // bit j: the thread's column j of the row
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int rr = r_lo + 8 * hh;
+          const int off = (lane & 3) * 2;  // the thread's first column
+          vis[hh] = rr < wn ? key_range(sp, wq0 + rr, k0 + off, ncol - off,
+                                        kind).bits()
+                            : 0u;  // a dead row sees nothing
+        }
+#pragma unroll
+        for (int e = 0; e < RS; ++e)
+          if (!((vis[(e >> 1) & 1] >> (2 * (e >> 2) + (e & 1))) & 1u))
+            sc[e] = -INFINITY;
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int e = 0; e < RS; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+      float alpha[2], ml[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        alpha[hh] = wg::ex2((m[hh] - mx[hh]) * LOG2E);
+        m[hh] = mx[hh];
+        ml[hh] = mx[hh] * LOG2E;
+        l[hh] *= alpha[hh];
+      }
+#pragma unroll
+      for (int e = 0; e < RS; ++e) {
+        const int hh = (e >> 1) & 1;
+        const float p = wg::ex2(fmaf(sc[e], LOG2E, -ml[hh]));
+        sc[e] = p;
+        l[hh] += p;
+      }
+      if (alpha[0] != 1.f || alpha[1] != 1.f) {
+#pragma unroll
+        for (int e = 0; e < R; ++e) o[e] *= alpha[(e >> 1) & 1];
+      }
+      uint32_t pa[TC_KT / 16][4];  // P in bf16, the A operand of PV
+#pragma unroll
+      for (int kk = 0; kk < TC_KT / 16; ++kk) wg::a_frag(sc, kk, pa[kk]);
+      const uint32_t sv = sk + KVB;
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TC_KT / 16; ++kk)
+        wg::mma_rs<D>(o, pa[kk], wg::desc_mn(sv, TC_KT, kk), 1);
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(o);
+    }
+    cur = next(cur + 1);
+    stage = (stage + 1) % TC_STAGES;
+  }
+  wg::cp_async_wait<0>();
+  if (wn <= 0) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    const int rr = r_lo + 8 * hh;
+    if (rr >= wn) continue;
+    const size_t row = ((size_t)b * hq + h) * lq + (row0 + 64 * wgi + rr);
+    const float inv = 1.f / fmaxf(l[hh], 1e-30f);
+    __nv_bfloat16* orow = out + row * D + (lane & 3) * 2;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(orow + c * 8) =
+          __floats2bfloat162_rn(o[4 * c + 2 * hh] * inv,
+                                o[4 * c + 2 * hh + 1] * inv);
+    if ((lane & 3) == 0) lse[row] = m[hh] + logf(fmaxf(l[hh], 1e-30f));
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, const int* kv_map,
+              const int* kinds, void* out, float* lse, int b, int hq,
+              int hkv, int lq, int lkv, int nq, int num_slots, int block_q,
+              int block_kv, Spec sp, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes<D>();
+  auto kern = attention_fwd_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nsub = (block_q + TC_ROWS - 1) / TC_ROWS;
+  dim3 grid(nq * nsub, hq, b);
+  kern<<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), kv_map, kinds,
+      static_cast<__nv_bfloat16*>(out), lse, hq, hkv, lq, lkv, num_slots,
+      block_q, block_kv, nsub, sp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it); lse is fp32.
@@ -224,4 +490,36 @@ extern "C" int swat_attention_fwd(
                                      lq, lkv, nq, num_slots, block_q,
                                      block_kv, sp, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core route: bf16 only (dtype 1), head dim 64, 128 or 256;
+// arguments as swat_attention_fwd's. Returns cudaGetLastError().
+extern "C" int swat_attention_fwd_tc(
+    const void* q, const void* k, const void* v, const void* kv_map,
+    const void* kinds, void* out, void* lse, int b, int hq, int hkv, int lq,
+    int lkv, int d, int nq, int num_slots, int block_q, int block_kv,
+    int sparse, int window, int causal, int num_global, int num_random,
+    int q_offset, int kv_offset, int seq_kv, float scale, float softcap,
+    int dtype, void* stream) {
+  if (dtype != 1 || block_q < 1 || block_kv < 1 || hkv < 1 || hq % hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  Spec sp{sparse, window, causal, num_global, num_random,
+          q_offset, kv_offset, seq_kv, scale, softcap};
+  auto st = static_cast<cudaStream_t>(stream);
+  const int* km = static_cast<const int*>(kv_map);
+  const int* kd = static_cast<const int*>(kinds);
+  float* ls = static_cast<float*>(lse);
+  switch (d) {
+    case 64:
+      return launch_tc<64>(q, k, v, km, kd, out, ls, b, hq, hkv, lq, lkv, nq,
+                           num_slots, block_q, block_kv, sp, st);
+    case 128:
+      return launch_tc<128>(q, k, v, km, kd, out, ls, b, hq, hkv, lq, lkv,
+                            nq, num_slots, block_q, block_kv, sp, st);
+    case 256:
+      return launch_tc<256>(q, k, v, km, kd, out, ls, b, hq, hkv, lq, lkv,
+                            nq, num_slots, block_q, block_kv, sp, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -7,8 +7,9 @@ Every `repro_torch/csrc/*.cu` compiles on its own with
 
 into `repro_torch/_kernels_build/` (listed in .gitignore), at first use.
 All sources start compiling together, one `nvcc` process each, and are
-waited for together. The file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+waited for together. The file name carries a hash of the source, of every
+header in `csrc/` (`*.cuh`, which the sources include) and of the flags, so
+an edited source or header is rebuilt and a stale library is never loaded.
 Nothing outside the package's own `csrc/` is compiled or included.
 
 The sources include no PyTorch header: a kernel takes raw device pointers,
@@ -52,7 +53,8 @@ def find_nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}.{digest}.so"
 

@@ -10,9 +10,13 @@ softcap, and the fp32 row logsumexp. The kernel source is
 `repro_torch/csrc/swat_attention_fwd.cu`; the LSE is stored (B, H, L), not
 in the TPU's 128-lane layout.
 
-`swat_attention_fwd` launches the kernel for CUDA tensors and raises on
-anything the kernel does not take. For CPU tensors, and only for them, it
-runs `banded_plain`, the torch twin of the JAX package's `ops._xla_banded`.
+`swat_attention_fwd` launches a kernel for CUDA tensors and raises on
+anything the kernel does not take. `route` picks the kernel from the dtype
+and head dim: bf16 at head dim 64, 128 or 256 runs the tensor-core kernel
+(`swat_attention_fwd_tc`), everything else the SIMT kernel
+(`swat_attention_fwd`); each route counts its own launches. For CPU
+tensors, and only for them, it runs `banded_plain`, the torch twin of the
+JAX package's `ops._xla_banded`.
 """
 from __future__ import annotations
 
@@ -28,10 +32,28 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import dots
 
 NEG_INF = -1e30
-LAUNCHES = _build.LaunchCounter()
 HEAD_DIMS = (16, 32, 64, 128, 256)
-MAX_BLOCK_Q = 256   # one thread per query row
+TC_HEAD_DIMS = (64, 128, 256)
+MAX_BLOCK_Q = 256   # one thread per query row (SIMT)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# launches of either route, and of each route alone
+LAUNCHES = _build.LaunchCounter()
+ROUTE_LAUNCHES = {"tc": _build.LaunchCounter(),
+                  "simt": _build.LaunchCounter()}
+_ENTRY = {"tc": "swat_attention_fwd_tc", "simt": "swat_attention_fwd"}
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward kernel for (dtype, head dim): "tc" (tensor cores, bf16
+    at head dim 64, 128 or 256) or "simt" (fp32 at any head dim, bf16 at
+    16 or 32: the tensor cores would compute fp32 in TF32). Raises for a
+    case no kernel takes."""
+    if dtype not in _DTYPES or head_dim not in HEAD_DIMS:
+        raise ValueError(f"swat_attention_fwd: no kernel for {dtype} at "
+                         f"head dim {head_dim}")
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tc"
+    return "simt"
 
 
 def _dense_plain(q, k, v, spec: AttentionSpec, scale: float,
@@ -225,7 +247,13 @@ def swat_attention_fwd(q, k, v, spec: AttentionSpec, *,
     kv_map, kinds = _pattern_tensors(pattern, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
-    fn = _kernel()
+    which = route(q.dtype, d)
+    if which == "tc":
+        for arg, t in dict(q=q, k=k, v=v).items():
+            if t.data_ptr() % 16:   # 16-byte cp.async rows
+                raise ValueError(f"swat_attention_fwd: {arg} is not "
+                                 "16-byte aligned")
+    fn = _kernel(_ENTRY[which])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -238,12 +266,13 @@ def swat_attention_fwd(q, k, v, spec: AttentionSpec, *,
                     int(bound), scale, float(spec.softcap),
                     _DTYPES[q.dtype], stream)
     LAUNCHES.n += 1
-    _build.check_status("swat_attention_fwd", status)
+    ROUTE_LAUNCHES[which].n += 1
+    _build.check_status(_ENTRY[which], status)
     return (out, lse) if return_lse else out
 
 
-def _kernel():
-    fn = _build.load("swat_attention_fwd").swat_attention_fwd
+def _kernel(name: str = "swat_attention_fwd"):
+    fn = getattr(_build.load("swat_attention_fwd"), name)
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [vp] * 7 + [ci] * 18 + [cf, cf, ci, vp]

@@ -6,20 +6,30 @@ block pattern, and dK/dV over its inverse (per kv block, the q blocks that
 touch it), both recomputing the scores in fp32 from the forward's row LSE,
 with the softcap chain rule. The kernel source is
 `repro_torch/csrc/swat_attention_bwd.cu` (`swat_attention_dq`,
-`swat_attention_dkv`). Unlike the TPU kernels, dK/dV is produced per KV
-head with the GQA group summed inside the kernel, and padded rows are
-masked explicitly.
+`swat_attention_dkv`, `swat_attention_dkv_tc`,
+`swat_attention_dkv_combine`). Unlike the TPU kernels, dK/dV is produced
+per KV head with the GQA group summed inside the kernel, and padded rows
+are masked explicitly.
 
-`swat_attention_bwd` launches both kernels for CUDA tensors and raises on
+dK/dV has two routes (`dkv_route`): bf16 at head dim 64 or 128 runs the
+tensor-core kernel over a chunk plan (`dkv_plan`) that cuts the long
+inverse rows (kv block 0, which every q block visits for its global
+columns) into chunks of at most the longest other row; the chunks of a cut
+row write fp32 partials that a second kernel sums in chunk order. Every
+other case runs the SIMT kernel. dQ has one kernel.
+
+`swat_attention_bwd` launches the kernels for CUDA tensors and raises on
 anything they do not take. For CPU tensors, and only for them, it runs
 `swat_attention_bwd_plain`.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import patterns
@@ -28,8 +38,74 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import swat_attention as fwd_mod
 
 DQ_LAUNCHES = _build.LaunchCounter()
+# dK/dV launches of either route, and of each route alone
 DKV_LAUNCHES = _build.LaunchCounter()
-MAX_BLOCK_KV = 256   # one thread per kv row in dK/dV
+DKV_ROUTE_LAUNCHES = {"tc": _build.LaunchCounter(),
+                      "simt": _build.LaunchCounter()}
+COMBINE_LAUNCHES = _build.LaunchCounter()   # the split rows' sum
+MAX_BLOCK_KV = 256   # one thread per kv row in dK/dV (SIMT)
+TC_HEAD_DIMS = (64, 128)
+
+
+def dkv_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The dK/dV kernel for (dtype, head dim): "tc" (tensor cores, bf16 at
+    head dim 64 or 128) or "simt" (fp32, and bf16 at 16, 32 and 256: at
+    256 a 64-row tile's D-wide dK and dV accumulators would take 256
+    registers a thread). Raises for a case no kernel takes."""
+    if (dtype not in fwd_mod._DTYPES
+            or head_dim not in fwd_mod.HEAD_DIMS):
+        raise ValueError(f"swat_attention_bwd: no kernel for {dtype} at "
+                         f"head dim {head_dim}")
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tc"
+    return "simt"
+
+
+@dataclasses.dataclass(frozen=True)
+class DkvPlan:
+    """The tensor-core dK/dV kernel's work list over an inverse pattern.
+
+    chunks  : (n_chunks, 4) int32 rows (kv block, first inverse slot, end
+              slot, partial index or -1), in kv block and slot order; one
+              CTA per chunk (and kv head, batch).
+    combine : (n_combine, 3) int32 rows (kv block, first partial, partial
+              count) for the kv blocks cut into several chunks, whose
+              partials are summed in chunk order.
+    cap     : the most slots a chunk holds.
+    """
+    chunks: np.ndarray
+    combine: np.ndarray
+    cap: int
+
+    @property
+    def n_parts(self) -> int:
+        return int(self.combine[:, 2].sum())
+
+
+def dkv_plan(inv: patterns.InversePattern) -> DkvPlan:
+    """Cut every inverse row longer than the longest count of its non-GLOBAL
+    slots (the band and random blocks; 3 at the llama train shape) into
+    chunks of at most that many slots, in slot order. Without GLOBAL slots
+    no row is cut. A row with no slot keeps one empty chunk, which writes
+    zeros."""
+    live = inv.slot_kinds != patterns.PAD
+    lengths = live.sum(axis=1)
+    local = (live & (inv.slot_kinds != patterns.GLOBAL)).sum(axis=1)
+    cap = int(local.max()) if local.any() else int(lengths.max())
+    cap = max(cap, 1)
+    chunks, combine, n_parts = [], [], 0
+    for j, n in enumerate(lengths.tolist()):
+        if n <= cap:
+            chunks.append((j, 0, n, -1))
+            continue
+        starts = list(range(0, n, cap))
+        combine.append((j, n_parts, len(starts)))
+        for c, s0 in enumerate(starts):
+            chunks.append((j, s0, min(n, s0 + cap), n_parts + c))
+        n_parts += len(starts)
+    return DkvPlan(chunks=np.asarray(chunks, np.int32).reshape(-1, 4),
+                   combine=np.asarray(combine, np.int32).reshape(-1, 3),
+                   cap=cap)
 
 
 def _pad_rows(x, n: int):
@@ -110,6 +186,16 @@ def _inverse_tensors(pattern: patterns.BlockPattern, device: torch.device):
             inv.num_slots)
 
 
+@functools.lru_cache(maxsize=256)
+def _plan_tensors(pattern: patterns.BlockPattern, device: torch.device):
+    """The dK/dV chunk plan of the pattern's inverse, built on the host and
+    uploaded as int32 device tensors once per (pattern, device)."""
+    plan = dkv_plan(pattern.inverse())
+    return (torch.as_tensor(plan.chunks, device=device).contiguous(),
+            torch.as_tensor(plan.combine, device=device).contiguous(),
+            plan.n_parts)
+
+
 def _check(q, k, v, o, lse, do, pattern):
     fwd_mod._check(q, k, v, pattern, fn="swat_attention_bwd")
     for arg, t in dict(o=o, do=do).items():
@@ -163,8 +249,22 @@ def launch_dq(q, k, v, do, lse, delta, spec: AttentionSpec,
 def launch_dkv(q, k, v, do, lse, delta, spec: AttentionSpec,
                pattern: patterns.BlockPattern, scale: float, *,
                q_offset: int = 0, kv_offset: int = 0, bound: int):
-    """One launch of the dK/dV kernel on checked, contiguous CUDA tensors.
-    Returns (dk, dv), (B, Hkv, Lkv, D), the GQA group summed."""
+    """The dK/dV kernel of `dkv_route` on checked, contiguous CUDA tensors
+    (on the tensor-core route, followed by `dkv_combine` where the plan cut
+    a row). Returns (dk, dv), (B, Hkv, Lkv, D), the GQA group summed."""
+    kw = dict(q_offset=q_offset, kv_offset=kv_offset, bound=bound)
+    if dkv_route(q.dtype, q.shape[3]) == "simt":
+        return _launch_dkv_simt(q, k, v, do, lse, delta, spec, pattern,
+                                scale, **kw)
+    dk, dv, part_k, part_v, combine = launch_dkv_tc(
+        q, k, v, do, lse, delta, spec, pattern, scale, **kw)
+    if combine.shape[0]:
+        dkv_combine(part_k, part_v, combine, dk, dv)
+    return dk, dv
+
+
+def _launch_dkv_simt(q, k, v, do, lse, delta, spec, pattern, scale, *,
+                     q_offset, kv_offset, bound):
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
     q_map, ikinds, ninv = _inverse_tensors(pattern, q.device)
@@ -180,8 +280,100 @@ def launch_dkv(q, k, v, do, lse, delta, spec: AttentionSpec,
                     *_spec_args(spec, q_offset, kv_offset, bound, scale),
                     fwd_mod._DTYPES[q.dtype], stream)
     DKV_LAUNCHES.n += 1
+    DKV_ROUTE_LAUNCHES["simt"].n += 1
     _build.check_status("swat_attention_dkv", status)
     return dk, dv
+
+
+def launch_dkv_tc(q, k, v, do, lse, delta, spec: AttentionSpec,
+                  pattern: patterns.BlockPattern, scale: float, *,
+                  q_offset: int = 0, kv_offset: int = 0, bound: int):
+    """One launch of the tensor-core dK/dV kernel (bf16, head dim 64 or
+    128) over the pattern's chunk plan. Returns (dk, dv, part_k, part_v,
+    combine): the rows of kv blocks that the plan cut are not yet written
+    in dk / dv; their fp32 partials (n_parts, B, Hkv, block_kv, D) and the
+    plan's combine rows are what `dkv_combine` sums."""
+    b, hq, lq, d = q.shape
+    hkv, lkv = k.shape[1], k.shape[2]
+    if dkv_route(q.dtype, d) != "tc":
+        raise ValueError(f"swat_attention_dkv_tc: no kernel for {q.dtype} "
+                         f"at head dim {d}")
+    for name, t in dict(q=q, k=k, v=v, do=do).items():
+        if t.data_ptr() % 16:   # 16-byte cp.async rows
+            raise ValueError(f"swat_attention_dkv_tc: {name} is not "
+                             "16-byte aligned")
+    q_map, ikinds, ninv = _inverse_tensors(pattern, q.device)
+    chunks, combine, n_parts = _plan_tensors(pattern, q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    part_k = torch.empty((n_parts, b, hkv, pattern.block_kv, d),
+                         dtype=torch.float32, device=q.device)
+    part_v = torch.empty_like(part_k)
+    fn = _kernel("swat_attention_dkv_tc", 13)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), chunks.data_ptr(),
+                    q_map.data_ptr(), ikinds.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), part_k.data_ptr(), part_v.data_ptr(), b,
+                    hq, hkv, lq, lkv, d, chunks.shape[0], ninv,
+                    pattern.block_q, pattern.block_kv,
+                    *_spec_args(spec, q_offset, kv_offset, bound, scale),
+                    fwd_mod._DTYPES[q.dtype], stream)
+    DKV_LAUNCHES.n += 1
+    DKV_ROUTE_LAUNCHES["tc"].n += 1
+    _build.check_status("swat_attention_dkv_tc", status)
+    return dk, dv, part_k, part_v, combine
+
+
+def dkv_combine_plain(part_k, part_v, combine, dk, dv) -> None:
+    """Plain version of `dkv_combine`: for every (kv block j, first partial,
+    count) row of `combine`, the partials added one by one in chunk order
+    (as the kernel adds them), cast and written into dk / dv's rows of
+    block j, in place."""
+    block_kv, lkv = part_k.shape[3], dk.shape[2]
+    for j, p0, n in combine.tolist():
+        rows = min(block_kv, lkv - j * block_kv)
+        acc_k, acc_v = part_k[p0], part_v[p0]
+        for p in range(p0 + 1, p0 + n):
+            acc_k, acc_v = acc_k + part_k[p], acc_v + part_v[p]
+        sl = slice(j * block_kv, j * block_kv + rows)
+        dk[:, :, sl] = acc_k[:, :, :rows].to(dk.dtype)
+        dv[:, :, sl] = acc_v[:, :, :rows].to(dv.dtype)
+
+
+def dkv_combine(part_k, part_v, combine, dk, dv) -> None:
+    """Writes the kv blocks that the chunk plan cut: the sum of their fp32
+    partials (n_parts, B, Hkv, block_kv, D) in chunk order, cast to bf16,
+    into dk / dv (B, Hkv, Lkv, D), in place. `combine`: int32 (n, 3) rows
+    (kv block, first partial, partial count). Launches the combine kernel
+    for CUDA tensors; for CPU tensors, and only for them, it runs
+    `dkv_combine_plain`."""
+    if dk.device.type == "cpu":
+        return dkv_combine_plain(part_k, part_v, combine, dk, dv)
+    if dk.device.type != "cuda":
+        raise ValueError(f"swat_attention_dkv_combine: no kernel for "
+                         f"{dk.device}")
+    b, hkv, lkv, d = dk.shape
+    for name, t in dict(part_k=part_k, part_v=part_v, combine=combine,
+                        dk=dk, dv=dv).items():
+        if t.device != dk.device or not t.is_contiguous():
+            raise ValueError(f"swat_attention_dkv_combine: {name} must be "
+                             f"contiguous on {dk.device}")
+    if (dk.dtype != torch.bfloat16 or dv.dtype != torch.bfloat16
+            or part_k.dtype != torch.float32 or part_v.shape != part_k.shape
+            or combine.dtype != torch.int32 or dv.shape != dk.shape
+            or part_k.shape[1:3] != (b, hkv) or part_k.shape[4] != d):
+        raise ValueError("swat_attention_dkv_combine: bf16 dk/dv, fp32 "
+                         "partials (n, B, Hkv, block_kv, D) and int32 "
+                         "combine rows expected")
+    with torch.cuda.device(dk.device):
+        stream = torch.cuda.current_stream(dk.device).cuda_stream
+        status = _combine_kernel()(
+            part_k.data_ptr(), part_v.data_ptr(), combine.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, hkv, lkv, d, combine.shape[0],
+            part_k.shape[3], stream)
+    COMBINE_LAUNCHES.n += 1
+    _build.check_status("swat_attention_dkv_combine", status)
 
 
 def swat_attention_bwd(q, k, v, o, lse, do, spec: AttentionSpec, *,
@@ -219,5 +411,14 @@ def _kernel(name: str, n_ptrs: int):
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [vp] * n_ptrs + [ci] * 18 + [cf, cf, ci, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _combine_kernel():
+    fn = _build.load("swat_attention_bwd").swat_attention_dkv_combine
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 5 + [ci] * 6 + [vp]
         fn.restype = ctypes.c_int
     return fn

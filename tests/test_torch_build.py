@@ -40,6 +40,18 @@ def test_library_name_tracks_the_source(tree):
     assert first.name.startswith("a.") and first.suffix == ".so"
 
 
+def test_library_names_track_the_headers(tree):
+    """The sources include csrc/*.cuh: an edited header renames every
+    library, so no library built against the old header is loaded."""
+    csrc, _, _ = tree
+    (csrc / "common.cuh").write_text("// v1\n")
+    first = {n: _build._target(csrc / n) for n in ("a.cu", "b.cu")}
+    assert first == {n: _build._target(csrc / n) for n in ("a.cu", "b.cu")}
+    (csrc / "common.cuh").write_text("// v2\n")
+    for n in ("a.cu", "b.cu"):
+        assert _build._target(csrc / n) != first[n]
+
+
 def test_build_all_compiles_each_missing_source_once(tree, monkeypatch):
     csrc, out, tmp = tree
     log = tmp / "calls"
@@ -80,16 +92,22 @@ def test_missing_toolkit_raises(tree, monkeypatch):
         _build.build_all()
 
 
-_ENTRIES = [  # (source stem, entry point, wrapper module, _kernel args)
+_ENTRIES = [  # (source stem, entry point, wrapper module, getter args)
     ("swat_decode", "swat_decode_fused", "swat_decode",
      ("swat_decode_fused", 10)),
     ("swat_decode", "swat_decode_plain", "swat_decode",
      ("swat_decode_plain", 14)),
     ("swat_attention_fwd", "swat_attention_fwd", "swat_attention", ()),
+    ("swat_attention_fwd", "swat_attention_fwd_tc", "swat_attention",
+     ("swat_attention_fwd_tc",)),
     ("swat_attention_bwd", "swat_attention_dq", "swat_backward",
      ("swat_attention_dq", 9)),
     ("swat_attention_bwd", "swat_attention_dkv", "swat_backward",
      ("swat_attention_dkv", 10)),
+    ("swat_attention_bwd", "swat_attention_dkv_tc", "swat_backward",
+     ("swat_attention_dkv_tc", 13)),
+    ("swat_attention_bwd", "swat_attention_dkv_combine", "swat_backward",
+     None),           # its own getter, _combine_kernel()
 ]
 
 
@@ -120,4 +138,6 @@ def test_ctypes_signatures_match_the_sources(stem, entry, module, args,
             ctypes.c_float if a.split()[0] == "float" else ctypes.c_int
             for a in sig.group(1).split(",")]
     wrapper = importlib.import_module(f"repro_torch.kernels.{module}")
-    assert wrapper._kernel(*args).argtypes == want
+    fn = (wrapper._combine_kernel() if args is None
+          else wrapper._kernel(*args))
+    assert fn.argtypes == want

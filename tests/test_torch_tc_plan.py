@@ -1,0 +1,197 @@
+"""The tensor-core routes' host logic, on the CPU: which kernel each
+(dtype, head dim) takes, the dK/dV chunk plan over the inverse block
+pattern, and the split reduction that the plan's combine performs.
+
+The kernels themselves run only on the card (chip_smoke.py phases 2, 7
+and 13). Here the split reduction is emulated with the plain backward:
+dK and dV are linear in dO (delta is a row sum of dO * O), so zeroing dO
+outside a chunk's q rows gives that chunk's partial exactly, and the
+partials summed in plan order by `dkv_combine`'s plain version must give
+the unsplit plain dK/dV. Tolerance: the JAX package's gradient tolerance,
+fp32 atol 5e-5 / rtol 1e-3 (the sums run in another order)."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import patterns
+from repro_torch.core.types import AttentionSpec
+from repro_torch.kernels import ops
+from repro_torch.kernels import swat_attention as SA
+from repro_torch.kernels import swat_backward as SB
+
+torch.set_num_threads(1)
+
+GRAD = dict(atol=5e-5, rtol=1e-3)
+
+LLAMA = AttentionSpec(kind="swat", window=256, num_global=4, causal=True)
+PLANS = {   # (spec, L): the patterns the tensor-core dK/dV kernel meets
+    "llama train": (LLAMA, 2048),
+    "whisper encoder band": (AttentionSpec(kind="swat", window=128,
+                                           num_global=4, causal=False),
+                             1500),
+    "random blocks": (dataclasses.replace(LLAMA, num_random=2,
+                                          random_seed=7), 2048),
+    "longformer": (get_config("longformer-paper").attention, 2048),
+}
+
+
+@pytest.mark.parametrize("dtype,d,fwd,dkv", [
+    (torch.bfloat16, 64, "tc", "tc"),
+    (torch.bfloat16, 128, "tc", "tc"),
+    (torch.bfloat16, 256, "tc", "simt"),
+    (torch.bfloat16, 16, "simt", "simt"),
+    (torch.bfloat16, 32, "simt", "simt"),
+    (torch.float32, 16, "simt", "simt"),
+    (torch.float32, 64, "simt", "simt"),
+    (torch.float32, 128, "simt", "simt"),
+    (torch.float32, 256, "simt", "simt"),
+])
+def test_route_table(dtype, d, fwd, dkv):
+    assert SA.route(dtype, d) == fwd
+    assert SB.dkv_route(dtype, d) == dkv
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64),
+                                     (torch.bfloat16, 48),
+                                     (torch.float32, 512)])
+def test_no_route_raises(dtype, d):
+    with pytest.raises(ValueError, match="no kernel"):
+        SA.route(dtype, d)
+    with pytest.raises(ValueError, match="no kernel"):
+        SB.dkv_route(dtype, d)
+
+
+@pytest.mark.parametrize("name", list(PLANS))
+def test_chunk_plan_covers_the_inverse_once(name):
+    spec, seq = PLANS[name]
+    inv = ops.get_pattern(spec, seq, seq, 128, 128).inverse()
+    plan = SB.dkv_plan(inv)
+    live = inv.slot_kinds != patterns.PAD
+    lengths = live.sum(axis=1)
+    # every non-PAD slot of the inverse exactly once, chunks in order
+    seen = {}
+    for j, s0, s1, part in plan.chunks.tolist():
+        assert 0 <= s0 <= s1 <= lengths[j]
+        assert s1 - s0 <= plan.cap
+        for s in range(s0, s1):
+            assert live[j, s]
+            seen[(j, s)] = seen.get((j, s), 0) + 1
+    assert seen == {(j, s): 1 for j, s in zip(*np.nonzero(live))}
+    assert [tuple(c[:2]) for c in plan.chunks.tolist()] == sorted(
+        tuple(c[:2]) for c in plan.chunks.tolist())
+    # every kv block has a chunk; a cut block's partials are consecutive
+    # and listed once in `combine`, an uncut block writes directly
+    assert sorted(set(plan.chunks[:, 0].tolist())) == list(
+        range(len(lengths)))
+    cut = {j: (p0, n) for j, p0, n in plan.combine.tolist()}
+    for j in range(len(lengths)):
+        parts = [c[3] for c in plan.chunks.tolist() if c[0] == j]
+        if j in cut:
+            p0, n = cut[j]
+            assert parts == list(range(p0, p0 + n)) and n > 1
+        else:
+            assert parts == [-1]
+    assert plan.n_parts == sum(n for _, n in cut.values())
+    # the plan is a fixed function of the pattern
+    again = SB.dkv_plan(inv)
+    assert np.array_equal(again.chunks, plan.chunks)
+    assert np.array_equal(again.combine, plan.combine)
+
+
+def test_chunk_plan_balances_the_llama_shape():
+    """Causal window 256 + 4 globals at L=2048, 128-row blocks: the inverse
+    rows are [16, 3, ..., 3, 2, 1]; kv block 0 is cut into chunks of at
+    most 3 q blocks and no other row is cut."""
+    inv = ops.get_pattern(LLAMA, 2048, 2048, 128, 128).inverse()
+    lengths = (inv.slot_kinds != patterns.PAD).sum(axis=1).tolist()
+    assert lengths == [16] + [3] * 13 + [2, 1]
+    plan = SB.dkv_plan(inv)
+    assert plan.cap == 3
+    assert plan.combine.tolist() == [[0, 0, 6]]
+    assert plan.chunks[:6].tolist() == [[0, s, min(s + 3, 16), s // 3]
+                                        for s in range(0, 16, 3)]
+    assert max(c[2] - c[1] for c in plan.chunks.tolist()) == 3
+
+
+def test_chunk_plan_without_globals_cuts_nothing():
+    for spec in (AttentionSpec(kind="swat", window=256, causal=True),
+                 AttentionSpec(kind="dense", causal=True),
+                 AttentionSpec(kind="dense", causal=False)):
+        plan = SB.dkv_plan(ops.get_pattern(spec, 1024, 1024, 128,
+                                           128).inverse())
+        assert plan.combine.shape == (0, 3)
+        assert (plan.chunks[:, 3] == -1).all()
+
+
+def _split_dkv(q, k, v, o, lse, do, spec, pat, scale):
+    """dK/dV as the tensor-core route computes them: one plain backward per
+    chunk with dO zeroed outside the chunk's q rows (its partial), the
+    uncut kv blocks from the unsplit backward, and the cut ones summed by
+    dkv_combine's plain version."""
+    bq, bk = pat.block_q, pat.block_kv
+    inv = pat.inverse()
+    plan = SB.dkv_plan(inv)
+    b, hkv, lkv, d = k.shape
+    _, dk, dv = SB.swat_attention_bwd_plain(q, k, v, o, lse, do, spec, pat,
+                                            scale)
+    part_k = torch.zeros((plan.n_parts, b, hkv, bk, d))
+    part_v = torch.zeros_like(part_k)
+    for j, s0, s1, p in plan.chunks.tolist():
+        if p < 0:
+            continue
+        keep = torch.zeros(q.shape[2], dtype=torch.bool)
+        for s in range(s0, s1):
+            i = int(inv.q_block_map[j, s])
+            keep[i * bq:(i + 1) * bq] = True
+        dchunk = torch.where(keep[None, None, :, None], do, 0.0)
+        _, pk, pv = SB.swat_attention_bwd_plain(q, k, v, o, lse, dchunk,
+                                                spec, pat, scale)
+        rows = min(bk, lkv - j * bk)
+        part_k[p, :, :, :rows] = pk[:, :, j * bk:j * bk + rows]
+        part_v[p, :, :, :rows] = pv[:, :, j * bk:j * bk + rows]
+    combine = torch.as_tensor(plan.combine)
+    dk_s, dv_s = dk.clone(), dv.clone()
+    for j, _, _ in plan.combine.tolist():      # forget the cut rows
+        dk_s[:, :, j * bk:(j + 1) * bk] = float("nan")
+        dv_s[:, :, j * bk:(j + 1) * bk] = float("nan")
+    SB.dkv_combine(part_k, part_v, combine, dk_s, dv_s)
+    return plan, (dk, dv), (dk_s, dv_s)
+
+
+@pytest.mark.parametrize("spec,lq,lkv", [
+    (AttentionSpec(kind="swat", window=16, num_global=4, causal=True),
+     128, 128),
+    (AttentionSpec(kind="swat", window=16, num_global=4, causal=False),
+     118, 118),       # ragged: the last block is cut short
+])
+def test_split_reduction_matches_the_unsplit_plain(spec, lq, lkv):
+    rng = np.random.RandomState(0)
+    b, hq, hkv, d = 2, 4, 2, 16
+    q, k, v, do = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+                   for s in ((b, hq, lq, d), (b, hkv, lkv, d),
+                             (b, hkv, lkv, d), (b, hq, lq, d)))
+    pat = ops.get_pattern(spec, lq, lkv, 16, 16)
+    scale = d ** -0.5
+    o, lse = SA.swat_attention_fwd(q, k, v, spec, pattern=pat, scale=scale,
+                                   return_lse=True)
+    plan, (dk, dv), (dk_s, dv_s) = _split_dkv(q, k, v, o, lse, do, spec,
+                                              pat, scale)
+    assert plan.combine.shape[0] >= 1 and plan.n_parts >= 3
+    torch.testing.assert_close(dk_s, dk, **GRAD)
+    torch.testing.assert_close(dv_s, dv, **GRAD)
+    _, _, (dk_2, dv_2) = _split_dkv(q, k, v, o, lse, do, spec, pat, scale)
+    assert torch.equal(dk_s, dk_2) and torch.equal(dv_s, dv_2)
+
+
+def test_combine_wrapper_raises_off_the_cpu():
+    meta = lambda *s, **kw: torch.empty(*s, device="meta", **kw)
+    before = SB.COMBINE_LAUNCHES.n
+    with pytest.raises(ValueError, match="no kernel"):
+        SB.dkv_combine(meta(1, 1, 1, 16, 16), meta(1, 1, 1, 16, 16),
+                       meta(1, 3, dtype=torch.int32),
+                       meta(1, 1, 16, 16, dtype=torch.bfloat16),
+                       meta(1, 1, 16, 16, dtype=torch.bfloat16))
+    assert SB.COMBINE_LAUNCHES.n == before
