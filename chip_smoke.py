@@ -10,7 +10,9 @@ each of which raises on failure:
   1. build   - compile every kernel in src/repro_torch/csrc (nvcc, in
                parallel) and print the card's name and power limit.
   2. kernels - each CUDA kernel against its plain PyTorch version at the
-               serving path's shapes (fused decode: caches bitwise equal,
+               serving path's shapes (fused decode at head dim 64, 128 and
+               256 on cold, wrapped and chunk-border rings, the chosen split
+               printed: caches bitwise equal, two launches bitwise equal,
                outputs within bf16 atol 3e-2 / fp32 atol 2e-5 rtol 1e-4;
                banded forward: O at the same tolerances, LSE atol 1e-3,
                for the band pass, the global-row pass, and both composed
@@ -30,14 +32,18 @@ each of which raises on failure:
                of the same function (timed only; the port never calls it),
                beside the least time the card could take.
   6. trace   - torch.profiler over a short serve run: the device's busy
-               share of the wall time and device time by kernel category.
+               share of the wall time and device time by kernel category;
+               one fused decode kernel per layer and decode step, and no
+               other decode kernel (the cluster merge launches nothing).
   7. backward - the dQ and dK/dV kernels against their plain version at the
                training shapes (B=4, Hq=32, Hkv=8, L=2048, D=64, window
-               256, 4 globals, causal; plus group 1 and 8, softcap 30,
-               random blocks, the longformer-paper bidirectional spec,
-               the global-row pass, head dim 128 and whisper's ragged
-               1500-row encoder band), bf16 and fp32, each launch on its
-               route's counter; two launches bitwise equal (the split
+               256, 4 globals, causal; plus group 1 and 8, softcap 30 and
+               50, random blocks, the longformer-paper bidirectional spec,
+               the global-row pass, head dim 128, whisper's ragged
+               1500-row encoder band and its cross shape, 448 queries
+               against 1500 keys), bf16 and fp32, each dQ and dK/dV
+               launch on its route's counter (bf16 at head dim 64/128 on
+               the tensor-core kernels); two launches bitwise equal (the split
                dK/dV rows and their combine included); the combine
                kernel bitwise equal to its plain version; autograd
                through ops.swat_attention, kernel against banded, both
@@ -69,7 +75,9 @@ each of which raises on failure:
                softcap 50; decode on its wrapped 4097-row ring) and the
                dense causal global layer (softcap 50; decode on its
                8192-row cache), bf16 and fp32; then the kernels' times at
-               the local layer.
+               the local layer, each beside one SDPA call of the same
+               shapes and mask (the backward's as forward+backward minus
+               forward).
  14. whisper - full-width whisper-tiny + SWAT (window 128, 4 globals),
                bf16, random weights from seed 0: 8 clips of 1500 encoder
                frames, prefill of a 16-token prompt, 200 greedy decode
@@ -171,18 +179,21 @@ def max_err(a, b):
 
 
 def route_counts():
-    """Launch counts of the forward's and dK/dV's routes and the combine."""
+    """Launch counts of the forward's, dQ's and dK/dV's routes and the
+    combine."""
     from repro_torch.kernels import swat_attention as SA
     from repro_torch.kernels import swat_backward as SB
     return {"fwd_tc": SA.ROUTE_LAUNCHES["tc"].n,
             "fwd_simt": SA.ROUTE_LAUNCHES["simt"].n,
+            "dq_tc": SB.DQ_ROUTE_LAUNCHES["tc"].n,
+            "dq_simt": SB.DQ_ROUTE_LAUNCHES["simt"].n,
             "dkv_tc": SB.DKV_ROUTE_LAUNCHES["tc"].n,
             "dkv_simt": SB.DKV_ROUTE_LAUNCHES["simt"].n,
             "combine": SB.COMBINE_LAUNCHES.n}
 
 
 def check_route(name, before, kernel, route, n=1):
-    """Since `before` (route_counts()), `kernel` ("fwd" or "dkv") was
+    """Since `before` (route_counts()), `kernel` ("fwd", "dq" or "dkv") was
     launched n times, every time on `route` ("tc" or "simt")."""
     now = route_counts()
     other = "simt" if route == "tc" else "tc"
@@ -197,7 +208,8 @@ def check_route(name, before, kernel, route, n=1):
 def expected_route(dtype, d, kernel):
     from repro_torch.kernels import swat_attention as SA
     from repro_torch.kernels import swat_backward as SB
-    return (SA.route if kernel == "fwd" else SB.dkv_route)(dtype, d)
+    return {"fwd": SA.route, "dq": SB.dq_route,
+            "dkv": SB.dkv_route}[kernel](dtype, d)
 
 
 def check_close(name, got, want, dtype_name, **tol):
@@ -225,38 +237,75 @@ def _ring_inputs(torch, gen, dtype, b, group, hkv, t, d, lens):
     return q, kc, vc, nk, nv, pos, nn, cap
 
 
+def _border_lens(chunk, cap):
+    """Ring depths (tokens before the insert) whose first insert slot is
+    the last row of chunk 0 (so T=4 straddles the border), the first row
+    of chunk 1, the last row of chunk 1 and the first of chunk 2, each
+    after one or more wraps of the ring."""
+    g = MAIN["num_global"]
+    ring = cap - g
+    return [chunk - 1 + 2 * ring, chunk + 3 * ring, 2 * chunk - 1 + ring,
+            2 * chunk + 5 * ring]
+
+
 def check_decode(torch, spec):
+    """The fused decode kernel against its plain version: head dim 64, 128
+    and 256 x bf16/fp32 x T=1/4 x group 1/4/8 x three rings (cold: slot 0
+    at pos 0, so that most of the cluster's chunks see nothing; wrapped;
+    insert slots on the split's chunk borders). Caches bitwise equal,
+    outputs within TOL, two launches bitwise equal. Returns the bf16 error
+    of the serve case (D=64, T=1, group 4, wrapped)."""
     from repro_torch.kernels import swat_decode as SD
     gen = torch.Generator(device="cuda").manual_seed(1)
-    main_err = None
-    for dtype in (torch.bfloat16, torch.float32):
-        dn = str(dtype).split(".")[-1]
-        for t in (1, 4):
-            for group in (1, 4, 8):
-                for lens, tag in (([0, 3, 100, 200], "cold"),
-                                  ([600, 261, 1037, 5000], "wrapped")):
-                    q, kc, vc, nk, nv, pos, nn, cap = _ring_inputs(
-                        torch, gen, dtype, MAIN["b"], group, MAIN["hkv"], t,
-                        MAIN["d"], lens)
-                    want, kw, vw = SD.swat_decode_fused_plain(
-                        q, kc, vc, nk, nv, pos, nn, spec, ring_cap=cap)
-                    k2, v2 = kc.clone(), vc.clone()
-                    got = SD.swat_decode_fused(q, k2, v2, nk, nv, pos, nn,
-                                               spec, ring_cap=cap)
-                    torch.cuda.synchronize()
-                    name = f"swat_decode {dn} T={t} group={group} {tag}"
-                    if not (torch.equal(k2, kw) and torch.equal(v2, vw)):
-                        raise AssertionError(f"{name}: caches not bitwise "
-                                             "equal to the plain version")
-                    err = 0.0
-                    for i in range(MAIN["b"]):
-                        real = int(nn[i])   # rows past num_new: garbage
-                        err = max(err, check_close(
-                            name, got[i, :, :real], want[i, :, :real], dn))
-                    if (dn, t, group, tag) == ("bfloat16", 1, 4, "wrapped"):
-                        main_err = err
-    log("swat_decode: 24 cases, caches bitwise equal, outputs within "
-        "tolerance")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    main_err, n, splits = None, 0, set()
+    for d in (64, 128, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            for t in (1, 4):
+                cap = MAIN["window"] + 1 + (t - 1) + MAIN["num_global"]
+                chunk, nsplit = SD.fused_splits(MAIN["b"] * MAIN["hkv"], cap,
+                                                sms)
+                splits.add((cap, nsplit, chunk))
+                rings = (([0, 3, 100, 200], "cold"),
+                         ([600, 261, 1037, 5000], "wrapped"),
+                         (_border_lens(chunk, cap), "chunk borders"))
+                for group in (1, 4, 8):
+                    for lens, tag in rings:
+                        q, kc, vc, nk, nv, pos, nn, cap = _ring_inputs(
+                            torch, gen, dtype, MAIN["b"], group, MAIN["hkv"],
+                            t, d, lens)
+                        want, kw, vw = SD.swat_decode_fused_plain(
+                            q, kc, vc, nk, nv, pos, nn, spec, ring_cap=cap)
+                        k2, v2 = kc.clone(), vc.clone()
+                        got = SD.swat_decode_fused(q, k2, v2, nk, nv, pos,
+                                                   nn, spec, ring_cap=cap)
+                        k3, v3 = kc.clone(), vc.clone()
+                        again = SD.swat_decode_fused(q, k3, v3, nk, nv, pos,
+                                                     nn, spec, ring_cap=cap)
+                        torch.cuda.synchronize()
+                        name = (f"swat_decode D={d} {dn} T={t} group={group}"
+                                f" {tag}")
+                        if not (torch.equal(k2, kw) and torch.equal(v2, vw)):
+                            raise AssertionError(f"{name}: caches not bitwise "
+                                                 "equal to the plain version")
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{name}: two launches "
+                                                 "differ")
+                        err = 0.0
+                        for i in range(MAIN["b"]):
+                            real = int(nn[i])   # rows past num_new: garbage
+                            err = max(err, check_close(
+                                name, got[i, :, :real], want[i, :, :real],
+                                dn))
+                        n += 1
+                        if (d, dn, t, group, tag) == (64, "bfloat16", 1, 4,
+                                                      "wrapped"):
+                            main_err = err
+    log(f"swat_decode: {n} cases, caches bitwise equal, outputs within "
+        "tolerance, bitwise repeatable; split (cap, CTAs per ring, chunk "
+        f"rows) for {MAIN['b']} slots x {MAIN['hkv']} kv heads on {sms} "
+        f"SMs: {sorted(splits)}")
     return main_err
 
 
@@ -544,7 +593,8 @@ _CATEGORIES = (("swat_decode_plain", ("decode_plain_",)),
                ("swat_decode", ("decode_fused_kernel",)),
                ("swat_attention_fwd", ("attention_fwd_kernel",
                                        "attention_fwd_tc_kernel")),
-               ("swat_attention_dq", ("attention_dq_kernel",)),
+               ("swat_attention_dq", ("attention_dq_kernel",
+                                      "attention_dq_tc_kernel")),
                ("swat_attention_dkv", ("attention_dkv_kernel",
                                        "attention_dkv_tc_kernel")),
                ("swat_attention_dkv_combine", ("dkv_combine_kernel",)),
@@ -614,7 +664,18 @@ def trace_decode(torch, cfg, params):
                     if any(k in name for k in keys)), "other")
         by_cat[cat] = by_cat.get(cat, 0.0) + e.time_range.elapsed_us() / 1e3
     steps = max(1, eng.stats["decode_steps"])
+    # the fused decode is one kernel per layer and step: its cluster merge
+    # launches nothing else
+    fused = sum("decode_fused_kernel" in e.name for e in dec)
+    stray = sorted({e.name[:60] for e in dec if "decode" in e.name.lower()
+                    and "decode_fused_kernel" not in e.name})
+    if fused != cfg.num_layers * eng.stats["decode_steps"] or stray:
+        raise AssertionError(f"trace: {fused} fused decode kernels in "
+                             f"{eng.stats['decode_steps']} decode steps of "
+                             f"{cfg.num_layers} layers; other decode "
+                             f"kernels: {stray}")
     out.update(
+        fused_decode_kernels_per_step=fused / steps,
         decode_block_host_ms=block_ms,
         decode_device_busy_ms=_union_ms([e.time_range for e in dec]),
         decode_busy_share=_union_ms([e.time_range for e in dec]) / block_ms,
@@ -639,8 +700,8 @@ def _bwd_inputs(torch, gen, dtype, b, hq, hkv, lq, lkv, d, sp, pat):
 
 def check_backward(torch, spec):
     """dQ and dK/dV kernels against swat_attention_bwd_plain at the
-    training shapes; a second launch must be bitwise equal, and each
-    dK/dV launch must count on its route (with one combine launch where
+    training shapes; a second launch must be bitwise equal, and each dQ
+    and dK/dV launch must count on its route (with one combine launch where
     the chunk plan cut a row). The combine kernel is held bitwise against
     its plain version on the main case's partials. Then autograd through
     ops.swat_attention (both passes), kernel against banded. Returns the
@@ -660,6 +721,8 @@ def check_backward(torch, spec):
              ("group 8", spec, b, 32, 4, l, l, d),
              ("softcap 30", dataclasses.replace(spec, softcap=30.0), b, 32,
               8, l, l, d),
+             ("softcap 50", dataclasses.replace(spec, softcap=50.0), b, 32,
+              8, l, l, d),
              ("random blocks", dataclasses.replace(spec, num_random=2,
                                                    random_seed=7),
               b, 32, 8, l, l, d),
@@ -669,7 +732,12 @@ def check_backward(torch, spec):
              ("global rows", gspec, b, 32, 8, spec.num_global, l, d),
              ("D=128", spec, b, 32, 8, l, l, 128),
              ("ragged whisper band", AttentionSpec(**WHISPER_BAND),
-              WHISPER["clips"], 6, 6, wl, wl, d)]
+              WHISPER["clips"], 6, 6, wl, wl, d),
+             # Lq != Lkv: whisper's cross attention, the decoder's max_len
+             # queries against the 1500 encoder rows, dense non-causal
+             ("whisper cross Lq != Lkv", AttentionSpec(kind="dense",
+                                                       causal=False),
+              WHISPER["clips"], 6, 6, WHISPER["max_len"], wl, d)]
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
@@ -685,6 +753,8 @@ def check_backward(torch, spec):
                                           pattern=pat)
             torch.cuda.synchronize()
             name = f"swat_attention_bwd {dn} {tag}"
+            dq_route = expected_route(dtype, dd, "dq")
+            check_route(name, before, "dq", dq_route, n=2)
             route = expected_route(dtype, dd, "dkv")
             check_route(name, before, "dkv", route, n=2)
             split = SB.dkv_plan(pat.inverse()).combine.shape[0] > 0
@@ -698,8 +768,9 @@ def check_backward(torch, spec):
                  for n, g, w in zip("qkv", got, want)]
             errs[(dn, tag)] = e
             log(f"{name}: max abs err dq {e[0]:.3g} dk {e[1]:.3g} "
-                f"dv {e[2]:.3g}, bitwise deterministic, dK/dV on the "
-                f"{route} route, {combines} combine launches")
+                f"dv {e[2]:.3g}, bitwise deterministic, dQ on the "
+                f"{dq_route} route, dK/dV on the {route} route, {combines} "
+                "combine launches")
             if (dn, tag) == ("bfloat16", "causal+globals group 4"):
                 combine_err = check_combine(torch, SB, q, k, v, o, lse, do,
                                             sp, pat, got)
@@ -723,8 +794,8 @@ def check_backward(torch, spec):
             log(f"autograd {dn} d{n}: kernel vs banded max abs err {err:.3g}")
     main = errs[("bfloat16", "causal+globals group 4")]
     log(f"swat_attention_bwd: {len(errs)} cases, bitwise deterministic, "
-        "within tolerance, each dK/dV launch on its route; autograd kernel "
-        "vs banded within tolerance")
+        "within tolerance, each dQ and dK/dV launch on its route; autograd "
+        "kernel vs banded within tolerance")
     return main[0], max(main[1], main[2]), combine_err
 
 
@@ -802,6 +873,7 @@ def train(torch, cfg):
                 "swat_attention_dq": SB.DQ_LAUNCHES.n,
                 "swat_attention_dkv": SB.DKV_LAUNCHES.n}
     check_route("train", before, "fwd", "tc", n=SA.LAUNCHES.n)
+    check_route("train", before, "dq", "tc", n=SB.DQ_LAUNCHES.n)
     check_route("train", before, "dkv", "tc", n=SB.DKV_LAUNCHES.n)
     combines = route_counts()["combine"] - before["combine"]
     launches["swat_attention_dkv_combine"] = combines
@@ -1242,6 +1314,8 @@ def check_gemma2(torch):
             before = route_counts()
             got = SB.swat_attention_bwd(q, k, v, o, lse, do, sp, pattern=pat)
             torch.cuda.synchronize()
+            check_route(name + " dQ", before, "dq",
+                        expected_route(dtype, d, "dq"))
             check_route(name + " dK/dV", before, "dkv",
                         expected_route(dtype, d, "dkv"))
             e = [check_close(f"{name} d{c}", x, y, dn, **BWD_TOL[dn])
@@ -1291,7 +1365,11 @@ def check_gemma2(torch):
         "tolerance, bf16 and fp32, local and global layers: "
         + json.dumps(errs))
 
-    # bf16 times at the local layer (kernels only; a few calls each)
+    # bf16 times at the local layer (a few calls each), and one SDPA call
+    # of the same shapes and mask beside each (SDPA has no softcap: it is
+    # timed without one)
+    import torch.nn.functional as F
+    from repro_torch.core import patterns
     mk = lambda *s: torch.randn(*s, generator=gen,
                                 device="cuda").to(torch.bfloat16)
     q, k, v, do = (mk(b, hq, l, d), mk(b, hkv, l, d), mk(b, hkv, l, d),
@@ -1322,7 +1400,7 @@ def check_gemma2(torch):
             bound(itm * d * (2 * rows_q + 4 * rows_kv) + 4 * 2 * rows_q,
                   8 * d * n_vis)),
     }
-    del q, k, v, do, o, lse, delta
+    del o, lse, delta
     qd, kc, vc, nk, nv, ones, cap = _gemma_ring(torch, mk)
     lens = torch.full((4,), 9000, dtype=torch.int32, device="cuda")
     # every slot sees the whole window (cap rows): q in, out, K/V rows read
@@ -1337,13 +1415,57 @@ def check_gemma2(torch):
         time_ms(torch, lambda: SD.swat_decode_plain(
             qd, kc, vc, lens, local, ring_cap=cap)),
         bound(itm * d * (io_q + 2 * 4 * hkv * cap), dec_ops))
-    out = {k_: {"ms": t, "bound_ms": bd[0], "bound_by": bd[1]}
+    lib = _gemma_library_ms(torch, F, patterns, local, q, k, v, do, qd, kc,
+                            vc, lens, cap)
+    out = {k_: {"ms": t, "bound_ms": bd[0], "bound_by": bd[1],
+                "library_ms": lib[k_]}
            for k_, (t, bd) in times.items()}
     log("gemma2 D=256 times (bf16, local layer; decode B=4 on a 4097-row "
-        "ring): " + json.dumps(out))
-    del qd, kc, vc, nk, nv
+        "ring; library: SDPA, backward as forward+backward minus forward): "
+        + json.dumps(out))
+    del q, k, v, do, qd, kc, vc, nk, nv
     torch.cuda.empty_cache()
     return errs, out
+
+
+def _gemma_library_ms(torch, F, patterns, local, q, k, v, do, qd, kc, vc,
+                      lens, cap):
+    """SDPA at phase 13's timed shapes: the local layer's forward and its
+    backward (forward+backward minus forward, which computes dQ, dK and dV
+    together) on head-expanded K/V with the band as a boolean mask, and the
+    decode query on the ring (after the step's insert) with the ring's
+    visibility mask, whose row count the timed plain decode call also
+    attends."""
+    from repro_torch.kernels import ref
+    g = GEMMA
+    rep = g["hq"] // g["hkv"]
+    dm = torch.as_tensor(patterns.dense_mask(local, g["seq"], g["seq"]),
+                         device="cuda")
+    qr = q.detach().clone().requires_grad_()
+    ke = k.repeat_interleave(rep, dim=1).requires_grad_()
+    ve = v.repeat_interleave(rep, dim=1).requires_grad_()
+
+    def fwd():
+        return F.scaled_dot_product_attention(qr, ke, ve, attn_mask=dm)
+
+    with torch.no_grad():
+        f_ms = time_ms(torch, fwd, iters=3)
+    b_ms = time_ms(torch, lambda: torch.autograd.grad(fwd(), (qr, ke, ve),
+                                                      do), iters=3) - f_ms
+    del qr, ke, ve, dm
+    w = kc.shape[2]
+    t_s, ok = ref.ring_slot_positions(lens.long() + 1, w, ring_cap=cap,
+                                      num_global=0)
+    qp = lens.long()[:, None]
+    vis = (ok & (t_s <= qp) & (t_s >= qp - local.window))[:, None, None, :]
+    kce = kc.repeat_interleave(rep, dim=1)
+    vce = vc.repeat_interleave(rep, dim=1)
+    d_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qd, kce, vce, attn_mask=vis))
+    torch.cuda.empty_cache()
+    return {"swat_attention_fwd": f_ms, "swat_attention_dq": b_ms,
+            "swat_attention_dkv": b_ms, "swat_decode_fused": d_ms,
+            "swat_decode_plain": d_ms}
 
 
 # ------------------------------------------------------------ phase 14 ---
@@ -1706,7 +1828,7 @@ def main():
     ]
     # the combine has no single PyTorch call that computes it (library null)
     for name, key, err, counted in (
-            ("swat_attention_dq", "dq", dq_err, "swat_attention_dq"),
+            ("swat_attention_dq_tc", "dq", dq_err, "swat_attention_dq"),
             ("swat_attention_dkv_tc", "dkv", dkv_err, "swat_attention_dkv"),
             ("swat_attention_dkv_combine", "combine", combine_err,
              "swat_attention_dkv_combine")):

@@ -15,20 +15,38 @@
 // 8 kv heads, L=2048, window 256, D=64) the byte and the bf16 tensor-core
 // bounds are of the same order (~0.03 ms each).
 //
-// dK/dV has two routes, chosen by the wrapper from (dtype, head dim)
-// (kernels/swat_backward.py `dkv_route`); each is its own entry point:
+// Both gradients have two routes, chosen by the wrapper from (dtype, head
+// dim) (kernels/swat_backward.py `dq_route`, `dkv_route`); each is its own
+// entry point:
 //
-//   dtype  head dim   entry point
-//   bf16   64, 128    swat_attention_dkv_tc (tensor cores), then
-//                     swat_attention_dkv_combine where the plan cut a row
-//   bf16   16, 32     swat_attention_dkv    (SIMT)
-//   bf16   256        swat_attention_dkv    (SIMT: a 64-row tile's D-wide
-//                                            dK and dV accumulators would
-//                                            take 256 registers a thread)
-//   fp32   any        swat_attention_dkv    (SIMT: the tensor cores would
-//                                            compute it in TF32)
+//   dtype  head dim      dQ                       dK/dV
+//   bf16   64, 128       swat_attention_dq_tc     swat_attention_dkv_tc, then
+//                        (tensor cores)           swat_attention_dkv_combine
+//                                                 where the plan cut a row
+//   bf16   256           swat_attention_dq_tc     swat_attention_dkv (SIMT: a
+//                                                 64-row tile's D-wide dK and
+//                                                 dV accumulators would take
+//                                                 256 registers a thread)
+//   bf16   16, 32        swat_attention_dq        swat_attention_dkv (SIMT)
+//   fp32   any           swat_attention_dq        swat_attention_dkv (SIMT:
+//                                                 the tensor cores would
+//                                                 compute in TF32)
 //
-// dQ has one kernel, the SIMT one below, unchanged from the first port.
+// Tensor-core dQ (attention_dq_tc_kernel): the query tile is stationary, as
+// in the forward. One CTA (one warpgroup) holds 64 query rows of one q head
+// (Q and dO in 128B-swizzled shared memory, each row's LSE and delta in
+// registers) and walks the forward pattern's slots, bringing K and V tiles
+// through a two-stage cp.async ring; tiles with no visible pair are
+// neither loaded nor multiplied. S = Q K^T and dP = dO V^T run on wgmma from
+// shared memory; S is scaled in fp32 after the product (the plain version
+// scales q in fp32), then the softcap chain, the per-row key bit set of
+// band.cuh, P = exp(S - lse) and dS = P (dP - delta) chain stay in
+// registers as the A operand of dQ += dS K, whose B operand (K as stored)
+// is read MN-major through the transpose bit. dS goes in as two bf16 parts
+// (the rounded value and the rest), as dK/dV's does. Each dQ row belongs to
+// one CTA: no cross-CTA sum, no combine. At D=256 the K/V tiles are 32
+// rows, so the score and dP tiles (16 registers each) fit beside the
+// 128-register accumulator.
 //
 // Tensor-core dK/dV (attention_dkv_tc_kernel): the kv tile is stationary,
 // the paper's input-stationary reuse. One CTA (one warpgroup) holds 64 kv
@@ -52,11 +70,12 @@
 // partials, and dkv_combine_kernel sums them in chunk order. Registers
 // bound the design: the dK and dV accumulators are D registers a thread.
 //
-// SIMT kernels (attention_dq_kernel, attention_dkv_kernel): one thread per
-// query row (dQ) or kv row (dK/dV) with fp32 FMA loops against fp32 tiles
-// in shared memory; dK/dV sums the GQA group inside the CTA. Their
-// ceiling is the 67 TFLOP/s fp32 rate; at head dim 256 their register rows
-// spill, and dK/dV keeps a thread's own K and V rows in local memory.
+// SIMT kernels (attention_dq_kernel, attention_dkv_kernel), for fp32 and
+// the head dims the tensor-core kernels do not take: one thread per query
+// row (dQ) or kv row (dK/dV) with fp32 FMA loops against fp32 tiles in
+// shared memory; dK/dV sums the GQA group inside the CTA. Their ceiling is
+// the 67 TFLOP/s fp32 rate; at head dim 256 their register rows spill, and
+// dK/dV keeps a thread's own K and V rows in local memory.
 //
 // Deterministic by construction: no atomics; every sum runs in a fixed
 // order, so two launches on the same inputs give bitwise-equal outputs.
@@ -745,6 +764,243 @@ int launch_dkv_tc(const Args& a, const int* chunks, float* part_k,
   return (int)cudaGetLastError();
 }
 
+
+// -------------------------------------------- dQ on the tensor cores ---
+
+// query rows per CTA: one warpgroup of 64
+constexpr int DQ_ROWS = 64;
+constexpr int DQ_STAGES = 2;  // stages of the K/V ring
+
+// kv rows per K/V tile: at D=256 a 64-key tile's score and dP tiles (64
+// registers) beside the dQ accumulator (128) would spill
+template <int D>
+__host__ __device__ constexpr int dq_kt() { return D <= 128 ? 64 : 32; }
+
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {
+  // Q and dO tiles, the stages of (K tile, V tile), room to align
+  return 2 * (size_t)DQ_ROWS * D * 2 +
+         2 * (size_t)DQ_STAGES * dq_kt<D>() * D * 2 + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TCB_THREADS, D <= 128 ? 2 : 1)
+    attention_dq_tc_kernel(
+    const __nv_bfloat16* __restrict__ q,     // (B, Hq, Lq, D)
+    const __nv_bfloat16* __restrict__ k,     // (B, Hkv, Lkv, D)
+    const __nv_bfloat16* __restrict__ v,     // (B, Hkv, Lkv, D)
+    const __nv_bfloat16* __restrict__ dout,  // (B, Hq, Lq, D)
+    const float* __restrict__ lse,           // (B, Hq, Lq)
+    const float* __restrict__ delta,         // (B, Hq, Lq)
+    const int* __restrict__ kv_map,          // (nq, num_slots)
+    const int* __restrict__ kinds,           // (nq, num_slots)
+    __nv_bfloat16* __restrict__ dq,          // (B, Hq, Lq, D)
+    int hq, int hkv, int lq, int lkv, int num_slots, int block_q,
+    int block_kv, int nsub, Spec sp) {
+  constexpr int KT = dq_kt<D>();
+  constexpr uint32_t QB = DQ_ROWS * D * 2;  // bytes of the Q (or dO) tile
+  constexpr uint32_t KVB = KT * D * 2;      // bytes of one K or V tile
+  constexpr int R = D / 2;                  // dQ accumulator registers
+  constexpr int RS = KT / 2;                // score and dP registers
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sdo = sq + QB;
+  const uint32_t st0 = sdo + QB;  // stage s at st0 + s * 2 * KVB: K, V
+
+  const int i = blockIdx.x / nsub;
+  const int row0 = i * block_q + (blockIdx.x % nsub) * DQ_ROWS;
+  const int nrow =
+      min(min(DQ_ROWS, (i + 1) * block_q - row0), lq - row0);  // live rows
+  if (nrow <= 0) return;  // uniform across the CTA
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int hk = h / (hq / hkv);
+  const size_t hrow = ((size_t)b * hq + h) * lq;  // row 0 of (b, h)
+  const __nv_bfloat16* kh = k + ((size_t)b * hkv + hk) * lkv * D;
+  const __nv_bfloat16* vh = v + ((size_t)b * hkv + hk) * lkv * D;
+  const int* map_i = kv_map + i * num_slots;
+  const int* kind_i = kinds + i * num_slots;
+  const int ntile = (block_kv + KT - 1) / KT;
+  const int total = num_slots * ntile;
+  const int cq0 = sp.q_offset + row0;  // the CTA's live query rows
+  const int cq1 = cq0 + nrow - 1;
+
+  // tile f = (slot f / ntile, KT-row tile f % ntile of its kv block)
+  auto cols = [&](int f, int* kind, int* c0) {
+    const int s = f / ntile, tt = f % ntile;
+    *kind = kind_i[s];
+    *c0 = map_i[s] * block_kv + tt * KT;
+    return min(min(KT, block_kv - tt * KT), lkv - *c0);
+  };
+  // the first tile at or after f that holds a visible pair for the CTA
+  auto next = [&](int f) {
+    for (; f < total; ++f) {
+      int kind, c0;
+      const int ncol = cols(f, &kind, &c0);
+      if (kind == PAD_KIND || ncol <= 0) continue;
+      const int k0 = sp.kv_offset + c0;
+      if (any_visible(sp, cq0, cq1, k0, k0 + ncol - 1, kind)) return f;
+    }
+    return total;
+  };
+  auto issue = [&](int f, int stage) {
+    int kind, c0;
+    const int ncol = cols(f, &kind, &c0);
+    const uint32_t sk = st0 + stage * 2 * KVB;
+    wg::load_tile<D>(sk, kh + (size_t)c0 * D, kh, KT, ncol, tid,
+                     TCB_THREADS);
+    wg::load_tile<D>(sk + KVB, vh + (size_t)c0 * D, vh, KT, ncol, tid,
+                     TCB_THREADS);
+  };
+
+  // one commit group per tile (empty past the last), so that waiting for
+  // all but the newest DQ_STAGES - 2 groups lands the tile about to be used
+  wg::load_tile<D>(sq, q + (hrow + row0) * D, q, DQ_ROWS, nrow, tid,
+                   TCB_THREADS);
+  wg::load_tile<D>(sdo, dout + (hrow + row0) * D, dout, DQ_ROWS, nrow, tid,
+                   TCB_THREADS);
+  wg::cp_async_commit();
+  int cur = next(0);
+  int ahead = cur;  // the last tile issued
+#pragma unroll
+  for (int st = 0; st < DQ_STAGES - 1; ++st) {
+    if (st > 0 && ahead < total) ahead = next(ahead + 1);
+    if (ahead < total) issue(ahead, st);
+    wg::cp_async_commit();
+  }
+
+  // each thread's two query rows: their LSE and delta, log2-scaled
+  const int r_lo = warp * 16 + lane / 4;  // row of half 0; half 1 is +8
+  float ls2[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int rr = r_lo + 8 * hh;
+    const bool in = rr < nrow;
+    ls2[hh] = in ? lse[hrow + row0 + rr] * LOG2E : 0.f;
+    dl[hh] = in ? delta[hrow + row0 + rr] : 0.f;
+  }
+  float acc[R];
+#pragma unroll
+  for (int e = 0; e < R; ++e) acc[e] = 0.f;
+  const int off = (lane & 3) * 2;  // the thread's first column of a tile
+  int stage = 0;
+  while (cur < total) {
+    wg::cp_async_wait<DQ_STAGES - 2>();  // this tile (and Q, dO) landed
+    wg::fence_async_smem();
+    __syncthreads();  // ... and every warp is done with the stage that
+                      // the next load refills
+    if (ahead < total) ahead = next(ahead + 1);
+    if (ahead < total) issue(ahead, (stage + DQ_STAGES - 1) % DQ_STAGES);
+    wg::cp_async_commit();
+    int kind, c0;
+    const int ncol = cols(cur, &kind, &c0);
+    const int k0 = sp.kv_offset + c0;
+    // (next() skipped the tiles with no visible pair)
+    const bool full = nrow == DQ_ROWS && ncol == KT &&
+                      all_visible(sp, cq0, cq0 + DQ_ROWS - 1, k0,
+                                  k0 + KT - 1, kind);
+    const uint32_t sk = st0 + stage * 2 * KVB;
+    const uint32_t sv = sk + KVB;
+    float s[RS], dp[RS];
+#pragma unroll
+    for (int e = 0; e < RS; ++e) s[e] = dp[e] = 0.f;
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)  // S = Q K^T
+      wg::mma_ss<KT>(s, wg::desc_k(sq, DQ_ROWS, 0, kk),
+                     wg::desc_k(sk, KT, 0, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)  // dP = dO V^T
+      wg::mma_ss<KT>(dp, wg::desc_k(sdo, DQ_ROWS, 0, kk),
+                     wg::desc_k(sv, KT, 0, kk), 1);
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    wg::fence_regs(s);
+    wg::fence_regs(dp);
+    // the keys each of this thread's two query rows sees (bit j: the
+    // thread's column j)
+    uint32_t vis[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rr = r_lo + 8 * hh;
+      vis[hh] = rr >= nrow ? 0u
+                : full     ? ~0u
+                           : key_range(sp, cq0 + rr, k0 + off, ncol - off,
+                                       kind).bits();
+    }
+    // a warp whose 16 rows see no key of the tile skips the arithmetic
+    if (!__any_sync(0xffffffffu, (vis[0] | vis[1]) != 0u)) {
+#pragma unroll
+      for (int e = 0; e < RS; ++e) s[e] = 0.f;
+    } else {
+#pragma unroll
+      for (int e = 0; e < RS; ++e) {
+        const int hh = (e >> 1) & 1;
+        const bool in = (vis[hh] >> (2 * (e >> 2) + (e & 1))) & 1u;
+        float x = s[e] * sp.scale, chain = 1.f;  // scaled in fp32
+        if (sp.softcap != 0.f) {
+          const float t = tanhf(x / sp.softcap);
+          chain = 1.f - t * t;
+          x = sp.softcap * t;
+        }
+        const float p = in ? wg::ex2(fmaf(x, LOG2E, -ls2[hh])) : 0.f;
+        s[e] = in ? p * (dp[e] - dl[hh]) * chain : 0.f;  // dS
+      }
+    }
+    // dS as two bf16 parts (the rounded value and the rest): one bf16
+    // rounding of dS would move dQ by a few bf16 ulps
+    uint32_t dh[KT / 16][4], dlo[KT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+      wg::a_frag_split(s, kk, dh[kk], dlo[kk]);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {  // dQ += dS K
+      wg::mma_rs<D>(acc, dh[kk], wg::desc_mn(sk, KT, kk), 1);
+      wg::mma_rs<D>(acc, dlo[kk], wg::desc_mn(sk, KT, kk), 1);
+    }
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    wg::fence_regs(acc);
+    cur = next(cur + 1);
+    stage = (stage + 1) % DQ_STAGES;
+  }
+  wg::cp_async_wait<0>();
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int rr = r_lo + 8 * hh;
+    if (rr >= nrow) continue;
+    __nv_bfloat16* drow = dq + (hrow + row0 + rr) * D + off;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(drow + c * 8) =
+          __floats2bfloat162_rn(acc[4 * c + 2 * hh] * sp.scale,
+                                acc[4 * c + 2 * hh + 1] * sp.scale);
+  }
+}
+
+template <int D>
+int launch_dq_tc(const Args& a, Spec sp, cudaStream_t stream) {
+  const size_t smem = dq_tc_smem_bytes<D>();
+  auto kern = attention_dq_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nsub = (a.block_q + DQ_ROWS - 1) / DQ_ROWS;
+  dim3 grid(a.nblocks * nsub, a.hq, a.b);
+  kern<<<grid, TCB_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta, a.map,
+      a.kinds, static_cast<__nv_bfloat16*>(a.out0), a.hq, a.hkv, a.lq, a.lkv,
+      a.num_slots, a.block_q, a.block_kv, nsub, sp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the gradients share
@@ -764,6 +1020,32 @@ extern "C" int swat_attention_dq(
   Spec sp{sparse, window, causal, num_global, num_random,
           q_offset, kv_offset, seq_kv, scale, softcap};
   return run<false>(a, d, sp, dtype, stream);
+}
+
+// The tensor-core dQ route: bf16 only (dtype 1), head dim 64, 128 or 256;
+// arguments as swat_attention_dq's.
+extern "C" int swat_attention_dq_tc(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* kv_map, const void* kinds,
+    void* dq, int b, int hq, int hkv, int lq, int lkv, int d, int nq,
+    int num_slots, int block_q, int block_kv, int sparse, int window,
+    int causal, int num_global, int num_random, int q_offset, int kv_offset,
+    int seq_kv, float scale, float softcap, int dtype, void* stream) {
+  if (dtype != 1 || block_q < 1 || block_kv < 1 || hkv < 1 || hq % hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, dout, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), static_cast<const int*>(kv_map),
+         static_cast<const int*>(kinds), dq, nullptr, b, hq, hkv, lq, lkv,
+         nq, num_slots, block_q, block_kv};
+  Spec sp{sparse, window, causal, num_global, num_random,
+          q_offset, kv_offset, seq_kv, scale, softcap};
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return launch_dq_tc<64>(a, sp, st);
+    case 128: return launch_dq_tc<128>(a, sp, st);
+    case 256: return launch_dq_tc<256>(a, sp, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // q_map / ikinds: the inverse pattern, int32 (nkv, num_inv_slots).

@@ -6,17 +6,19 @@ block pattern, and dK/dV over its inverse (per kv block, the q blocks that
 touch it), both recomputing the scores in fp32 from the forward's row LSE,
 with the softcap chain rule. The kernel source is
 `repro_torch/csrc/swat_attention_bwd.cu` (`swat_attention_dq`,
-`swat_attention_dkv`, `swat_attention_dkv_tc`,
+`swat_attention_dq_tc`, `swat_attention_dkv`, `swat_attention_dkv_tc`,
 `swat_attention_dkv_combine`). Unlike the TPU kernels, dK/dV is produced
 per KV head with the GQA group summed inside the kernel, and padded rows
 are masked explicitly.
 
-dK/dV has two routes (`dkv_route`): bf16 at head dim 64 or 128 runs the
-tensor-core kernel over a chunk plan (`dkv_plan`) that cuts the long
-inverse rows (kv block 0, which every q block visits for its global
+Each gradient has two routes. dQ (`dq_route`): bf16 at head dim 64, 128
+or 256 runs the tensor-core kernel, one CTA per 64 query rows; every other
+case runs the SIMT kernel. dK/dV (`dkv_route`): bf16 at head dim 64 or 128
+runs the tensor-core kernel over a chunk plan (`dkv_plan`) that cuts the
+long inverse rows (kv block 0, which every q block visits for its global
 columns) into chunks of at most the longest other row; the chunks of a cut
 row write fp32 partials that a second kernel sums in chunk order. Every
-other case runs the SIMT kernel. dQ has one kernel.
+other case runs the SIMT kernel.
 
 `swat_attention_bwd` launches the kernels for CUDA tensors and raises on
 anything they do not take. For CPU tensors, and only for them, it runs
@@ -37,14 +39,30 @@ from repro_torch.core.types import AttentionSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels import swat_attention as fwd_mod
 
+# dQ and dK/dV launches of either route, and of each route alone
 DQ_LAUNCHES = _build.LaunchCounter()
-# dK/dV launches of either route, and of each route alone
+DQ_ROUTE_LAUNCHES = {"tc": _build.LaunchCounter(),
+                     "simt": _build.LaunchCounter()}
 DKV_LAUNCHES = _build.LaunchCounter()
 DKV_ROUTE_LAUNCHES = {"tc": _build.LaunchCounter(),
                       "simt": _build.LaunchCounter()}
 COMBINE_LAUNCHES = _build.LaunchCounter()   # the split rows' sum
 MAX_BLOCK_KV = 256   # one thread per kv row in dK/dV (SIMT)
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 128)        # dK/dV
+DQ_TC_HEAD_DIMS = (64, 128, 256)
+
+
+def dq_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The dQ kernel for (dtype, head dim): "tc" (tensor cores, bf16 at
+    head dim 64, 128 or 256) or "simt" (fp32, and bf16 at 16 and 32).
+    Raises for a case no kernel takes."""
+    if (dtype not in fwd_mod._DTYPES
+            or head_dim not in fwd_mod.HEAD_DIMS):
+        raise ValueError(f"swat_attention_bwd: no kernel for {dtype} at "
+                         f"head dim {head_dim}")
+    if dtype == torch.bfloat16 and head_dim in DQ_TC_HEAD_DIMS:
+        return "tc"
+    return "simt"
 
 
 def dkv_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -222,16 +240,27 @@ def _spec_args(spec: AttentionSpec, q_offset: int, kv_offset: int,
             int(kv_offset), int(bound), scale, float(spec.softcap)]
 
 
+def _check_aligned(fn: str, **tensors) -> None:
+    """The tensor-core kernels copy rows in 16-byte cp.async pieces."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} is not 16-byte aligned")
+
+
 def launch_dq(q, k, v, do, lse, delta, spec: AttentionSpec,
               pattern: patterns.BlockPattern, scale: float, *,
               q_offset: int = 0, kv_offset: int = 0, bound: int):
-    """One launch of the dQ kernel on checked, contiguous CUDA tensors
-    (delta = rowsum(dO * O), fp32 (B, Hq, Lq)). Returns dq."""
+    """One launch of the dQ kernel of `dq_route` on checked, contiguous
+    CUDA tensors (delta = rowsum(dO * O), fp32 (B, Hq, Lq)). Returns dq."""
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
+    route = dq_route(q.dtype, d)
+    if route == "tc":
+        _check_aligned("swat_attention_dq_tc", q=q, k=k, v=v, do=do)
     kv_map, kinds = fwd_mod._pattern_tensors(pattern, q.device)
     dq = torch.empty_like(q)
-    fn = _kernel("swat_attention_dq", 9)
+    name = "swat_attention_dq_tc" if route == "tc" else "swat_attention_dq"
+    fn = _kernel(name, 9)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -242,7 +271,8 @@ def launch_dq(q, k, v, do, lse, delta, spec: AttentionSpec,
                     *_spec_args(spec, q_offset, kv_offset, bound, scale),
                     fwd_mod._DTYPES[q.dtype], stream)
     DQ_LAUNCHES.n += 1
-    _build.check_status("swat_attention_dq", status)
+    DQ_ROUTE_LAUNCHES[route].n += 1
+    _build.check_status(name, status)
     return dq
 
 
@@ -298,10 +328,7 @@ def launch_dkv_tc(q, k, v, do, lse, delta, spec: AttentionSpec,
     if dkv_route(q.dtype, d) != "tc":
         raise ValueError(f"swat_attention_dkv_tc: no kernel for {q.dtype} "
                          f"at head dim {d}")
-    for name, t in dict(q=q, k=k, v=v, do=do).items():
-        if t.data_ptr() % 16:   # 16-byte cp.async rows
-            raise ValueError(f"swat_attention_dkv_tc: {name} is not "
-                             "16-byte aligned")
+    _check_aligned("swat_attention_dkv_tc", q=q, k=k, v=v, do=do)
     q_map, ikinds, ninv = _inverse_tensors(pattern, q.device)
     chunks, combine, n_parts = _plan_tensors(pattern, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)

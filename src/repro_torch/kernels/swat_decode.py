@@ -10,6 +10,8 @@ Port of the JAX package's `kernels/swat_decode.py`, whose one Pallas kernel
   written) and the window is attended in the same kernel, with positional
   masks rebuilt from the per-slot `pos`. The caches are updated IN PLACE
   (the JAX kernel aliased them input->output; the engine donated them).
+  One launch: each (slot, kv head) ring is cut into `fused_splits` chunks,
+  one CTA each, merged in rank order inside a thread-block cluster.
 * Plain (`swat_decode_plain`, the `swat_decode` pallas_call). The cache
   already holds every token; `pos` is the number of tokens in it and the T
   queries are its newest (q0 = pos - T). Nothing is written. The kv range
@@ -37,6 +39,7 @@ LAUNCHES = _build.LaunchCounter()         # fused kernel
 PLAIN_LAUNCHES = _build.LaunchCounter()   # plain kernel
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_ROWS = 128   # query rows per CTA (group*T packed, T unpacked)
+MAX_SPLITS = 8   # CTAs per fused ring: the portable thread-block cluster size
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -109,6 +112,21 @@ def _check(q, k_cache, v_cache, new_k, new_v, pos, num_new, cap, g):
     if not g < cap <= w or t > cap - g:
         raise ValueError(f"swat_decode: ring geometry cap={cap} g={g} W={w} "
                          f"T={t} (need g < cap <= W and T <= cap - g)")
+    for name in ("q", "k_cache", "v_cache", "new_k", "new_v"):
+        if tensors[name].data_ptr() % 16:
+            raise ValueError(f"swat_decode: {name} must be 16-byte aligned "
+                             "(the kernel moves 16-byte vectors)")
+
+
+def fused_splits(n_heads: int, cap: int, sms: int) -> Tuple[int, int]:
+    """(chunk, nsplit): the ring [0, cap) cut into nsplit <= MAX_SPLITS
+    contiguous chunks of `chunk` rows (the last may be shorter; none is
+    empty), so that n_heads * nsplit CTAs cover the card's `sms` SMs about
+    once (4 splits of 66 rows at llama's serve shape: 32 rings of 261
+    rows on 132 SMs)."""
+    nsplit = max(1, min(MAX_SPLITS, sms // n_heads, cap))
+    chunk = -(-cap // nsplit)
+    return chunk, -(-cap // chunk)
 
 
 def swat_decode_fused(q, k_cache, v_cache, new_k, new_v, pos, num_new,
@@ -132,16 +150,17 @@ def swat_decode_fused(q, k_cache, v_cache, new_k, new_v, pos, num_new,
     _check(q, k_cache, v_cache, new_k, new_v, pos, num_new, cap, g)
     b, hq, t, d = q.shape
     hkv, w = k_cache.shape[1], k_cache.shape[2]
+    chunk, nsplit = fused_splits(b * hkv, cap, _num_sms(q.device))
     out = torch.empty_like(q)
-    fn = _kernel("swat_decode_fused", 10)
+    fn = _kernel("swat_decode_fused", 12)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                     new_k.data_ptr(), new_v.data_ptr(), pos.data_ptr(),
                     num_new.data_ptr(), out.data_ptr(), b, hkv,
                     (hq // hkv) * t, t, d, w, cap, g, window,
-                    int(spec.causal), scale, float(spec.softcap),
-                    _DTYPES[q.dtype], stream)
+                    int(spec.causal), chunk, nsplit, scale,
+                    float(spec.softcap), _DTYPES[q.dtype], stream)
     LAUNCHES.n += 1
     _build.check_status("swat_decode_fused", status)
     return out

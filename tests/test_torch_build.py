@@ -94,7 +94,7 @@ def test_missing_toolkit_raises(tree, monkeypatch):
 
 _ENTRIES = [  # (source stem, entry point, wrapper module, getter args)
     ("swat_decode", "swat_decode_fused", "swat_decode",
-     ("swat_decode_fused", 10)),
+     ("swat_decode_fused", 12)),
     ("swat_decode", "swat_decode_plain", "swat_decode",
      ("swat_decode_plain", 14)),
     ("swat_attention_fwd", "swat_attention_fwd", "swat_attention", ()),
@@ -102,6 +102,8 @@ _ENTRIES = [  # (source stem, entry point, wrapper module, getter args)
      ("swat_attention_fwd_tc",)),
     ("swat_attention_bwd", "swat_attention_dq", "swat_backward",
      ("swat_attention_dq", 9)),
+    ("swat_attention_bwd", "swat_attention_dq_tc", "swat_backward",
+     ("swat_attention_dq_tc", 9)),
     ("swat_attention_bwd", "swat_attention_dkv", "swat_backward",
      ("swat_attention_dkv", 10)),
     ("swat_attention_bwd", "swat_attention_dkv_tc", "swat_backward",

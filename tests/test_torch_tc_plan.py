@@ -1,6 +1,7 @@
 """The tensor-core routes' host logic, on the CPU: which kernel each
 (dtype, head dim) takes, the dK/dV chunk plan over the inverse block
-pattern, and the split reduction that the plan's combine performs.
+pattern, the split reduction that the plan's combine performs, and the
+tensor-core dQ kernel's rounding points.
 
 The kernels themselves run only on the card (chip_smoke.py phases 2, 7
 and 13). Here the split reduction is emulated with the plain backward:
@@ -8,7 +9,11 @@ dK and dV are linear in dO (delta is a row sum of dO * O), so zeroing dO
 outside a chunk's q rows gives that chunk's partial exactly, and the
 partials summed in plan order by `dkv_combine`'s plain version must give
 the unsplit plain dK/dV. Tolerance: the JAX package's gradient tolerance,
-fp32 atol 5e-5 / rtol 1e-3 (the sums run in another order)."""
+fp32 atol 5e-5 / rtol 1e-3 (the sums run in another order). The dQ
+kernel's arithmetic (bf16 products, S scaled in fp32 after the product,
+dS entering the last product as bf16 hi + lo parts) is emulated and held
+within chip_smoke.py's BWD_TOL (bf16 atol 1e-2 / rtol 1e-2) of the plain
+backward's dQ."""
 import dataclasses
 
 import numpy as np
@@ -54,6 +59,21 @@ def test_route_table(dtype, d, fwd, dkv):
     assert SB.dkv_route(dtype, d) == dkv
 
 
+@pytest.mark.parametrize("dtype,d,dq", [
+    (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 256, "tc"),    # 229 registers, no spill (ptxas)
+    (torch.bfloat16, 16, "simt"),
+    (torch.bfloat16, 32, "simt"),
+    (torch.float32, 16, "simt"),
+    (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt"),
+    (torch.float32, 256, "simt"),
+])
+def test_dq_route_table(dtype, d, dq):
+    assert SB.dq_route(dtype, d) == dq
+
+
 @pytest.mark.parametrize("dtype,d", [(torch.float16, 64),
                                      (torch.bfloat16, 48),
                                      (torch.float32, 512)])
@@ -62,6 +82,8 @@ def test_no_route_raises(dtype, d):
         SA.route(dtype, d)
     with pytest.raises(ValueError, match="no kernel"):
         SB.dkv_route(dtype, d)
+    with pytest.raises(ValueError, match="no kernel"):
+        SB.dq_route(dtype, d)
 
 
 @pytest.mark.parametrize("name", list(PLANS))
@@ -195,3 +217,77 @@ def test_combine_wrapper_raises_off_the_cpu():
                        meta(1, 1, 16, 16, dtype=torch.bfloat16),
                        meta(1, 1, 16, 16, dtype=torch.bfloat16))
     assert SB.COMBINE_LAUNCHES.n == before
+
+
+# -------------------------------------------------- tensor-core dQ math ---
+
+BWD_TOL = dict(atol=1e-2, rtol=1e-2)    # chip_smoke.py's bf16 BWD_TOL
+
+
+def _element_mask(spec, pat, lq, lkv):
+    """The band pass's (Lq, Lkv) visibility over the pattern's slots, as
+    the kernels apply it (element_mask, swat_attention.py:39)."""
+    flat, mask = SA.slot_mask(spec, pat, "cpu", bound=lkv)
+    nq, bq = pat.num_q_blocks, pat.block_q
+    mask = mask.expand(nq, bq, flat.shape[1])   # (nq, 1, S) where no band
+    count = torch.zeros(nq * bq, pat.num_kv_blocks * pat.block_kv)
+    rows = torch.arange(nq * bq).reshape(nq, bq, 1).expand(mask.shape)
+    cols = flat[:, None, :].expand(mask.shape)
+    # a PAD slot may repeat a kv block: sum the slots' votes, not assign
+    count.index_put_((rows, cols), mask.float(), accumulate=True)
+    return (count > 0)[:lq, :lkv]
+
+
+def _emulate_dq_tc(q, k, v, o, lse, do, spec, pat, scale):
+    """dQ with the tensor-core kernel's rounding points: S = Q K^T and
+    dP = dO V^T as products of the bf16 inputs accumulated in fp32, S
+    scaled in fp32 after the product, then the softcap chain, P =
+    exp(S - lse) and dS = P (dP - delta) chain in fp32; dS enters
+    dQ += dS K as two bf16 parts (the rounded value and the rest), the
+    products accumulated in fp32, times scale, rounded to bf16 once."""
+    b, hq, lq, d = q.shape
+    hkv, lkv = k.shape[1], k.shape[2]
+    mask = _element_mask(spec, pat, lq, lkv)
+    kf = k.float().repeat_interleave(hq // hkv, dim=1)
+    vf = v.float().repeat_interleave(hq // hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    chain = torch.ones_like(s)
+    if spec.softcap:
+        t = torch.tanh(s / spec.softcap)
+        s, chain = spec.softcap * t, 1.0 - t * t
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vf)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    ds = torch.where(mask, p * (dp - delta) * chain, 0.0)
+    hi = ds.to(torch.bfloat16).float()
+    lo = (ds - hi).to(torch.bfloat16).float()
+    dq = (torch.einsum("bhqk,bhkd->bhqd", hi, kf)
+          + torch.einsum("bhqk,bhkd->bhqd", lo, kf))
+    return (dq * scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("spec,lq,lkv", [
+    (AttentionSpec(kind="swat", window=24, num_global=4, causal=True,
+                   softcap=50.0), 96, 96),
+    (AttentionSpec(kind="swat", window=16, num_global=4, causal=False),
+     88, 88),                       # ragged bidirectional band
+    (AttentionSpec(kind="dense", causal=False, softcap=30.0), 40, 150),
+])
+def test_dq_rounding_points_stay_within_the_backward_tolerance(spec, lq,
+                                                               lkv):
+    """bf16 inputs at a small GQA shape (4 q heads over 2 kv heads); the
+    last case has Lq != Lkv (cross attention's shape)."""
+    rng = np.random.RandomState(7)
+    b, hq, hkv, d = 2, 4, 2, 32
+    mk = lambda *s_: torch.from_numpy(
+        rng.randn(*s_).astype(np.float32)).to(torch.bfloat16)
+    q, k, v, do = (mk(b, hq, lq, d), mk(b, hkv, lkv, d), mk(b, hkv, lkv, d),
+                   mk(b, hq, lq, d))
+    pat = ops.get_pattern(spec, lq, lkv, 16, 16)
+    scale = d ** -0.5
+    o, lse = SA.swat_attention_fwd(q, k, v, spec, pattern=pat, scale=scale,
+                                   return_lse=True)
+    want, _, _ = SB.swat_attention_bwd_plain(q, k, v, o, lse, do, spec, pat,
+                                             scale)
+    got = _emulate_dq_tc(q, k, v, o, lse, do, spec, pat, scale)
+    torch.testing.assert_close(got.float(), want.float(), **BWD_TOL)
