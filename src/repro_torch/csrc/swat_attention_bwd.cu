@@ -20,13 +20,9 @@
 // entry point:
 //
 //   dtype  head dim      dQ                       dK/dV
-//   bf16   64, 128       swat_attention_dq_tc     swat_attention_dkv_tc, then
+//   bf16   64, 128, 256  swat_attention_dq_tc     swat_attention_dkv_tc, then
 //                        (tensor cores)           swat_attention_dkv_combine
 //                                                 where the plan cut a row
-//   bf16   256           swat_attention_dq_tc     swat_attention_dkv (SIMT: a
-//                                                 64-row tile's D-wide dK and
-//                                                 dV accumulators would take
-//                                                 256 registers a thread)
 //   bf16   16, 32        swat_attention_dq        swat_attention_dkv (SIMT)
 //   fp32   any           swat_attention_dq        swat_attention_dkv (SIMT:
 //                                                 the tensor cores would
@@ -49,7 +45,8 @@
 // 128-register accumulator.
 //
 // Tensor-core dK/dV (attention_dkv_tc_kernel): the kv tile is stationary,
-// the paper's input-stationary reuse. One CTA (one warpgroup) holds 64 kv
+// the paper's input-stationary reuse. One CTA (one warpgroup below D=256;
+// two at D=256, as below) holds 64 kv
 // rows of K and V in shared memory as bf16 and walks the GQA group's q
 // heads and its chunk of the inverse row's q blocks, bringing Q, dO, LSE
 // and delta tiles through a two-stage cp.async ring. Four products run on
@@ -68,14 +65,31 @@
 // longest count of non-GLOBAL slots into chunks (kernels/swat_backward.py
 // `dkv_plan`); each chunk is a CTA, the chunks of a cut row write fp32
 // partials, and dkv_combine_kernel sums them in chunk order. Registers
-// bound the design: the dK and dV accumulators are D registers a thread.
+// bound the design: the dK and dV accumulators are D registers a thread,
+// which one warpgroup holds up to D=128.
+// At D=256 (gemma2-2b) they would take 256 registers a thread, and wgmma's
+// M of 64 rows a warpgroup rules out a smaller kv tile. So the CTA holds two
+// warpgroups over the same 64 kv rows, one accumulator each (128
+// registers): warpgroup 0 computes S^T = K Q^T and P^T and owns dV +=
+// P^T dO; warpgroup 1 computes dP^T = V dO^T beside it, then dS^T, and owns
+// dK += dS^T Q. P^T and its softcap chain factor cross from warpgroup 0 to
+// 1 in fp32 through shared memory (a named barrier: warpgroup 0
+// arrives, warpgroup 1 waits), so dS^T is the same fp32 expression as in
+// the one-warpgroup layout and P and dS still enter their products as
+// bf16 hi + lo. Each warpgroup runs two of the four products (three
+// wgmma passes with the hi + lo split), the split that needs no product
+// twice; splitting D across the warpgroups instead would run S^T and dP^T
+// in both, 1.5x the products. One CTA an SM: 64-row Q/dO tiles take all
+// 227 KB of its shared memory (K and V 64 KB, two stages 130 KB, the
+// hand-off 32 KB).
 //
 // SIMT kernels (attention_dq_kernel, attention_dkv_kernel), for fp32 and
 // the head dims the tensor-core kernels do not take: one thread per query
 // row (dQ) or kv row (dK/dV) with fp32 FMA loops against fp32 tiles in
 // shared memory; dK/dV sums the GQA group inside the CTA. Their ceiling is
-// the 67 TFLOP/s fp32 rate; at head dim 256 their register rows spill, and
-// dK/dV keeps a thread's own K and V rows in local memory.
+// the 67 TFLOP/s fp32 rate; at head dim 256 (fp32 only, on these routes)
+// their register rows spill, and dK/dV keeps a thread's own K and V rows
+// in local memory.
 //
 // Deterministic by construction: no atomics; every sum runs in a fixed
 // order, so two launches on the same inputs give bitwise-equal outputs.
@@ -440,16 +454,27 @@ int run(const Args& a, int d, Spec sp, int dtype, void* stream) {
 
 // ------------------------------------------ dK/dV on the tensor cores ---
 
-// kv rows per CTA: one warpgroup of 64, two CTAs an SM (a 128-row CTA of
-// two warpgroups was slower: its per-step barrier keeps them in lockstep)
+// kv rows per CTA: 64, the M of one warpgroup's wgmma. Below D=256 one
+// warpgroup holds both D-wide accumulators, two CTAs an SM (a 128-row CTA
+// of two warpgroups was slower: its per-step barrier keeps them in
+// lockstep). At D=256 the two accumulators would take 256 registers a
+// thread, so two warpgroups share the 64 kv rows, one accumulator each.
 constexpr int TCB_ROWS = 64;
-constexpr int TCB_THREADS = 128;
+constexpr int TCB_THREADS = 128;  // one warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 
-// q rows per Q/dO tile: at D=128 a 64-row tile's score and dP tiles (64
-// registers) beside the dK and dV accumulators (128) would spill
+// warpgroups of a dK/dV CTA
 template <int D>
-__host__ __device__ constexpr int tc_qt() { return D <= 64 ? 64 : 32; }
+__host__ __device__ constexpr int dkv_wgs() { return D <= 128 ? 1 : 2; }
+
+// q rows per Q/dO tile: 64, but 32 at D=128, where one warpgroup's two
+// 64-register accumulators beside a 64-row tile's score and dP tiles (64
+// registers more) would spill. At D=256 each warpgroup holds one
+// 128-register accumulator and one 32-register tile (no spill; faster
+// than 32-row tiles on the H100: half the steps, each product twice as
+// wide)
+template <int D>
+__host__ __device__ constexpr int tc_qt() { return D == 128 ? 32 : 64; }
 
 // bytes of one stage (Q, dO, lse, delta), rounded up so that every stage's
 // tiles start on a 1024-byte boundary, as the 128B swizzle needs
@@ -460,15 +485,26 @@ __host__ __device__ constexpr uint32_t dkv_tc_stage_bytes() {
 
 constexpr int DKV_STAGES = 2;  // stages of the Q/dO ring
 
+// bytes of the two-warpgroup hand-off: P^T and its softcap chain factor,
+// fp32, one value per accumulator register of a warpgroup
 template <int D>
-constexpr size_t dkv_tc_smem_bytes() {
-  // K and V tiles, the stages, room to align
-  return 2 * (size_t)TCB_ROWS * D * 2 +
-         DKV_STAGES * (size_t)dkv_tc_stage_bytes<D>() + 1024;
+constexpr size_t dkv_xch_bytes() {
+  return dkv_wgs<D>() == 2 ? 2 * (size_t)TCB_THREADS * (tc_qt<D>() / 2) * 4
+                           : 0;
 }
 
 template <int D>
-__global__ void __launch_bounds__(TCB_THREADS, 2) attention_dkv_tc_kernel(
+constexpr size_t dkv_tc_smem_bytes() {
+  // K and V tiles, the stages, the hand-off, room to align
+  return 2 * (size_t)TCB_ROWS * D * 2 +
+         DKV_STAGES * (size_t)dkv_tc_stage_bytes<D>() + dkv_xch_bytes<D>() +
+         1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TCB_THREADS * dkv_wgs<D>(),
+                                  dkv_wgs<D>() == 1 ? 2 : 1)
+    attention_dkv_tc_kernel(
     const __nv_bfloat16* __restrict__ q,     // (B, Hq, Lq, D)
     const __nv_bfloat16* __restrict__ k,     // (B, Hkv, Lkv, D)
     const __nv_bfloat16* __restrict__ v,     // (B, Hkv, Lkv, D)
@@ -484,11 +520,13 @@ __global__ void __launch_bounds__(TCB_THREADS, 2) attention_dkv_tc_kernel(
     float* __restrict__ part_v,      // (n_parts, B, Hkv, block_kv, D)
     int hq, int hkv, int lq, int lkv, int num_slots, int block_q,
     int block_kv, int nsub, Spec sp) {
+  constexpr int WGS = dkv_wgs<D>();
+  constexpr int NT = TCB_THREADS * WGS;
   constexpr int QT = tc_qt<D>();
   constexpr uint32_t KB = TCB_ROWS * D * 2;  // bytes of the K (or V) tile
   constexpr uint32_t QB = QT * D * 2;        // bytes of a Q (or dO) tile
   constexpr uint32_t SB = dkv_tc_stage_bytes<D>();
-  constexpr int R = D / 2;    // dK and dV accumulator registers
+  constexpr int R = D / 2;    // registers of a dK or dV accumulator
   constexpr int RS = QT / 2;  // score and dP registers
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sk = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -507,7 +545,9 @@ __global__ void __launch_bounds__(TCB_THREADS, 2) attention_dkv_tc_kernel(
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const int wgi = tid / TCB_THREADS;  // this thread's warpgroup
+  const int wt = tid % TCB_THREADS;   // ... and its thread there
+  const int warp = wt / 32;
   const int lane = tid % 32;
   const int group = hq / hkv;
   const int nslot = s1 - s0;
@@ -544,10 +584,9 @@ __global__ void __launch_bounds__(TCB_THREADS, 2) attention_dkv_tc_kernel(
     const int nq = rows(f, &g, &kind, &first);
     const size_t hrow = ((size_t)b * hq + hk * group + g) * lq;
     const uint32_t st = st0 + stage * SB;
-    wg::load_tile<D>(st, q + (hrow + first) * D, q, QT, nq, tid,
-                     TCB_THREADS);
+    wg::load_tile<D>(st, q + (hrow + first) * D, q, QT, nq, tid, NT);
     wg::load_tile<D>(st + QB, dout + (hrow + first) * D, dout, QT, nq, tid,
-                     TCB_THREADS);
+                     NT);
     if (tid < QT) {
       const bool in = tid < nq;
       const size_t r = in ? hrow + first + tid : 0;
@@ -556,10 +595,8 @@ __global__ void __launch_bounds__(TCB_THREADS, 2) attention_dkv_tc_kernel(
     }
   };
 
-  wg::load_tile<D>(sk, kh + (size_t)kr0 * D, kh, TCB_ROWS, nkr, tid,
-                   TCB_THREADS);
-  wg::load_tile<D>(sv, vh + (size_t)kr0 * D, vh, TCB_ROWS, nkr, tid,
-                   TCB_THREADS);
+  wg::load_tile<D>(sk, kh + (size_t)kr0 * D, kh, TCB_ROWS, nkr, tid, NT);
+  wg::load_tile<D>(sv, vh + (size_t)kr0 * D, vh, TCB_ROWS, nkr, tid, NT);
   // one commit group per step (empty past the last), so that waiting for
   // all but the newest DKV_STAGES - 2 groups lands the step about to run
   int cur = next(0);
@@ -571,16 +608,55 @@ __global__ void __launch_bounds__(TCB_THREADS, 2) attention_dkv_tc_kernel(
     wg::cp_async_commit();
   }
 
-  float dk_acc[R], dv_acc[R];
+  // one warpgroup: acc[0] is dV, acc[1] dK; two: each warpgroup's acc[0],
+  // dV in warpgroup 0 and dK in warpgroup 1
+  float acc[WGS == 1 ? 2 : 1][R];
 #pragma unroll
-  for (int e = 0; e < R; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+  for (int a = 0; a < (WGS == 1 ? 2 : 1); ++a)
+#pragma unroll
+    for (int e = 0; e < R; ++e) acc[a][e] = 0.f;
   const int r_lo = warp * 16 + lane / 4;  // kv row of half 0; half 1 is +8
+  // the thread's first query column of a tile
+  const int off = (lane & 3) * 2;
+  // the queries each of this thread's two kv rows sees (bit j: the
+  // thread's column j), of the step's nq queries from q0
+  auto seen = [&](int q0, int nq, int kind, bool full, uint32_t (&vis)[2]) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rr = r_lo + 8 * hh;
+      const int2 r = query_range(sp, ck0 + rr, q0 + off, nq - off, kind);
+      vis[hh] = rr >= nkr ? 0u : full ? ~0u : cols_in(r.x, r.y);
+    }
+  };
+  // register e of a score tile: its query column (from the thread's
+  // first), and whether its pair is visible
+  auto col = [](int e) { return (e >> 2) * 8 + (e & 1); };
+  auto bit = [](const uint32_t (&vis)[2], int e) {
+    return ((vis[(e >> 1) & 1] >> (2 * (e >> 2) + (e & 1))) & 1u) != 0u;
+  };
+  // P^T of score s in query column cc (0 where not visible) and the
+  // softcap chain factor d(capped)/d(raw)
+  auto prob = [&](float s, bool in, int cc, const float* ls, float* chain) {
+    float x = s * sp.scale;
+    *chain = 1.f;
+    if (sp.softcap != 0.f) {
+      const float t = tanhf(x / sp.softcap);
+      *chain = 1.f - t * t;
+      x = sp.softcap * t;
+    }
+    return in ? wg::ex2(fmaf(x, LOG2E, -ls[cc + off] * LOG2E)) : 0.f;
+  };
+  // the hand-off of the two-warpgroup layout: register e of warpgroup
+  // thread t at xp[e * TCB_THREADS + t] (P^T) and xc[...] (the chain); the
+  // same register of the other warpgroup's tile is the same (row, column)
+  float* xp = reinterpret_cast<float*>(gen0 + DKV_STAGES * SB) + wt;
+  float* xc = xp + RS * TCB_THREADS;
   int stage = 0;
   while (cur < total) {
     wg::cp_async_wait<DKV_STAGES - 2>();  // this step's tiles (and K, V)
     wg::fence_async_smem();               // have landed
     __syncthreads();  // ... and every warp is done with the stage that
-                      // the next load refills
+                      // the next load refills (and with the hand-off)
     if (ahead < total) ahead = next(ahead + 1);
     if (ahead < total) issue(ahead, (stage + DKV_STAGES - 1) % DKV_STAGES);
     wg::cp_async_commit();
@@ -595,110 +671,150 @@ __global__ void __launch_bounds__(TCB_THREADS, 2) attention_dkv_tc_kernel(
     const float* ls = reinterpret_cast<const float*>(
         gen0 + stage * SB + 2 * QB);
     const float* dls = ls + QT;
-    float s_t[RS], dp_t[RS];
-#pragma unroll
-    for (int e = 0; e < RS; ++e) s_t[e] = dp_t[e] = 0.f;
-    wg::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)  // S^T = K Q^T
-      wg::mma_ss<QT>(s_t, wg::desc_k(sk, TCB_ROWS, 0, kk),
-                     wg::desc_k(sq, QT, 0, kk), 1);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)  // dP^T = V dO^T
-      wg::mma_ss<QT>(dp_t, wg::desc_k(sv, TCB_ROWS, 0, kk),
-                     wg::desc_k(sdo, QT, 0, kk), 1);
-    wg::wgmma_commit();
-    wg::wgmma_wait<0>();
-    wg::fence_regs(s_t);
-    wg::fence_regs(dp_t);
-    // the queries each of this thread's two kv rows sees (bit j: the
-    // thread's column j; its first column is (lane & 3) * 2)
-    const int off = (lane & 3) * 2;
-    uint32_t vis[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int rr = r_lo + 8 * hh;
-      const int2 r = query_range(sp, ck0 + rr, q0 + off, nq - off, kind);
-      vis[hh] = rr >= nkr ? 0u : full ? ~0u : cols_in(r.x, r.y);
-    }
-    // a warp whose 16 kv rows see no query of the tile (the global
-    // block's rows past the global columns) skips the arithmetic
-    if (!__any_sync(0xffffffffu, (vis[0] | vis[1]) != 0u)) {
+    if constexpr (WGS == 1) {
+      float s_t[RS], dp_t[RS];
 #pragma unroll
       for (int e = 0; e < RS; ++e) s_t[e] = dp_t[e] = 0.f;
-    } else {
+      wg::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < RS; ++e) {
-        const int c = (e >> 2) * 8 + (e & 1);
-        const bool in =
-            (vis[(e >> 1) & 1] >> (2 * (e >> 2) + (e & 1))) & 1u;
-        float x = s_t[e] * sp.scale, chain = 1.f;
-        if (sp.softcap != 0.f) {
-          const float t = tanhf(x / sp.softcap);
-          chain = 1.f - t * t;
-          x = sp.softcap * t;
+      for (int kk = 0; kk < D / 16; ++kk)  // S^T = K Q^T
+        wg::mma_ss<QT>(s_t, wg::desc_k(sk, TCB_ROWS, 0, kk),
+                       wg::desc_k(sq, QT, 0, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // dP^T = V dO^T
+        wg::mma_ss<QT>(dp_t, wg::desc_k(sv, TCB_ROWS, 0, kk),
+                       wg::desc_k(sdo, QT, 0, kk), 1);
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(s_t);
+      wg::fence_regs(dp_t);
+      uint32_t vis[2];
+      seen(q0, nq, kind, full, vis);
+      // a warp whose 16 kv rows see no query of the tile (the global
+      // block's rows past the global columns) skips the arithmetic
+      if (!__any_sync(0xffffffffu, (vis[0] | vis[1]) != 0u)) {
+#pragma unroll
+        for (int e = 0; e < RS; ++e) s_t[e] = dp_t[e] = 0.f;
+      } else {
+#pragma unroll
+        for (int e = 0; e < RS; ++e) {
+          const bool in = bit(vis, e);
+          float chain;
+          const float p = prob(s_t[e], in, col(e), ls, &chain);
+          s_t[e] = p;  // P^T, then dS^T
+          dp_t[e] = in ? p * (dp_t[e] - dls[col(e) + off]) * chain : 0.f;
         }
-        const float p =
-            in ? wg::ex2(fmaf(x, LOG2E, -ls[c + off] * LOG2E)) : 0.f;
-        s_t[e] = p;                                          // P^T
-        dp_t[e] = in ? p * (dp_t[e] - dls[c + off]) * chain : 0.f;  // dS^T
       }
-    }
-    // bf16 A operands, each split into hi and lo parts: one bf16 rounding
-    // of P and dS would move dK and dV by a few bf16 ulps
-    uint32_t ph[QT / 16][4], pl[QT / 16][4], dh[QT / 16][4], dl[QT / 16][4];
+      // bf16 A operands, each split into hi and lo parts: one bf16 rounding
+      // of P and dS would move dK and dV by a few bf16 ulps
+      uint32_t ph[QT / 16][4], pl[QT / 16][4], dh[QT / 16][4],
+          dl[QT / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < QT / 16; ++kk) {
-      wg::a_frag_split(s_t, kk, ph[kk], pl[kk]);
-      wg::a_frag_split(dp_t, kk, dh[kk], dl[kk]);
-    }
-    wg::wgmma_fence();
+      for (int kk = 0; kk < QT / 16; ++kk) {
+        wg::a_frag_split(s_t, kk, ph[kk], pl[kk]);
+        wg::a_frag_split(dp_t, kk, dh[kk], dl[kk]);
+      }
+      wg::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < QT / 16; ++kk) {  // dV += P^T dO
-      wg::mma_rs<D>(dv_acc, ph[kk], wg::desc_mn(sdo, QT, kk), 1);
-      wg::mma_rs<D>(dv_acc, pl[kk], wg::desc_mn(sdo, QT, kk), 1);
-    }
+      for (int kk = 0; kk < QT / 16; ++kk) {  // dV += P^T dO
+        wg::mma_rs<D>(acc[0], ph[kk], wg::desc_mn(sdo, QT, kk), 1);
+        wg::mma_rs<D>(acc[0], pl[kk], wg::desc_mn(sdo, QT, kk), 1);
+      }
 #pragma unroll
-    for (int kk = 0; kk < QT / 16; ++kk) {  // dK += dS^T Q
-      wg::mma_rs<D>(dk_acc, dh[kk], wg::desc_mn(sq, QT, kk), 1);
-      wg::mma_rs<D>(dk_acc, dl[kk], wg::desc_mn(sq, QT, kk), 1);
+      for (int kk = 0; kk < QT / 16; ++kk) {  // dK += dS^T Q
+        wg::mma_rs<D>(acc[1], dh[kk], wg::desc_mn(sq, QT, kk), 1);
+        wg::mma_rs<D>(acc[1], dl[kk], wg::desc_mn(sq, QT, kk), 1);
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(acc[0]);
+      wg::fence_regs(acc[1]);
+    } else {
+      // warpgroup 0: S^T = K Q^T, then P^T, handed to warpgroup 1, then
+      // dV += P^T dO; warpgroup 1: dP^T = V dO^T (beside warpgroup 0's S^T),
+      // then dS^T = P^T (dP^T - delta) chain, then dK += dS^T Q
+      float x[RS];
+#pragma unroll
+      for (int e = 0; e < RS; ++e) x[e] = 0.f;
+      const uint32_t sa = wgi == 0 ? sk : sv;
+      const uint32_t sb = wgi == 0 ? sq : sdo;
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss<QT>(x, wg::desc_k(sa, TCB_ROWS, 0, kk),
+                       wg::desc_k(sb, QT, 0, kk), 1);
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(x);
+      if (wgi == 0) {
+        uint32_t vis[2];
+        seen(q0, nq, kind, full, vis);
+        const bool any = __any_sync(0xffffffffu, (vis[0] | vis[1]) != 0u);
+#pragma unroll
+        for (int e = 0; e < RS; ++e) {
+          float chain = 1.f;
+          x[e] = any ? prob(x[e], bit(vis, e), col(e), ls, &chain) : 0.f;
+          xp[e * TCB_THREADS] = x[e];
+          xc[e * TCB_THREADS] = chain;
+        }
+        wg::bar_arrive(1, NT);
+      } else {
+        wg::bar_sync(1, NT);
+#pragma unroll
+        for (int e = 0; e < RS; ++e)  // 0 where P^T is (not visible)
+          x[e] = xp[e * TCB_THREADS] * (x[e] - dls[col(e) + off]) *
+                 xc[e * TCB_THREADS];
+      }
+      // P^T or dS^T as bf16 hi and lo parts, as in the one-warpgroup layout
+      uint32_t xh[QT / 16][4], xl[QT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk)
+        wg::a_frag_split(x, kk, xh[kk], xl[kk]);
+      const uint32_t sm = wgi == 0 ? sdo : sq;
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk) {  // dV += P^T dO, dK += dS^T Q
+        wg::mma_rs<D>(acc[0], xh[kk], wg::desc_mn(sm, QT, kk), 1);
+        wg::mma_rs<D>(acc[0], xl[kk], wg::desc_mn(sm, QT, kk), 1);
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait<0>();
+      wg::fence_regs(acc[0]);
     }
-    wg::wgmma_commit();
-    wg::wgmma_wait<0>();
-    wg::fence_regs(dv_acc);
-    wg::fence_regs(dk_acc);
     cur = next(cur + 1);
     stage = (stage + 1) % DKV_STAGES;
   }
   wg::cp_async_wait<0>();
+  // dV, then dK (times the score scale): both from one warpgroup, or each
+  // from its own
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int rr = r_lo + 8 * hh;
-    if (rr >= nkr) continue;
-    const int row = kr0 + rr;  // local kv row
-    const int cc = (lane & 3) * 2;
-    if (part < 0) {  // the chunk is its kv block's only one: write dK/dV
-      const size_t off = (((size_t)b * hkv + hk) * lkv + row) * D + cc;
+  for (int a = 0; a < (WGS == 1 ? 2 : 1); ++a) {
+    const bool is_k = WGS == 1 ? a == 1 : wgi == 1;
+    const float osc = is_k ? sp.scale : 1.f;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const int e = 4 * n + 2 * hh;
-        *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8) =
-            __floats2bfloat162_rn(dk_acc[e] * sp.scale,
-                                  dk_acc[e + 1] * sp.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8) =
-            __floats2bfloat162_rn(dv_acc[e], dv_acc[e + 1]);
-      }
-    } else {  // one of several: its fp32 partial, summed by dkv_combine
-      const size_t off =
-          ((((size_t)part * gridDim.z + b) * hkv + hk) * block_kv +
-           (row - j * block_kv)) * D + cc;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rr = r_lo + 8 * hh;
+      if (rr >= nkr) continue;
+      const int row = kr0 + rr;  // local kv row
+      if (part < 0) {  // the chunk is its kv block's only one: write dK/dV
+        __nv_bfloat16* o = (is_k ? dk : dv) +
+                           (((size_t)b * hkv + hk) * lkv + row) * D + off;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const int e = 4 * n + 2 * hh;
-        *reinterpret_cast<float2*>(part_k + off + n * 8) =
-            make_float2(dk_acc[e] * sp.scale, dk_acc[e + 1] * sp.scale);
-        *reinterpret_cast<float2*>(part_v + off + n * 8) =
-            make_float2(dv_acc[e], dv_acc[e + 1]);
+        for (int n = 0; n < D / 8; ++n) {
+          const int e = 4 * n + 2 * hh;
+          *reinterpret_cast<__nv_bfloat162*>(o + n * 8) =
+              __floats2bfloat162_rn(acc[a][e] * osc, acc[a][e + 1] * osc);
+        }
+      } else {  // one of several: its fp32 partial, summed by dkv_combine
+        float* o = (is_k ? part_k : part_v) +
+                   ((((size_t)part * gridDim.z + b) * hkv + hk) * block_kv +
+                    (row - j * block_kv)) * D + off;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          const int e = 4 * n + 2 * hh;
+          *reinterpret_cast<float2*>(o + n * 8) =
+              make_float2(acc[a][e] * osc, acc[a][e + 1] * osc);
+        }
       }
     }
   }
@@ -746,6 +862,7 @@ __global__ void dkv_combine_kernel(const float* __restrict__ part_k,
 template <int D>
 int launch_dkv_tc(const Args& a, const int* chunks, float* part_k,
                   float* part_v, Spec sp, cudaStream_t stream) {
+  static_assert(dkv_tc_smem_bytes<D>() <= MAX_SMEM, "dK/dV shared memory");
   const size_t smem = dkv_tc_smem_bytes<D>();
   auto kern = attention_dkv_tc_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -753,7 +870,7 @@ int launch_dkv_tc(const Args& a, const int* chunks, float* part_k,
   if (err != cudaSuccess) return (int)err;
   const int nsub = (a.block_kv + TCB_ROWS - 1) / TCB_ROWS;
   dim3 grid(a.nblocks * nsub, a.hkv, a.b);  // nblocks: the chunk count
-  kern<<<grid, TCB_THREADS, smem, stream>>>(
+  kern<<<grid, TCB_THREADS * dkv_wgs<D>(), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
@@ -1065,7 +1182,8 @@ extern "C" int swat_attention_dkv(
   return run<true>(a, d, sp, dtype, stream);
 }
 
-// The tensor-core dK/dV route: bf16 only (dtype 1), head dim 64 or 128.
+// The tensor-core dK/dV route: bf16 only (dtype 1), head dim 64, 128 or
+// 256.
 // chunks: int32 (n_chunks, 4) rows (kv block, first inverse slot, end slot,
 // partial index or -1), from the host's chunk plan. A chunk with a partial
 // index writes its fp32 partial into part_k / part_v (n_parts, B, Hkv,
@@ -1094,6 +1212,7 @@ extern "C" int swat_attention_dkv_tc(
   float* pv = static_cast<float*>(part_v);
   if (d == 64) return launch_dkv_tc<64>(a, ch, pk, pv, sp, st);
   if (d == 128) return launch_dkv_tc<128>(a, ch, pk, pv, sp, st);
+  if (d == 256) return launch_dkv_tc<256>(a, ch, pk, pv, sp, st);
   return (int)cudaErrorInvalidValue;
 }
 

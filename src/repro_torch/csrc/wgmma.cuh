@@ -111,6 +111,17 @@ __device__ __forceinline__ void scale_tile(uint8_t* tile, int rows, int tid,
   fence_async_smem();
 }
 
+// Named barrier `id` (1..15; __syncthreads uses 0) over `n` threads, for a
+// hand-off between warpgroups: the producers arrive without waiting, the
+// consumers sync, which waits for all n; the pair orders the producers'
+// shared-memory writes before the consumers' reads.
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // --------------------------------------------------------------- wgmma ---
 
 // Shared-memory matrix descriptor, 128B swizzle (layout type 1). Byte

@@ -11,14 +11,15 @@ with the softcap chain rule. The kernel source is
 per KV head with the GQA group summed inside the kernel, and padded rows
 are masked explicitly.
 
-Each gradient has two routes. dQ (`dq_route`): bf16 at head dim 64, 128
-or 256 runs the tensor-core kernel, one CTA per 64 query rows; every other
-case runs the SIMT kernel. dK/dV (`dkv_route`): bf16 at head dim 64 or 128
-runs the tensor-core kernel over a chunk plan (`dkv_plan`) that cuts the
-long inverse rows (kv block 0, which every q block visits for its global
-columns) into chunks of at most the longest other row; the chunks of a cut
-row write fp32 partials that a second kernel sums in chunk order. Every
-other case runs the SIMT kernel.
+Each gradient has two routes, chosen by `route` (also named `dq_route` and
+`dkv_route`): bf16 at head dim 64, 128 or 256 runs the tensor-core kernels,
+every other case the SIMT ones. Tensor-core dQ takes one CTA per 64 query
+rows. Tensor-core dK/dV takes one CTA per 64 kv rows (at head dim 256 two
+warpgroups share them, one accumulator each) over a chunk plan
+(`dkv_plan`) that cuts the long inverse rows (kv block 0, which every q
+block visits for its global columns) into chunks of at most the longest
+other row; the chunks of a cut row write fp32 partials that a second
+kernel sums in chunk order.
 
 `swat_attention_bwd` launches the kernels for CUDA tensors and raises on
 anything they do not take. For CPU tensors, and only for them, it runs
@@ -48,35 +49,23 @@ DKV_ROUTE_LAUNCHES = {"tc": _build.LaunchCounter(),
                       "simt": _build.LaunchCounter()}
 COMBINE_LAUNCHES = _build.LaunchCounter()   # the split rows' sum
 MAX_BLOCK_KV = 256   # one thread per kv row in dK/dV (SIMT)
-TC_HEAD_DIMS = (64, 128)        # dK/dV
-DQ_TC_HEAD_DIMS = (64, 128, 256)
 
 
-def dq_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The dQ kernel for (dtype, head dim): "tc" (tensor cores, bf16 at
-    head dim 64, 128 or 256) or "simt" (fp32, and bf16 at 16 and 32).
-    Raises for a case no kernel takes."""
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The route of both backward kernels, dQ and dK/dV, for (dtype, head
+    dim): "tc" (tensor cores, bf16 at head dim 64, 128 or 256, as the
+    forward's) or "simt" (fp32, which the tensor cores would compute in
+    TF32, and bf16 at 16 and 32). Raises for a case no kernel takes."""
     if (dtype not in fwd_mod._DTYPES
             or head_dim not in fwd_mod.HEAD_DIMS):
         raise ValueError(f"swat_attention_bwd: no kernel for {dtype} at "
                          f"head dim {head_dim}")
-    if dtype == torch.bfloat16 and head_dim in DQ_TC_HEAD_DIMS:
+    if dtype == torch.bfloat16 and head_dim in fwd_mod.TC_HEAD_DIMS:
         return "tc"
     return "simt"
 
 
-def dkv_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The dK/dV kernel for (dtype, head dim): "tc" (tensor cores, bf16 at
-    head dim 64 or 128) or "simt" (fp32, and bf16 at 16, 32 and 256: at
-    256 a 64-row tile's D-wide dK and dV accumulators would take 256
-    registers a thread). Raises for a case no kernel takes."""
-    if (dtype not in fwd_mod._DTYPES
-            or head_dim not in fwd_mod.HEAD_DIMS):
-        raise ValueError(f"swat_attention_bwd: no kernel for {dtype} at "
-                         f"head dim {head_dim}")
-    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
-        return "tc"
-    return "simt"
+dq_route = dkv_route = route
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,8 +307,8 @@ def _launch_dkv_simt(q, k, v, do, lse, delta, spec, pattern, scale, *,
 def launch_dkv_tc(q, k, v, do, lse, delta, spec: AttentionSpec,
                   pattern: patterns.BlockPattern, scale: float, *,
                   q_offset: int = 0, kv_offset: int = 0, bound: int):
-    """One launch of the tensor-core dK/dV kernel (bf16, head dim 64 or
-    128) over the pattern's chunk plan. Returns (dk, dv, part_k, part_v,
+    """One launch of the tensor-core dK/dV kernel (bf16, head dim 64, 128
+    or 256) over the pattern's chunk plan. Returns (dk, dv, part_k, part_v,
     combine): the rows of kv blocks that the plan cut are not yet written
     in dk / dv; their fp32 partials (n_parts, B, Hkv, block_kv, D) and the
     plan's combine rows are what `dkv_combine` sums."""

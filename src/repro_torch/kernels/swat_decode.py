@@ -1,8 +1,11 @@
 """SWAT ring decode: the CUDA kernels' wrappers and their plain versions.
 
 Port of the JAX package's `kernels/swat_decode.py`, whose one Pallas kernel
-(`_decode_kernel`) runs in two modes; each has its own CUDA entry point in
-`repro_torch/csrc/swat_decode.cu`.
+(`_decode_kernel`) runs in two modes. So does the CUDA kernel in
+`repro_torch/csrc/swat_decode.cu` (a compile-time flag), with an entry point
+for each mode. Both cut each (slot, head)'s cache into chunks, one CTA
+each, and merge the chunks' softmax states in rank order inside a
+thread-block cluster: one launch, no workspace.
 
 * Fused (`swat_decode_fused`, the `swat_decode_fused` pallas_call). T new
   tokens per slot are written into their ring slots (token pos+j -> slot
@@ -10,14 +13,13 @@ Port of the JAX package's `kernels/swat_decode.py`, whose one Pallas kernel
   written) and the window is attended in the same kernel, with positional
   masks rebuilt from the per-slot `pos`. The caches are updated IN PLACE
   (the JAX kernel aliased them input->output; the engine donated them).
-  One launch: each (slot, kv head) ring is cut into `fused_splits` chunks,
-  one CTA each, merged in rank order inside a thread-block cluster.
+  Each ring is cut into `fused_splits` chunks.
 * Plain (`swat_decode_plain`, the `swat_decode` pallas_call). The cache
   already holds every token; `pos` is the number of tokens in it and the T
-  queries are its newest (q0 = pos - T). Nothing is written. The kv range
-  is split across CTAs and the partial softmax states are combined in a
-  second pass. Both GQA layouts of the JAX kernel are kept: packed
-  (group*T rows per kv head) and unpacked (T rows per q head).
+  queries are its newest (q0 = pos - T). Nothing is written. Each cache is
+  cut into `plain_splits` chunks. Both GQA layouts of the JAX kernel are
+  kept: packed (group*T rows per kv head) and unpacked (T rows per q
+  head).
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 the kernel does not take. For CPU tensors, and only for them, it runs its
@@ -118,15 +120,19 @@ def _check(q, k_cache, v_cache, new_k, new_v, pos, num_new, cap, g):
                              "(the kernel moves 16-byte vectors)")
 
 
-def fused_splits(n_heads: int, cap: int, sms: int) -> Tuple[int, int]:
-    """(chunk, nsplit): the ring [0, cap) cut into nsplit <= MAX_SPLITS
-    contiguous chunks of `chunk` rows (the last may be shorter; none is
-    empty), so that n_heads * nsplit CTAs cover the card's `sms` SMs about
-    once (4 splits of 66 rows at llama's serve shape: 32 rings of 261
-    rows on 132 SMs)."""
-    nsplit = max(1, min(MAX_SPLITS, sms // n_heads, cap))
-    chunk = -(-cap // nsplit)
+def _chunks(cap: int, nsplit: int) -> Tuple[int, int]:
+    """(chunk, nsplit'): [0, cap) cut into nsplit' <= nsplit contiguous
+    chunks of `chunk` rows (the last may be shorter; none is empty)."""
+    chunk = -(-cap // max(1, min(MAX_SPLITS, nsplit, cap)))
     return chunk, -(-cap // chunk)
+
+
+def fused_splits(n_heads: int, cap: int, sms: int) -> Tuple[int, int]:
+    """(chunk, nsplit) of the fused mode: the ring [0, cap) cut into
+    nsplit <= MAX_SPLITS chunks so that n_heads * nsplit CTAs cover the
+    card's `sms` SMs about once (4 splits of 66 rows at llama's serve
+    shape: 32 rings of 261 rows on 132 SMs)."""
+    return _chunks(cap, sms // n_heads)
 
 
 def swat_decode_fused(q, k_cache, v_cache, new_k, new_v, pos, num_new,
@@ -166,13 +172,13 @@ def swat_decode_fused(q, k_cache, v_cache, new_k, new_v, pos, num_new,
     return out
 
 
-def _kernel(name: str, n_ints: int):
-    """The `csrc/swat_decode.cu` entry point `name`: 8 pointers, `n_ints`
-    ints, scale and softcap, the dtype code and the stream."""
+def _kernel(name: str, n_ints: int, n_ptrs: int = 8):
+    """The `csrc/swat_decode.cu` entry point `name`: `n_ptrs` pointers,
+    `n_ints` ints, scale and softcap, the dtype code and the stream."""
     fn = getattr(_build.load("swat_decode"), name)
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 8 + [ci] * n_ints + [cf, cf, ci, vp]
+        fn.argtypes = [vp] * n_ptrs + [ci] * n_ints + [cf, cf, ci, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -209,7 +215,7 @@ def _check_plain(q, k_cache, v_cache, pos, cap, g, pack_gqa):
                             f"{tensors[name].dtype}, q is {q.dtype}")
     if pos.dtype != torch.int32:
         raise TypeError("swat_decode_plain: pos must be int32")
-    for name in ("k_cache", "v_cache"):
+    for name in ("q", "k_cache", "v_cache"):
         if tensors[name].data_ptr() % 16:
             raise ValueError(f"swat_decode_plain: {name} must be 16-byte "
                              "aligned (the kernel loads 16-byte vectors)")
@@ -244,23 +250,16 @@ def _num_sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-@functools.lru_cache(maxsize=8)
-def _plain_tile(d: int) -> int:
-    """kv rows per tile of the plain-mode kernel at head dim d, from the
-    kernel's own source (`swat_decode_plain_tile`)."""
-    fn = _build.load("swat_decode").swat_decode_plain_tile
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    return fn(d)
-
-
-def plain_splits(n_heads: int, cap: int, kt: int, sms: int):
-    """(chunk, nsplit): the kv range [0, cap) cut into nsplit chunks of
-    `chunk` rows, a multiple of the kernel's tile `kt`, none empty, so that
-    n_heads * nsplit CTAs cover the card's `sms` SMs about twice."""
-    nsplit = min(max(1, -(-2 * sms // n_heads)), -(-cap // kt))
-    per_split = -(-cap // nsplit)
-    chunk = -(-per_split // kt) * kt
-    return chunk, -(-cap // chunk)
+def plain_splits(n_heads: int, cap: int, sms: int) -> Tuple[int, int]:
+    """(chunk, nsplit) of the plain mode: the cache [0, cap) cut into
+    nsplit <= MAX_SPLITS chunks, the most with n_heads * nsplit <= 1.5 x
+    the card's `sms` SMs. With no insert to serialise, a long cache takes
+    more CTAs than `fused_splits` gives it; but a cluster's CTAs must all
+    be resident at once, and two fit an SM. On the H100 (chip_smoke.py
+    phase 12's sweep) whisper's cross attention, 48 caches of 1500 rows,
+    ran fastest at 4 CTAs a cluster (192 CTAs) and 30% slower at 5 (240)
+    or more; gemma2's 16 caches of 4097 rows ran fastest at 8 (128)."""
+    return _chunks(cap, 3 * sms // (2 * n_heads))
 
 
 def swat_decode_plain(q, k_cache, v_cache, pos, spec: AttentionSpec, *,
@@ -269,10 +268,10 @@ def swat_decode_plain(q, k_cache, v_cache, pos, spec: AttentionSpec, *,
                       pack_gqa: bool = True) -> torch.Tensor:
     """q: (B, Hq, T, D); caches: (B, Hkv, W, D), read only; pos: int32 (B,)
     tokens in each slot's cache (the queries are its newest T). Returns out
-    (B, Hq, T, D). pack_gqa: one CTA row block per kv head holding its
-    group*T query rows (True), or per q head with its T rows (False). The
-    kv range is split across CTAs by `plain_splits`."""
-    cap, g, window = _ring_geometry(spec, k_cache.shape[2], ring_cap)
+    (B, Hq, T, D). pack_gqa: one cluster per kv head holding its group*T
+    query rows (True), or per q head with its T rows (False). Each cache
+    is cut into `plain_splits` chunks."""
+    cap = _ring_geometry(spec, k_cache.shape[2], ring_cap)[0]
     scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
     if q.device.type == "cpu":
         return swat_decode_plain_ref(q, k_cache, v_cache, pos, spec,
@@ -280,25 +279,31 @@ def swat_decode_plain(q, k_cache, v_cache, pos, spec: AttentionSpec, *,
     if q.device.type != "cuda":
         raise ValueError(f"swat_decode_plain: no kernel for device "
                          f"{q.device}")
+    heads = k_cache.shape[1] if pack_gqa else q.shape[1]
+    _, nsplit = plain_splits(q.shape[0] * heads, cap, _num_sms(q.device))
+    return launch_plain(q, k_cache, v_cache, pos, spec, ring_cap=cap,
+                        scale=scale, pack_gqa=pack_gqa, nsplit=nsplit)
+
+
+def launch_plain(q, k_cache, v_cache, pos, spec: AttentionSpec, *,
+                 ring_cap: int, scale: float, pack_gqa: bool,
+                 nsplit: int) -> torch.Tensor:
+    """One launch of the plain-mode kernel on CUDA tensors (checked here),
+    each cache cut into `_chunks(cap, nsplit)`: the wrapper's split from
+    `plain_splits`, or another (chip_smoke.py's split sweep)."""
+    cap, g, window = _ring_geometry(spec, k_cache.shape[2], ring_cap)
     _check_plain(q, k_cache, v_cache, pos, cap, g, pack_gqa)
     b, hq, t, d = q.shape
     hkv, w = k_cache.shape[1], k_cache.shape[2]
     group = hq // hkv
-    grid_h, rows = (hkv, group * t) if pack_gqa else (hq, t)
-    chunk, nsplit = plain_splits(b * grid_h, cap, _plain_tile(d),
-                                 _num_sms(q.device))
+    heads_per_kv, rows = (1, group * t) if pack_gqa else (group, t)
+    chunk, nsplit = _chunks(cap, nsplit)
     out = torch.empty_like(q)
-    part_ml = torch.empty((2, b * grid_h, nsplit, rows), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((b * grid_h, nsplit, rows, d),
-                           dtype=torch.float32, device=q.device)
-    fn = _kernel("swat_decode_plain", 14)
+    fn = _kernel("swat_decode_plain", 13, 5)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                    pos.data_ptr(), part_ml[0].data_ptr(),
-                    part_ml[1].data_ptr(), part_acc.data_ptr(),
-                    out.data_ptr(), b, grid_h, 1 if pack_gqa else group, hkv,
+                    pos.data_ptr(), out.data_ptr(), b, hkv, heads_per_kv,
                     rows, t, d, w, cap, g, window, int(spec.causal), chunk,
                     nsplit, scale, float(spec.softcap), _DTYPES[q.dtype],
                     stream)

@@ -96,7 +96,7 @@ _ENTRIES = [  # (source stem, entry point, wrapper module, getter args)
     ("swat_decode", "swat_decode_fused", "swat_decode",
      ("swat_decode_fused", 12)),
     ("swat_decode", "swat_decode_plain", "swat_decode",
-     ("swat_decode_plain", 14)),
+     ("swat_decode_plain", 13, 5)),
     ("swat_attention_fwd", "swat_attention_fwd", "swat_attention", ()),
     ("swat_attention_fwd", "swat_attention_fwd_tc", "swat_attention",
      ("swat_attention_fwd_tc",)),

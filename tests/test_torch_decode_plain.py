@@ -160,16 +160,27 @@ def test_plain_decode_needs_a_length():
         TO.decode_attention(x, kc, kc, None, spec)
 
 
-@settings(deadline=None, max_examples=40)
-@given(st.integers(1, 512), st.integers(1, 5000),
-       st.sampled_from([32, 64, 128]), st.integers(1, 264))
-def test_plain_splits_cover_the_cache(n_heads, cap, kt, sms):
-    """The kv split: chunks are whole kernel tiles, cover [0, cap), none is
-    empty, and the grid stays near two CTAs per SM."""
-    chunk, nsplit = TD.plain_splits(n_heads, cap, kt, sms)
-    assert chunk % kt == 0 and chunk >= kt
-    assert chunk * nsplit >= cap > chunk * (nsplit - 1)
-    assert nsplit <= max(1, -(-2 * sms // n_heads))
+@settings(deadline=None, max_examples=60)
+@given(st.integers(1, 512), st.integers(1, 5000), st.integers(1, 264))
+def test_plain_splits_cover_the_cache(n_heads, cap, sms):
+    """The plain mode's cluster split: [0, cap) cut into contiguous chunks
+    that cover it once, none empty, at most MAX_SPLITS (the portable
+    cluster size), and no more CTAs than 1.5 an SM unless each cache has
+    only one."""
+    chunk, nsplit = TD.plain_splits(n_heads, cap, sms)
+    assert 1 <= nsplit <= TD.MAX_SPLITS
+    chunks = [(c * chunk, min((c + 1) * chunk, cap)) for c in range(nsplit)]
+    assert all(lo < hi for lo, hi in chunks), "an empty chunk"
+    assert [s for lo, hi in chunks for s in range(lo, hi)] == list(range(cap))
+    assert n_heads * nsplit <= max(3 * sms // 2, n_heads)
+
+
+def test_plain_split_at_the_main_shapes():
+    """whisper's cross attention (8 clips x 6 heads, 1500 encoder rows) and
+    gemma2's local layer (4 slots x 4 kv heads, 4097 rows) on an H100's
+    132 SMs."""
+    assert TD.plain_splits(48, 1500, 132) == (375, 4)
+    assert TD.plain_splits(16, 4097, 132) == (513, 8)
 
 
 def test_plain_wrapper_checks():

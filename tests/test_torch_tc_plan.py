@@ -13,13 +13,21 @@ fp32 atol 5e-5 / rtol 1e-3 (the sums run in another order). The dQ
 kernel's arithmetic (bf16 products, S scaled in fp32 after the product,
 dS entering the last product as bf16 hi + lo parts) is emulated and held
 within chip_smoke.py's BWD_TOL (bf16 atol 1e-2 / rtol 1e-2) of the plain
-backward's dQ."""
+backward's dQ. So is dK/dV's two-warpgroup layout at head dim 256 (P^T and
+its softcap chain handed from one warpgroup to the other in fp32, P^T and
+dS^T entering their products as bf16 hi + lo parts), also against the JAX
+package's Pallas backward in interpret mode."""
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import patterns as JP
+from repro.core.types import AttentionSpec as JSpec
+from repro.kernels.swat_attention import swat_attention_fwd as j_fwd
+from repro.kernels.swat_backward import swat_attention_bwd as j_bwd
 from repro_torch.configs import get_config
 from repro_torch.core import patterns
 from repro_torch.core.types import AttentionSpec
@@ -46,7 +54,7 @@ PLANS = {   # (spec, L): the patterns the tensor-core dK/dV kernel meets
 @pytest.mark.parametrize("dtype,d,fwd,dkv", [
     (torch.bfloat16, 64, "tc", "tc"),
     (torch.bfloat16, 128, "tc", "tc"),
-    (torch.bfloat16, 256, "tc", "simt"),
+    (torch.bfloat16, 256, "tc", "tc"),
     (torch.bfloat16, 16, "simt", "simt"),
     (torch.bfloat16, 32, "simt", "simt"),
     (torch.float32, 16, "simt", "simt"),
@@ -291,3 +299,82 @@ def test_dq_rounding_points_stay_within_the_backward_tolerance(spec, lq,
                                              scale)
     got = _emulate_dq_tc(q, k, v, o, lse, do, spec, pat, scale)
     torch.testing.assert_close(got.float(), want.float(), **BWD_TOL)
+
+
+# ------------------------------------- two-warpgroup dK/dV at D=256 ---
+
+def _hi_lo(x):
+    """x as the sum of two bf16 values: the rounded value and the rest."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _emulate_dkv_tc_d256(q, k, v, o, lse, do, spec, pat, scale):
+    """dK/dV as the two-warpgroup tensor-core kernel computes them: kv rows
+    as M. Warpgroup 0: S^T = K Q^T (bf16 products, fp32 sums), scaled in
+    fp32, the softcap chain, P^T = exp(S^T - lse), handed over in fp32
+    with the chain factor. Warpgroup 1: dP^T = V dO^T, dS^T = P^T (dP^T -
+    delta) chain. P^T enters dV += P^T dO and dS^T enters dK += dS^T Q as
+    bf16 hi + lo parts, summed in fp32 over the GQA group; dK times scale;
+    each rounded to bf16 once."""
+    b, hq, lq, _ = q.shape
+    hkv, lkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    mask = _element_mask(spec, pat, lq, lkv).T           # (Lkv, Lq)
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s_t = torch.einsum("bhkd,bhqd->bhkq", kf, q.float()) * scale
+    chain = torch.ones_like(s_t)
+    if spec.softcap:
+        t = torch.tanh(s_t / spec.softcap)
+        s_t, chain = spec.softcap * t, 1.0 - t * t
+    p_t = torch.where(mask, torch.exp(s_t - lse[:, :, None, :]), 0.0)
+    dp_t = torch.einsum("bhkd,bhqd->bhkq", vf, do.float())
+    delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+    ds_t = p_t * (dp_t - delta) * chain                  # 0 where p_t is
+    dv = sum(torch.einsum("bhkq,bhqd->bhkd", x, do.float())
+             for x in _hi_lo(p_t))
+    dk = sum(torch.einsum("bhkq,bhqd->bhkd", x, q.float())
+             for x in _hi_lo(ds_t)) * scale
+    fold = lambda x: x.reshape(b, hkv, group, lkv, -1).sum(2)
+    return fold(dk).to(torch.bfloat16), fold(dv).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("spec", [
+    dict(kind="swat", window=24, causal=True, softcap=50.0),
+    dict(kind="swat", window=16, num_global=4, causal=True),
+    dict(kind="dense", causal=True, softcap=50.0),
+], ids=["local softcap", "globals", "global layer"])
+def test_two_warpgroup_dkv_at_d256_stays_within_the_backward_tolerance(
+        spec):
+    """gemma2's layer kinds at head dim 256, cut to 4 q heads over 2 kv
+    heads and 96 tokens, bf16 inputs: the emulation against the plain
+    backward and against the JAX Pallas backward in interpret mode (fp32,
+    on the same bf16 values), within BWD_TOL."""
+    rng = np.random.RandomState(19)
+    b, hq, hkv, l, d = 1, 4, 2, 96, 256
+    mk = lambda *s_: torch.from_numpy(
+        rng.randn(*s_).astype(np.float32)).to(torch.bfloat16)
+    q, k, v, do = (mk(b, hq, l, d), mk(b, hkv, l, d), mk(b, hkv, l, d),
+                   mk(b, hq, l, d))
+    tspec = AttentionSpec(**spec)
+    pat = ops.get_pattern(tspec, l, l, 32, 32)
+    scale = d ** -0.5
+    o, lse = SA.swat_attention_fwd(q, k, v, tspec, pattern=pat, scale=scale,
+                                   return_lse=True)
+    got = _emulate_dkv_tc_d256(q, k, v, o, lse, do, tspec, pat, scale)
+    _, dk, dv = SB.swat_attention_bwd_plain(q, k, v, o, lse, do, tspec, pat,
+                                            scale)
+    for g, w in zip(got, (dk, dv)):
+        torch.testing.assert_close(g.float(), w.float(), **BWD_TOL)
+    jspec = JSpec(**spec)
+    jpat = JP.build_block_pattern(jspec, l, l, 32, 32)
+    jq, jk, jv, jdo = (jnp.asarray(x.float().numpy()) for x in (q, k, v, do))
+    jo, jlse = j_fwd(jq, jk, jv, jspec, pattern=jpat, interpret=True,
+                     return_lse=True)
+    _, jdk, jdv = j_bwd(jq, jk, jv, jo, jlse, jdo, jspec, pattern=jpat,
+                        interpret=True)
+    for g, w in zip(got, (jdk, jdv)):
+        torch.testing.assert_close(
+            g.float(), torch.from_numpy(np.array(w, np.float32)),
+            **BWD_TOL)
