@@ -13,7 +13,8 @@ each of which raises on failure:
                tensor-core dQ and dK/dV kernels or the decode kernels.
   2. kernels - each CUDA kernel against its plain PyTorch version at the
                serving path's shapes (fused decode at head dim 64, 128 and
-               256 on cold, wrapped and chunk-border rings, the chosen split
+               256, T=1/4/5/8 (5 and 8: verify steps on lookahead rings), on
+               cold, wrapped and chunk-border rings, the chosen split
                printed: caches bitwise equal, two launches bitwise equal,
                outputs within bf16 atol 3e-2 / fp32 atol 2e-5 rtol 1e-4;
                banded forward: O at the same tolerances, LSE atol 1e-3,
@@ -37,6 +38,32 @@ each of which raises on failure:
                share of the wall time and device time by kernel category;
                one fused decode kernel per layer and decode step, and no
                other decode kernel (the cluster merge launches nothing).
+ 17. chunk   - (run after phase 6) kernel #2 as a prefill chunk launches
+               it, against banded_plain with the same arguments: pass A
+               (the gathered ring tail and the chunk, q_offset / kv_offset
+               / seq_kv_bound, return_lse) and pass B (the pinned globals)
+               at llama's 64-token chunk at pos0 0, 64 and 448 (after a
+               wrap), on its dense layer, and at gemma2-2b's D=256 local
+               layer after a wrap, bf16 and fp32, each launch on its route;
+               the whole chunk route against the plain chunk attention on
+               the card. Then pass A's time beside banded_plain's and one
+               SDPA call (boolean band mask over the gathered buffer), and
+               the fused decode's at T=5.
+ 18. serve slice - full-width llama3.2-1b + SWAT, bf16, the 8 requests of
+               phase 3 through ServingEngine(prefill_chunk=64) and
+               ServingEngine(speculative=4, n-gram drafter 3/64): launch
+               counts zeroed before and read after each run (the forward:
+               one pass A per layer and chunk, one pass B per layer and
+               chunk after the first; the fused decode: one per layer and
+               decode or verify step; every forward launch on the
+               tensor-core route); chunked against single-shot first-token
+               logits within LOGIT_BOUND, the speculative tokens against
+               sequential decode teacher-forced along them within
+               AGREE_BOUND; traced chunked and single-shot prefill batches
+               and a traced verify block split by kernel category.
+ 19. serve slice fp32 - the same 8 requests at fp32 through the default,
+               chunked and speculative engines (SIMT forward): greedy
+               tokens equal on every request.
   7. backward - the dQ and dK/dV kernels against their plain version at the
                training shapes (B=4, Hq=32, Hkv=8, L=2048, D=64, window
                256, 4 globals, causal; plus group 1 and 8, softcap 30 and
@@ -169,6 +196,12 @@ WHISPER_BAND = dict(kind="swat", window=WHISPER["window"],
 # gemma2-2b's attention shapes (configs/gemma2_2b.py): head dim 256, 8 q
 # heads over 4 kv heads, local window 4096, softcaps 50
 GEMMA = dict(b=1, hq=8, hkv=4, d=256, seq=8192, window=4096, softcap=50.0)
+# the chunked and speculative serve cells (phases 17-19): prefill chunk,
+# drafts per verify step, and the n-gram drafter (the JAX launcher's
+# --draft-ngram / --draft-history defaults)
+CHUNK = 64
+SPEC_K = 4
+DRAFT = dict(max_ngram=3, history=64)
 
 
 # kernels whose design keeps every register row in registers: a spill in
@@ -265,19 +298,21 @@ def _border_lens(chunk, cap):
 
 def check_decode(torch, spec):
     """The fused decode kernel against its plain version: head dim 64, 128
-    and 256 x bf16/fp32 x T=1/4 x group 1/4/8 x three rings (cold: slot 0
+    and 256 x bf16/fp32 x T=1/4/5/8 (5 and 8: a speculative verify step's
+    k+1 rows on a ring with k lookahead rows) x group 1/4/8 x three rings
+    (cold: slot 0
     at pos 0, so that most of the cluster's chunks see nothing; wrapped;
     insert slots on the split's chunk borders). Caches bitwise equal,
     outputs within TOL, two launches bitwise equal. Returns the bf16 error
-    of the serve case (D=64, T=1, group 4, wrapped)."""
+    of the serve shape (D=64, group 4, wrapped) for each T."""
     from repro_torch.kernels import swat_decode as SD
     gen = torch.Generator(device="cuda").manual_seed(1)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    main_err, n, splits = None, 0, set()
+    main_err, n, splits = {}, 0, set()
     for d in (64, 128, 256):
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[-1]
-            for t in (1, 4):
+            for t in (1, 4, 5, 8):
                 cap = MAIN["window"] + 1 + (t - 1) + MAIN["num_global"]
                 chunk, nsplit = SD.fused_splits(MAIN["b"] * MAIN["hkv"], cap,
                                                 sms)
@@ -314,9 +349,9 @@ def check_decode(torch, spec):
                                 name, got[i, :, :real], want[i, :, :real],
                                 dn))
                         n += 1
-                        if (d, dn, t, group, tag) == (64, "bfloat16", 1, 4,
-                                                      "wrapped"):
-                            main_err = err
+                        if (d, dn, group, tag) == (64, "bfloat16", 4,
+                                                   "wrapped"):
+                            main_err[t] = err
     log(f"swat_decode: {n} cases, caches bitwise equal, outputs within "
         "tolerance, bitwise repeatable; split (cap, CTAs per ring, chunk "
         f"rows) for {MAIN['b']} slots x {MAIN['hkv']} kv heads on {sms} "
@@ -541,15 +576,18 @@ def time_ms(torch, fn, iters=30):
     return total / iters
 
 
-def time_decode(torch, spec):
+def time_decode(torch, spec, t=1):
+    """The fused decode at T rows a slot (T=1: a decode step; T=5: a
+    speculative verify step at k=4) on a ring with T-1 lookahead rows."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels import swat_decode as SD
     gen = torch.Generator(device="cuda").manual_seed(3)
-    b, hq, hkv, d, t = MAIN["b"], MAIN["hq"], MAIN["hkv"], MAIN["d"], 1
+    b, hq, hkv, d = MAIN["b"], MAIN["hq"], MAIN["hkv"], MAIN["d"]
     lens = [600, 575, 530, 700]             # mid-serve ring depths
     q, kc, vc, nk, nv, pos, nn, cap = _ring_inputs(
         torch, gen, torch.bfloat16, b, hq // hkv, hkv, t, d, lens)
+    nn.fill_(t)
     k_ms = time_ms(torch, lambda: SD.swat_decode_fused(
         q, kc, vc, nk, nv, pos, nn, spec, ring_cap=cap))
     p_ms = time_ms(torch, lambda: SD.swat_decode_fused_plain(
@@ -558,20 +596,22 @@ def time_decode(torch, spec):
     w = kc.shape[2]
     t_s, ok = ref.ring_slot_positions(pos.long() + nn.long(), w,
                                       ring_cap=cap, num_global=4)
-    qp = pos.long()[:, None]
-    vis = ok & (t_s <= qp) & ((t_s >= qp - spec.window)
-                              | (torch.arange(w, device="cuda") < 4))
-    mask = vis[:, None, None, :]
+    qp = pos.long()[:, None, None] + torch.arange(t, device="cuda")[:, None]
+    vis = ok[:, None] & (t_s[:, None] <= qp) & (
+        (t_s[:, None] >= qp - spec.window)
+        | (torch.arange(w, device="cuda") < 4))            # (B, T, W)
+    mask = vis[:, None]
     ke = kc.repeat_interleave(hq // hkv, dim=1)
     ve = vc.repeat_interleave(hq // hkv, dim=1)
     l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, ke, ve, attn_mask=mask))
-    n_vis = int(vis.sum())                   # visible ring rows, all slots
+    rows = int(vis.any(dim=1).sum())        # ring rows read, all slots
+    pairs = int(vis.sum())                  # visible (query, row) pairs
     itm = 2
     bytes_ = (itm * d * (2 * b * hq * t          # q in, out
                          + 4 * b * hkv * t       # new k/v in, written rows
-                         + 2 * hkv * n_vis))     # visible K and V rows
-    ops_ = 4 * d * hq * t * n_vis
+                         + 2 * hkv * rows))      # visible K and V rows
+    ops_ = 4 * d * hq * pairs
     return k_ms, p_ms, l_ms, bytes_, ops_
 
 
@@ -629,19 +669,23 @@ def _union_ms(ranges):
     return (busy + cur_e - cur_s) / 1e3
 
 
-def trace_decode(torch, cfg, params):
-    """torch.profiler over one admitted batch of 4 requests and two decode
-    blocks of 8 steps: device busy share of the wall time, and device time
-    by kernel category."""
+def trace_decode(torch, cfg, params, span="engine.decode_block",
+                 n_new=17, **engine_kw):
+    """torch.profiler over one admitted batch of 4 requests served by a
+    ServingEngine(**engine_kw): the device's busy share of the wall time
+    and of the host time of the `span` ranges ("engine.decode_block": the
+    decode or verify blocks; "engine.prefill": the admission), and device
+    time by kernel category inside them. Decode blocks must hold one
+    fused decode kernel per layer and step and no other decode kernel."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import Request, ServingEngine
     rng = np.random.RandomState(1)
     reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size,
                                               (MAIN["prompt"],)),
-                    max_new_tokens=17) for i in range(4)]
+                    max_new_tokens=n_new) for i in range(4)]
     eng = ServingEngine(cfg, params, batch_slots=4, max_len=MAIN["max_len"],
-                        scan_steps=8)
+                        scan_steps=8, **engine_kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -654,21 +698,23 @@ def trace_decode(torch, cfg, params):
     kernels = [e for e in events if e.device_type == dt.CUDA
                and not e.name.startswith("engine.")]
     blocks = [e.time_range for e in events
-              if e.name == "engine.decode_block" and e.device_type == dt.CPU]
-    out = {"wall_ms": wall_ms, "prefill_ms": eng.stats["prefill_s"] * 1e3,
+              if e.name == span and e.device_type == dt.CPU]
+    out = {"span": span, "wall_ms": wall_ms,
+           "prefill_ms": eng.stats["prefill_s"] * 1e3,
            "decode_ms": eng.stats["decode_s"] * 1e3,
            "decode_steps": eng.stats["decode_steps"],
+           "spec_steps": eng.stats["spec_steps"],
            "device_kernels": len(kernels)}
     if not kernels or not blocks:
         out["device_time"] = "not measured (no device events traced)"
         log("trace: " + json.dumps(out))
         return out
-    # decode blocks end in a host sync and start after the previous one, so
-    # a kernel belongs to the block whose host range holds its start
+    # spans end in a host sync and start after the previous one, so a
+    # kernel belongs to the span whose host range holds its start
     dec = [e for e in kernels
            if any(b.start <= e.time_range.start <= b.end for b in blocks)]
     if not dec:
-        out["device_time"] = "not measured (no kernel inside a decode block)"
+        out["device_time"] = f"not measured (no kernel inside {span})"
         log("trace: " + json.dumps(out))
         return out
     block_ms = sum(b.elapsed_us() for b in blocks) / 1e3
@@ -678,26 +724,36 @@ def trace_decode(torch, cfg, params):
         cat = next((c for c, keys in _CATEGORIES
                     if any(k in name for k in keys)), "other")
         by_cat[cat] = by_cat.get(cat, 0.0) + e.time_range.elapsed_us() / 1e3
-    steps = max(1, eng.stats["decode_steps"])
-    # the fused decode is one kernel per layer and step: its cluster merge
-    # launches nothing else
-    fused = sum("decode_fused_kernel" in e.name for e in dec)
-    stray = sorted({e.name[:60] for e in dec if "decode" in e.name.lower()
-                    and "decode_fused_kernel" not in e.name})
-    if fused != cfg.num_layers * eng.stats["decode_steps"] or stray:
-        raise AssertionError(f"trace: {fused} fused decode kernels in "
-                             f"{eng.stats['decode_steps']} decode steps of "
-                             f"{cfg.num_layers} layers; other decode "
-                             f"kernels: {stray}")
-    out.update(
-        fused_decode_kernels_per_step=fused / steps,
-        decode_block_host_ms=block_ms,
-        decode_device_busy_ms=_union_ms([e.time_range for e in dec]),
-        decode_busy_share=_union_ms([e.time_range for e in dec]) / block_ms,
-        decode_device_ms_per_step_by_category={
-            k: v / steps for k, v in sorted(by_cat.items())},
-        decode_kernels_per_step=len(dec) / steps,
-        run_busy_share=_union_ms([e.time_range for e in kernels]) / wall_ms)
+    if span == "engine.decode_block":
+        per = max(1, eng.stats["decode_steps"])
+        # the fused decode is one kernel per layer and step: its cluster
+        # merge launches nothing else
+        fused = sum("decode_fused_kernel" in e.name for e in dec)
+        stray = sorted({e.name[:60] for e in dec
+                        if "decode" in e.name.lower()
+                        and "decode_fused_kernel" not in e.name})
+        if fused != cfg.num_layers * eng.stats["decode_steps"] or stray:
+            raise AssertionError(
+                f"trace: {fused} fused decode kernels in "
+                f"{eng.stats['decode_steps']} decode steps of "
+                f"{cfg.num_layers} layers; other decode kernels: {stray}")
+        out["fused_decode_kernels_per_step"] = fused / per
+        unit = "step"
+    else:
+        per = max(1, eng.stats["prefill_batches"])
+        out["attention_fwd_kernels_per_batch"] = sum(
+            "attention_fwd" in e.name for e in dec) / per
+        unit = "batch"
+    busy = _union_ms([e.time_range for e in dec])
+    out.update({
+        "span_host_ms": block_ms,
+        "span_device_busy_ms": busy,
+        "span_busy_share": busy / block_ms,
+        f"device_ms_per_{unit}_by_category": {
+            k: v / per for k, v in sorted(by_cat.items())},
+        f"kernels_per_{unit}": len(dec) / per,
+        "run_busy_share": _union_ms([e.time_range for e in kernels])
+        / wall_ms})
     log("trace: " + json.dumps(out))
     return out
 
@@ -1796,6 +1852,324 @@ def time_decode_plain(torch):
     return k_ms, p_ms, l_ms, bytes_, ops_
 
 
+# ------------------------------------------------------------ phase 17 ---
+
+def _chunk_case(torch, gen, dtype, b, hq, hkv, d, t, pos0, w):
+    """A prefill chunk's inputs: q, k_new, v_new for tokens [pos0, pos0+T),
+    a random ring cache (B, Hkv, W, D) as it stands before the chunk, and
+    ragged lengths (row 0 runs past the chunk, row 1 ends inside it, other
+    rows end at its end)."""
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    q = mk(b, hq, t, d)
+    kn, vn = mk(b, hkv, t, d), mk(b, hkv, t, d)
+    kc, vc = mk(b, hkv, w, d), mk(b, hkv, w, d)
+    lens = torch.full((b,), pos0 + t, dtype=torch.int32, device="cuda")
+    lens[0] = pos0 + t + 100
+    if b > 1:
+        lens[1] = pos0 + t // 2
+    return q, kn, vn, kc, vc, lens
+
+
+def chunk_cases(spec):
+    """(name, spec, b, hq, hkv, d, T, pos0, logical ring capacity, physical
+    rows): llama's serve chunk (window 256, 4 globals, a 261-row ring in
+    320 rows) at pos0 0, 64 and 448 (after a wrap), the same chunk on a
+    dense causal layer (a 1024-row cache), and gemma2-2b's D=256 local
+    layer (window 4096, softcap 50, a 4097-row ring in 4160 rows) after a
+    wrap."""
+    import dataclasses
+    from repro_torch.core.types import AttentionSpec
+    cap = MAIN["window"] + 1 + MAIN["num_global"]
+    gl = AttentionSpec(kind="swat", window=GEMMA["window"],
+                       softcap=GEMMA["softcap"])
+    ll = (spec, MAIN["b"], MAIN["hq"], MAIN["hkv"], MAIN["d"], CHUNK)
+    dense = dataclasses.replace(spec, kind="dense", window=0, num_global=0)
+    return [(f"llama pos0={p}", *ll, p, cap, 320) for p in (0, 64, 448)] + [
+        ("llama dense causal pos0=448", dense, *ll[1:], 448, MAIN["max_len"],
+         MAIN["max_len"]),
+        ("gemma2 local D=256 pos0=4480", gl, GEMMA["b"] + 1, GEMMA["hq"],
+         GEMMA["hkv"], GEMMA["d"], CHUNK, 4480, GEMMA["window"] + 1, 4160)]
+
+
+def check_chunk(torch, spec):
+    """Kernel #2 as a prefill chunk launches it: pass A (the gathered ring
+    tail and the chunk, q_offset = pos0, kv_offset = lo, seq_kv_bound =
+    pos0 + T, return_lse) and pass B (the pinned globals) against
+    `banded_plain` with the same arguments, O within TOL and the LSE within
+    atol 1e-3, each launch on its route; then the whole chunk route
+    (`ops.prefill_chunk_attention`, impl "kernel") against the plain chunk
+    attention on the card at every real position. bf16 and fp32. Returns
+    the largest error of each dtype."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.core.types import AttentionSpec
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    worst, n = {}, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        for (name, sp, b, hq, hkv, d, t, pos0, cap, w) in chunk_cases(spec):
+            q, kn, vn, kc, vc, lens = _chunk_case(torch, gen, dtype, b, hq,
+                                                  hkv, d, t, pos0, w)
+            g = sp.num_global if sp.is_sparse else 0
+            ring = cap - g
+            lo = max(g, pos0 - ring) if pos0 >= g else pos0
+            slots = g + torch.remainder(
+                torch.arange(lo, pos0, device="cuda") - g, ring)
+            kb = torch.cat([kc.index_select(2, slots), kn], dim=2)
+            vb = torch.cat([vc.index_select(2, slots), vn], dim=2)
+            pat = ops.get_pattern(sp, t, kb.shape[2], 128, 128,
+                                  q_shift=pos0 - lo)
+            off = dict(q_offset=pos0, kv_offset=lo, seq_kv_bound=pos0 + t)
+            want, wl = SA.banded_plain(q, kb, vb, sp, pat, d ** -0.5,
+                                       return_lse=True, **off)
+            before = route_counts()
+            got, gl = SA.swat_attention_fwd(q, kb, vb, sp, pattern=pat,
+                                            return_lse=True, **off)
+            torch.cuda.synchronize()
+            tag = f"chunk {dn} {name}"
+            check_route(tag, before, "fwd", expected_route(dtype, d, "fwd"))
+            err = check_close(tag + " pass A", got, want, dn)
+            check_close(tag + " pass A lse", gl, wl, dn, atol=1e-3,
+                        rtol=1e-4)
+            ng = min(pos0, g)
+            if ng:
+                pinned = AttentionSpec(kind="dense", causal=False,
+                                       softcap=sp.softcap)
+                kp = kc[:, :, :ng].contiguous()
+                vp = vc[:, :, :ng].contiguous()
+                ppat = ops.get_pattern(pinned, t, ng, 128, 128)
+                want, wl = SA.banded_plain(q, kp, vp, pinned, ppat,
+                                           d ** -0.5, return_lse=True)
+                before = route_counts()
+                got, gl = SA.swat_attention_fwd(q, kp, vp, pinned,
+                                                pattern=ppat,
+                                                return_lse=True)
+                torch.cuda.synchronize()
+                check_route(tag + " pass B", before, "fwd",
+                            expected_route(dtype, d, "fwd"))
+                err = max(err, check_close(tag + " pass B", got, want, dn))
+                check_close(tag + " pass B lse", gl, wl, dn, atol=1e-3,
+                            rtol=1e-4)
+            before = route_counts()
+            got = ops.prefill_chunk_attention(q, kn, vn, kc, vc, sp, pos0,
+                                              lens, ring_cap=cap,
+                                              impl="kernel")
+            want = ops.prefill_chunk_attention(q, kn, vn, kc, vc, sp, pos0,
+                                               lens, ring_cap=cap,
+                                               impl="banded")
+            torch.cuda.synchronize()
+            check_route(tag + " route", before, "fwd",
+                        expected_route(dtype, d, "fwd"), n=2 if ng else 1)
+            real = (pos0 + torch.arange(t, device="cuda"))[None] < lens[:, None]
+            sel = real[:, None, :, None].expand_as(got)
+            err = max(err, check_close(tag + " route vs plain", got[sel],
+                                       want[sel], dn))
+            worst[dn] = max(worst.get(dn, 0.0), err)
+            n += 1
+            del q, kn, vn, kc, vc, kb, vb, got, want
+    log(f"chunk: {n} cases (llama's chunk at pos0 0/64/448, its dense "
+        "layer, gemma2's D=256 local layer, x bf16/fp32): pass A with "
+        "offsets and pass B within tolerance, LSE within 1e-3, each launch "
+        "on its route; the chunk route vs the plain chunk attention within "
+        f"tolerance; worst errors {json.dumps(worst)}")
+    return worst
+
+
+def time_chunk(torch, spec, dtype_name="bfloat16"):
+    """Kernel #2's pass A at the serve chunk after a wrap (B=4, 64 queries
+    at pos0 448 against the 257-row ring tail and the chunk, 321 keys):
+    the kernel, `banded_plain` and SDPA with the band as a boolean mask
+    over the gathered buffer; then the whole chunk route and the plain
+    chunk attention. Returns (k_ms, p_ms, l_ms, bytes, ops, route_ms,
+    plain_route_ms)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swat_attention as SA
+    dtype = getattr(torch, dtype_name)
+    name, sp, b, hq, hkv, d, t, pos0, cap, w = chunk_cases(spec)[2]
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    q, kn, vn, kc, vc, lens = _chunk_case(torch, gen, dtype, b, hq, hkv, d,
+                                          t, pos0, w)
+    g = sp.num_global
+    lo = max(g, pos0 - (cap - g))
+    slots = g + torch.remainder(torch.arange(lo, pos0, device="cuda") - g,
+                                cap - g)
+    kb = torch.cat([kc.index_select(2, slots), kn], dim=2)
+    vb = torch.cat([vc.index_select(2, slots), vn], dim=2)
+    lkv = kb.shape[2]
+    pat = ops.get_pattern(sp, t, lkv, 128, 128, q_shift=pos0 - lo)
+    off = dict(q_offset=pos0, kv_offset=lo, seq_kv_bound=pos0 + t)
+    k_ms = time_ms(torch, lambda: SA.swat_attention_fwd(
+        q, kb, vb, sp, pattern=pat, return_lse=True, **off))
+    p_ms = time_ms(torch, lambda: SA.banded_plain(
+        q, kb, vb, sp, pat, d ** -0.5, return_lse=True, **off))
+    kidx = lo + torch.arange(lkv, device="cuda")
+    qidx = pos0 + torch.arange(t, device="cuda")[:, None]
+    mask = (kidx <= qidx) & (kidx >= qidx - sp.window)        # (T, Lkv)
+    ke = kb.repeat_interleave(hq // hkv, dim=1)
+    ve = vb.repeat_interleave(hq // hkv, dim=1)
+    l_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, ke, ve, attn_mask=mask))
+    r_ms = time_ms(torch, lambda: ops.prefill_chunk_attention(
+        q, kn, vn, kc, vc, sp, pos0, lens, ring_cap=cap, impl="kernel"))
+    pr_ms = time_ms(torch, lambda: ops.prefill_chunk_attention(
+        q, kn, vn, kc, vc, sp, pos0, lens, ring_cap=cap, impl="banded"))
+    itm = q.element_size()
+    bytes_ = (itm * d * (2 * b * hq * t + 2 * b * hkv * lkv)
+              + 4 * b * hq * t)
+    ops_ = 4 * d * b * hq * int(mask.sum())
+    return k_ms, p_ms, l_ms, bytes_, ops_, r_ms, pr_ms
+
+
+# ------------------------------------------------------------ phase 18 ---
+
+def _serve_run(torch, cfg, params, prompts, n_new, **kw):
+    from repro_torch.serving.engine import Request, ServingEngine
+    eng = ServingEngine(cfg, params, batch_slots=4, max_len=MAIN["max_len"],
+                        scan_steps=8, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run([Request(rid=i, prompt=p, max_new_tokens=n_new)
+                   for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    return eng, res, time.perf_counter() - t0
+
+
+def _cell_kw(cell):
+    from repro_torch.serving.drafter import NGramDrafter
+    return {"default": {}, "chunked": {"prefill_chunk": CHUNK},
+            "speculative": {"speculative": SPEC_K,
+                            "draft": NGramDrafter(**DRAFT)}}[cell]
+
+
+def serve_cells(torch, cfg, params, cells, route):
+    """Each cell's engine serves the 8 requests of phase 3 after a short
+    warm-up. The launch counters are zeroed just before each run and read
+    just after: the banded forward launches once per layer for each chunk's
+    pass A and once more for each chunk with pinned globals before it (a
+    single-shot batch: the band pass and the global-row pass), the fused
+    decode once per layer and decode or verify step, every forward launch
+    on `route`. Returns {cell: (summary, tokens, engine)}."""
+    import numpy as np
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_decode as SD
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (MAIN["prompt"],))
+               .astype(np.int32) for _ in range(8)]
+    layers = cfg.num_layers
+    g = cfg.attention.num_global
+    out = {}
+    for cell in cells:
+        kw = _cell_kw(cell)
+        _serve_run(torch, cfg, params, prompts[:4], 4, **kw)    # warm-up
+        SD.LAUNCHES.reset()
+        SA.LAUNCHES.reset()
+        before = route_counts()
+        eng, res, wall = _serve_run(torch, cfg, params, prompts,
+                                    MAIN["new_tokens"], **kw)
+        launches = {"swat_decode": SD.LAUNCHES.n,
+                    "swat_attention_fwd": SA.LAUNCHES.n}
+        check_route(f"serve {cell}", before, "fwd", route,
+                    n=SA.LAUNCHES.n)
+        st = eng.stats
+        for r in res:
+            if r.status != "ok" or len(r.tokens) != MAIN["new_tokens"]:
+                raise AssertionError(f"{cell} request {r.rid}: {r.status}, "
+                                     f"{len(r.tokens)} tokens")
+        chunks = -(-MAIN["prompt"] // eng.prefill_chunk) \
+            if eng.prefill_chunk else 1
+        per_batch = (chunks + (chunks - 1 if g else 0) if chunks > 1
+                     else (2 if g else 1))
+        expected = {"swat_decode": layers * st["decode_steps"],
+                    "swat_attention_fwd": layers * per_batch
+                    * st["prefill_batches"]}
+        if launches != expected:
+            raise AssertionError(f"serve {cell}: launches {launches}, "
+                                 f"expected {expected}")
+        n_tok = sum(len(r.tokens) for r in res)
+        summary = {
+            "tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
+            "prefill_batches": st["prefill_batches"],
+            "prefill_ms_per_batch": st["prefill_s"] * 1e3
+            / st["prefill_batches"],
+            "decode_steps": st["decode_steps"],
+            "decode_ms_per_step": st["decode_s"] * 1e3 / st["decode_steps"],
+            "tokens_per_step_per_slot": st["tokens_emitted"]
+            / (st["decode_steps"] * 4),
+            "spec_steps": st["spec_steps"],
+            "acceptance_rate": eng.acceptance_rate,
+            "launches": launches,
+            "fwd_launches_per_batch": launches["swat_attention_fwd"]
+            / st["prefill_batches"]}
+        log(f"serve {cell} ({str(params['embed'].dtype)}): "
+            + json.dumps(summary))
+        out[cell] = (summary, [r.tokens for r in res], eng)
+    return out, prompts
+
+
+def serve_slice(torch, cfg, params):
+    """Phase 18, bf16: the chunked (prefill_chunk 64) and speculative (k=4)
+    cells at full width and depth, then their gates against the default
+    engine: chunked against single-shot first-token logits (max |dlogit|
+    <= LOGIT_BOUND) on the first four prompts, and the speculative run's
+    tokens against sequential decode teacher-forced along them (greedy
+    agreement >= AGREE_BOUND)."""
+    from repro_torch.core import model as Mod
+    import numpy as np
+    from repro_torch.serving.engine import ServingEngine
+    cells, prompts = serve_cells(torch, cfg, params,
+                                 ("chunked", "speculative"), "tc")
+    base = ServingEngine(cfg, params, batch_slots=4, max_len=MAIN["max_len"])
+    tok = torch.as_tensor(np.stack(prompts[:4]), device="cuda")
+    lens = torch.full((4,), MAIN["prompt"], dtype=torch.int32, device="cuda")
+    chunk_eng = cells["chunked"][2]
+    lc, _ = chunk_eng.prefill_logits(tok, lens)
+    ls, _ = base.prefill_logits(tok, lens)
+    dlogit = max_err(lc, ls)
+    spec_toks = torch.as_tensor(cells["speculative"][1][:4], device="cuda")
+    logits, caches = Mod.prefill(params, cfg, {"tokens": tok},
+                                 MAIN["max_len"])
+    agree = [(logits[:, 0].argmax(-1) == spec_toks[:, 0]).float().mean()]
+    for j in range(1, spec_toks.shape[1]):
+        logits, _ = Mod.decode_step(params, cfg,
+                                    {"tokens": spec_toks[:, j - 1:j]}, caches)
+        agree.append((logits[:, 0].argmax(-1) == spec_toks[:, j])
+                     .float().mean())
+    agreement = float(torch.stack(agree).mean())
+    gates = {"chunked_first_token_max_abs_logit_diff": dlogit,
+             "logit_bound": LOGIT_BOUND,
+             "speculative_teacher_forced_agreement": agreement,
+             "agreement_bound": AGREE_BOUND}
+    log("serve slice gates (bf16): " + json.dumps(gates))
+    if not (dlogit <= LOGIT_BOUND and agreement >= AGREE_BOUND):
+        raise AssertionError(f"serve slice gates: {gates}")
+    return {c: v[0] for c, v in cells.items()}, gates
+
+
+def serve_slice_fp32(torch, cfg):
+    """Phase 19, fp32 at full width and depth (the SIMT forward): the
+    default, chunked and speculative cells serve the same 8 requests, and
+    their greedy tokens must be equal on every request."""
+    import dataclasses
+    from repro_torch.core import model as Mod
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = Mod.init_model(cfg32, seed=0, device="cuda")
+    cells, _ = serve_cells(torch, cfg32, params,
+                           ("default", "chunked", "speculative"), "simt")
+    base = cells["default"][1]
+    for cell in ("chunked", "speculative"):
+        got = cells[cell][1]
+        bad = [i for i, (a, b) in enumerate(zip(got, base)) if a != b]
+        if bad:
+            raise AssertionError(f"fp32 {cell}: greedy tokens differ from "
+                                 f"the default engine's on requests {bad}")
+    log("serve slice fp32: chunked and speculative greedy tokens equal the "
+        "default engine's on all 8 requests")
+    out = {c: v[0] for c, v in cells.items()}
+    del params
+    return out
+
+
 def ptxas_report(out):
     """(kernel, registers, spill-store bytes) for every entry function in
     the `nvcc -Xptxas -v` output of one source; kernel reads like
@@ -1888,7 +2262,20 @@ def main():
     unembed = time_unembed(torch, params, cfg)
     db_ms, db_by = bound(db, do)
     fb_ms, fb_by = bound(fb, fo)
+
+    # this slice's path: chunked prefill and speculative decoding
+    chunk_err = check_chunk(torch, spec)
+    ck = time_chunk(torch, spec)
+    ck32 = time_chunk(torch, spec, "float32")
+    vk = time_decode(torch, spec, t=SPEC_K + 1)
+    cells, cell_gates = serve_slice(torch, cfg, params)
+    trace_chunked = trace_decode(torch, cfg, params, span="engine.prefill",
+                                 n_new=2, **_cell_kw("chunked"))
+    trace_single = trace_decode(torch, cfg, params, span="engine.prefill",
+                                n_new=2)
+    trace_spec = trace_decode(torch, cfg, params, **_cell_kw("speculative"))
     del params
+    cells32 = serve_slice_fp32(torch, cfg)
 
     dq_err, dkv_err, combine_err = check_backward(torch, spec)
     tr, tr_launches, tr_state = train(torch, cfg)
@@ -1910,7 +2297,7 @@ def main():
          "source": "src/repro_torch/csrc/swat_decode.cu",
          "replaces": "src/repro/kernels/swat_decode.py:116",
          "launches": summary["launches"]["swat_decode"],
-         "max_abs_err": dec_err, "ms": dk, "plain_ms": dp,
+         "max_abs_err": dec_err[1], "ms": dk, "plain_ms": dp,
          "bound_ms": db_ms, "bound_by": db_by, "library_ms": dl},
         {"name": "swat_attention_fwd_tc", "route": "cuda",
          "source": "src/repro_torch/csrc/swat_attention_fwd.cu",
@@ -1925,6 +2312,32 @@ def main():
          "max_abs_err": plain_err, "ms": pk, "plain_ms": pp,
          "bound_ms": pb_ms, "bound_by": pb_by, "library_ms": pl},
     ]
+    # this slice's launch configurations: the verify step's T = k+1 rows,
+    # and pass A of a prefill chunk with offsets (bf16 on the tensor-core
+    # kernel, fp32 on the SIMT one)
+    vb_ms, vb_by = bound(vk[3], vk[4])
+    kernels.append(
+        {"name": "swat_decode_fused (verify step, T=5)", "route": "cuda",
+         "source": "src/repro_torch/csrc/swat_decode.cu",
+         "replaces": "src/repro/kernels/swat_decode.py:116",
+         "launches": cells["speculative"]["launches"]["swat_decode"],
+         "max_abs_err": dec_err[SPEC_K + 1], "ms": vk[0], "plain_ms": vk[1],
+         "bound_ms": vb_ms, "bound_by": vb_by, "library_ms": vk[2]})
+    for name, times, launches, dn in (
+            ("swat_attention_fwd_tc (prefill chunk, offsets)", ck,
+             cells["chunked"]["launches"]["swat_attention_fwd"],
+             "bfloat16"),
+            ("swat_attention_fwd (SIMT, fp32 prefill chunk, offsets)", ck32,
+             cells32["chunked"]["launches"]["swat_attention_fwd"],
+             "float32")):
+        b_ms, b_by = bound(times[3], times[4], dn)
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "src/repro_torch/csrc/swat_attention_fwd.cu",
+             "replaces": "src/repro/kernels/swat_attention.py:64",
+             "launches": launches, "max_abs_err": chunk_err[dn],
+             "ms": times[0], "plain_ms": times[1], "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": times[2]})
     # the combine has no single PyTorch call that computes it (library null)
     for name, key, err, counted in (
             ("swat_attention_dq_tc", "dq", dq_err, "swat_attention_dq"),
@@ -1943,6 +2356,23 @@ def main():
              "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": l_ms})
     log(f"serve summary: {json.dumps(summary)}")
+    log(f"serve cells (bf16): {json.dumps(cells)}")
+    log(f"serve cell gates (bf16): {json.dumps(cell_gates)}")
+    log(f"serve cells (fp32): {json.dumps(cells32)}")
+    log("chunked / single-shot prefill ms a batch (bf16): "
+        f"{cells['chunked']['prefill_ms_per_batch'] / summary['prefill_ms_per_batch']:.3f}")
+    log(f"trace chunked prefill: {json.dumps(trace_chunked)}")
+    log(f"trace single-shot prefill: {json.dumps(trace_single)}")
+    log(f"trace verify block: {json.dumps(trace_spec)}")
+    log(f"chunk pass A (pos0 448, bf16): kernel {ck[0]:.4f} ms, plain "
+        f"{ck[1]:.4f}, SDPA {ck[2]:.4f}; whole chunk route {ck[5]:.4f} ms, "
+        f"plain chunk attention {ck[6]:.4f}")
+    log(f"chunk pass A (pos0 448, fp32): kernel {ck32[0]:.4f} ms, plain "
+        f"{ck32[1]:.4f}, SDPA {ck32[2]:.4f}; whole chunk route "
+        f"{ck32[5]:.4f} ms, plain chunk attention {ck32[6]:.4f}")
+    log(f"fused decode at T={SPEC_K + 1}: kernel {vk[0]:.5f} ms, plain "
+        f"{vk[1]:.4f}, SDPA {vk[2]:.4f}, bound {vb_ms:.6f} ({vb_by}); "
+        f"T=1 {dk:.5f} ms")
     log(f"e2e: {json.dumps(e2e)}")
     log(f"trace: {json.dumps(trace)}")
     log(f"unembed: {json.dumps(unembed)}")

@@ -5,7 +5,8 @@ Parameters are plain dicts of tensors with the JAX package's layouts
 (`x @ W` weights of shape (d_in, d_out)); attention tensors are
 (B, H, L, D); ring caches are (B, Hkv, W, D) with a per-slot (B,) int32
 `step`. Decode updates a cache IN PLACE (the tensors of the dict it is
-given, and its `step`), where the JAX engine donated the cache buffers.
+given, and its `step`), where the JAX engine donated the cache buffers; a
+prefill chunk replaces the dict's k/v entries and step.
 """
 from __future__ import annotations
 
@@ -302,6 +303,44 @@ def attention_decode(params: Params, cfg: AttentionLayerCfg, x, cache, *,
         q, cache["k"], cache["v"], None, cfg.spec, impl=impl,
         new_kv=(k_new, v_new), num_new=num_new, pos=step, ring_cap=cap)
     cache["step"] = step + t
+    out = out.transpose(1, 2).reshape(b, t, -1)
+    return out @ params["wo"], cache
+
+
+def attention_prefill_chunk(params: Params, cfg: AttentionLayerCfg, x, cache,
+                            pos0: int, lengths, *, impl: Optional[str] = None,
+                            lookahead: int = 0, rope=None):
+    """One chunk of a batched chunked prefill: tokens [pos0, pos0+T) of
+    every row attend the ring cache (every earlier chunk) plus the chunk
+    itself (`kops.prefill_chunk_attention`: the banded forward with offsets
+    on the card), then the chunk's K/V go into their ring slots. Exact: the
+    ring holds every token a band query can still see, so the chunks
+    compute single-shot prefill's function while scores stay (T, cap+T).
+    pos0 is shared by every row; lengths (B,) stop each row's writes at its
+    own length (outputs past it are garbage the caller drops). `rope`:
+    tables of `rope_tables` at pos0 + arange(T), shared by every layer.
+    Updates `cache` IN PLACE (its k/v entries and step = min(lengths,
+    pos0+T)) and returns (out (B, T, Dm), cache). Causal specs only."""
+    if not cfg.spec.causal or cfg.cross:
+        raise ValueError("prefill chunks need causal self-attention")
+    b, t, _ = x.shape
+    q, k_new, v_new = _project_qkv(params, cfg, x, x)
+    pos = pos0 + torch.arange(t, device=x.device)
+    if cfg.use_rope:
+        if rope is None:
+            rope = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, tables=rope)
+        k_new = apply_rope(k_new, tables=rope)
+    cap = cache_capacity(cfg, cache["k"].shape[2], lookahead)
+    g = cfg.spec.num_global if cfg.spec.is_sparse else 0
+    lens = lengths.to(device=x.device, dtype=torch.int32)
+    out = kops.prefill_chunk_attention(
+        q, k_new, v_new, cache["k"], cache["v"], cfg.spec, pos0, lens,
+        ring_cap=cap, impl=impl)
+    write = pos[None, :] < lens[:, None]                         # (B, T)
+    cache["k"] = ring_scatter(cache["k"], k_new, pos, write, g, cap - g)
+    cache["v"] = ring_scatter(cache["v"], v_new, pos, write, g, cap - g)
+    cache["step"] = torch.clamp(lens, max=pos0 + t)
     out = out.transpose(1, 2).reshape(b, t, -1)
     return out @ params["wo"], cache
 

@@ -13,9 +13,10 @@ caches IN PLACE.
 `impl` selects the attention implementation (see `kernels/ops.py`); the
 default is the CUDA kernels for CUDA tensors and the plain versions for CPU
 tensors. Training differentiates `loss_fn` with autograd, recomputing each
-super-block in the backward pass under `REMAT_POLICIES`; `prefill` and
-`decode_step` run without autograd. The layer kinds "mamba*" and "*_moe"
-raise NotImplementedError: they belong to later slices.
+super-block in the backward pass under `REMAT_POLICIES`; `prefill`,
+`prefill_chunk` and `decode_step` run without autograd. The layer kinds
+"mamba*" and "*_moe" raise NotImplementedError: they belong to later
+slices.
 """
 from __future__ import annotations
 
@@ -359,6 +360,56 @@ def decode_step(params: Params, cfg: ModelConfig, batch, caches: Caches, *,
                     enc_len, impl=impl)
             x = _ffn(p, cfg, x)
     return _unembed(params, cfg, x), caches
+
+
+def prefill_chunkable(cfg: ModelConfig) -> bool:
+    """Whether `prefill_chunk` supports this config: rotary attention-only
+    patterns (mamba carries state between chunks; xattn and sinusoidal
+    positions take the single-shot path). The engine's chunking switch."""
+    return cfg.use_rope and all(
+        not k.startswith("mamba") and k != "xattn"
+        for k in cfg.layer_pattern)
+
+
+def speculative_supported(cfg: ModelConfig) -> bool:
+    """Whether the engine may decode speculatively: every layer's decode
+    state is a ring KV cache whose `step` rolls back after a rejected
+    draft (mamba's recurrent state and xattn's encoder memory have no such
+    rollback), and positions are rotary, so a (B, T) verify step is
+    position-exact. The engine's `speculative=` gate."""
+    return prefill_chunkable(cfg)
+
+
+@torch.no_grad()
+def prefill_chunk(params: Params, cfg: ModelConfig, batch, caches: Caches,
+                  pos0: int, lengths, *, impl: Optional[str] = None,
+                  lookahead: int = 0) -> torch.Tensor:
+    """One lockstep chunk of a batched chunked prefill: tokens [pos0,
+    pos0+T) of every row through the stack against the ring caches, which
+    take the chunk's K/V IN PLACE. Equal to single-shot `prefill` on the
+    band, with per-layer scores of O(T * (cap + T)). lengths: (B,) real
+    prompt lengths. Returns the hidden states (B, T, Dm): unembedding is
+    the caller's, which gathers the one last-real-token row per sequence
+    first. Runs without autograd."""
+    if not prefill_chunkable(cfg):
+        raise ValueError(f"{cfg.name}: prefill chunks need rotary "
+                         f"attention-only layers, not {cfg.layer_pattern}")
+    _check_supported(cfg)
+    x = embed_tokens(params, cfg, batch)
+    t = x.shape[1]
+    # every layer shares the chunk's positions: one set of rope tables
+    pos = pos0 + torch.arange(t, device=x.device)
+    rope = L.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
+    for blk, blk_cache in zip(params["blocks"], caches):
+        for i, kind in enumerate(cfg.layer_pattern):
+            p = blk[f"l{i}"]
+            h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+            y, _ = L.attention_prefill_chunk(
+                p["mixer"], attn_cfg(cfg, kind, index=i), h,
+                blk_cache[f"l{i}"], pos0, lengths, impl=impl,
+                lookahead=lookahead, rope=rope)
+            x = _ffn(p, cfg, x + y)
+    return x
 
 
 @torch.no_grad()

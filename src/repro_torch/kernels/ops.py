@@ -22,6 +22,11 @@ Global tokens (Longformer) are composed here as in the JAX package: the
 band+global-column pass covers every non-global row; a second dense pass
 over the first g rows replaces their output. Gradients flow through both
 passes.
+
+`prefill_chunk_attention` is a prefill chunk's attention against the ring
+cache: on the card the banded forward with offsets over the ring tail
+gathered into token order, and a second launch over the pinned globals,
+merged by their LSEs; its plain version is the JAX package's expression.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 
 from repro_torch.core import patterns
 from repro_torch.core.types import AttentionSpec
+from repro_torch.kernels import dots
 from repro_torch.kernels import ref as ref_impl
 from repro_torch.kernels import swat_attention as fwd_mod
 from repro_torch.kernels import swat_backward as bwd_mod
@@ -44,8 +50,12 @@ IMPLS = ("kernel", "banded", "ref")
 
 @functools.lru_cache(maxsize=512)
 def get_pattern(spec: AttentionSpec, seq_q: int, seq_kv: int,
-                block_q: int, block_kv: int) -> patterns.BlockPattern:
-    return patterns.build_block_pattern(spec, seq_q, seq_kv, block_q, block_kv)
+                block_q: int, block_kv: int,
+                q_shift: int = 0) -> patterns.BlockPattern:
+    """The block pattern, built once per (spec, shape, q_shift) on the host.
+    q_shift: q_offset - kv_offset of a call with offsets (a prefill chunk)."""
+    return patterns.build_block_pattern(spec, seq_q, seq_kv, block_q,
+                                        block_kv, q_shift=q_shift)
 
 
 def default_impl(t: torch.Tensor) -> str:
@@ -204,3 +214,131 @@ def decode_attention(q, k_cache, v_cache, cache_len, spec: AttentionSpec, *,
     k_cache.copy_(kn)
     v_cache.copy_(vn)
     return out, k_cache, v_cache
+
+
+def prefill_chunk_attention(q, k_new, v_new, k_cache, v_cache,
+                            spec: AttentionSpec, pos0: int, lengths, *,
+                            ring_cap: int, scale: Optional[float] = None,
+                            impl: Optional[str] = None) -> torch.Tensor:
+    """Attention of one prefill chunk: queries at tokens [pos0, pos0+T),
+    every row at the same positions, against the ring cache (the tokens
+    before pos0 that a band query can still see) plus the chunk itself.
+    q: (B, Hq, T, D); k_new, v_new: (B, Hkv, T, D), roped; caches
+    (B, Hkv, W, D) as they stand BEFORE the chunk's insert; lengths: (B,)
+    real tokens per row; ring_cap: the logical ring capacity. Causal specs
+    only; random blocks are not part of the function (the JAX package's
+    `attention_prefill_chunk` has none). Returns (B, Hq, T, D). Outputs at
+    positions >= a row's length are garbage the caller drops.
+
+    impl "kernel" (the default for CUDA tensors) runs `_chunk_route`, the
+    banded forward with offsets; "banded" and "ref" (the default for CPU
+    tensors) run `_chunk_plain`, the JAX function's expression."""
+    if not spec.causal:
+        raise ValueError("prefill chunks need a causal spec")
+    scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
+    if _resolve(impl, q) == "kernel":
+        return _chunk_route(q, k_new, v_new, k_cache, v_cache, spec,
+                            int(pos0), ring_cap, scale)
+    return _chunk_plain(q, k_new, v_new, k_cache, v_cache, spec, int(pos0),
+                        lengths, ring_cap, scale)
+
+
+def _chunk_plain(q, k_new, v_new, k_cache, v_cache, spec: AttentionSpec,
+                 pos0: int, lengths, cap: int, scale: float):
+    """One fp32 softmax over (T, cap+T) scores: the twin of the attention
+    in the JAX package's `layers.attention_prefill_chunk`. Every cache slot
+    gets the token it holds just before the chunk (pinned slot s holds
+    token s; ring slot r the newest token < pos0 congruent to r), so band,
+    global and per-row length masks are positional."""
+    b, hq, t, d = q.shape
+    hkv, cap_phys = k_cache.shape[1], k_cache.shape[2]
+    dev = q.device
+    g = spec.num_global if spec.is_sparse else 0
+    ring = cap - g
+    w = spec.window if spec.is_sparse else cap + t      # dense: no band
+    lens = lengths.to(device=dev, dtype=torch.long)
+    pos = pos0 + torch.arange(t, device=dev)
+    s_idx = torch.arange(cap_phys, device=dev)
+    r = s_idx - g
+    t_ring = (pos0 - 1) - torch.remainder((pos0 - 1 - g) - r, ring)
+    slot_pos = torch.where(s_idx < g, s_idx, t_ring)
+    occupied = torch.where(s_idx < g, pos0 > s_idx,
+                           (pos0 > g + r) & (t_ring >= g)) & (s_idx < cap)
+    live = occupied[None, :] & (slot_pos[None, :] < lens[:, None])  # (B,W)
+    allow_c = ((s_idx[None, :] < g)
+               | (slot_pos[None, :] >= pos[:, None] - w)
+               | (pos[:, None] < g))                             # (T, W)
+    mask_c = live[:, None, :] & allow_c[None]                    # (B, T, W)
+    mask_s = ((pos[None, :] <= pos[:, None])
+              & ((pos[None, :] >= pos[:, None] - w)
+                 | (pos[None, :] < g) | (pos[:, None] < g)))     # (T, T)
+    qg = (q.reshape(b, hkv, hq // hkv, t, d)
+          * torch.tensor(scale, dtype=q.dtype, device=dev))
+    s_c = dots.einsum_f32("bhgtd,bhcd->bhgtc", qg, k_cache)
+    s_s = dots.einsum_f32("bhgtd,bhkd->bhgtk", qg, k_new)
+    if spec.softcap:
+        s_c = spec.softcap * torch.tanh(s_c / spec.softcap)
+        s_s = spec.softcap * torch.tanh(s_s / spec.softcap)
+    mask = torch.cat([mask_c[:, None, None].expand(s_c.shape),
+                      mask_s[None, None, None].expand(s_s.shape)], dim=-1)
+    s_all = torch.where(mask, torch.cat([s_c, s_s], dim=-1), NEG_INF)
+    m = s_all.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s_all - m), 0.0)
+    den = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    v_all = torch.cat([v_cache, v_new.to(v_cache.dtype)], dim=2)
+    o = dots.einsum_f32("bhgtk,bhkd->bhgtd", (p / den).to(v_all.dtype),
+                        v_all)
+    return o.reshape(b, hq, t, d).to(q.dtype)
+
+
+def _chunk_route(q, k_new, v_new, k_cache, v_cache, spec: AttentionSpec,
+                 pos0: int, cap: int, scale: float):
+    """The chunk's attention through the banded forward (#2), in two passes
+    merged by their row LSEs.
+
+    pos0 is shared by every row, so every earlier token sits in the same
+    ring slot in every row. Pass A: the ring tail gathered into token order,
+    positions [lo, pos0) with lo = max(g, pos0 - ring) (empty, lo = pos0,
+    while pos0 < g), then the chunk; one launch with q_offset = pos0,
+    kv_offset = lo, seq_kv_bound = pos0 + T and the layer's spec. The ring
+    holds no position below g, and ring >= window + 1, so every band key of
+    a chunk query lies in [lo, q]. Pass B (sparse specs, pos0 > 0): the
+    min(pos0, g) pinned global rows, every key visible to every query (all
+    lie before pos0). Dense layers take pass A alone, with g = 0. Rows
+    shorter than pos0 + T attend slots they never wrote only from
+    positions past their length, outputs the caller drops.
+
+    On CPU tensors `swat_attention_fwd` runs `banded_plain` with the same
+    offsets, so the CPU tests hold this algorithm too."""
+    t = q.shape[2]
+    dev = q.device
+    g = spec.num_global if spec.is_sparse else 0
+    ring = cap - g
+    lo = max(g, pos0 - ring) if pos0 >= g else pos0
+    tail = torch.arange(lo, pos0, device=dev)
+    slots = g + torch.remainder(tail - g, ring)
+    # torch.cat allocates: contiguous and 16-byte aligned, as the
+    # tensor-core route's cp.async rows need
+    k_buf = torch.cat([k_cache.index_select(2, slots),
+                       k_new.to(k_cache.dtype)], dim=2)
+    v_buf = torch.cat([v_cache.index_select(2, slots),
+                       v_new.to(v_cache.dtype)], dim=2)
+    band = dataclasses.replace(spec, num_random=0)
+    lkv = k_buf.shape[2]
+    out, lse = fwd_mod.swat_attention_fwd(
+        q, k_buf, v_buf, band,
+        pattern=get_pattern(band, t, lkv, 128, 128, q_shift=pos0 - lo),
+        scale=scale, return_lse=True, q_offset=pos0, kv_offset=lo,
+        seq_kv_bound=pos0 + t)
+    ng = min(pos0, g)
+    if not ng:
+        return out
+    pinned = AttentionSpec(kind="dense", causal=False, softcap=spec.softcap)
+    out_g, lse_g = fwd_mod.swat_attention_fwd(
+        q, k_cache[:, :, :ng].contiguous(), v_cache[:, :, :ng].contiguous(),
+        pinned, pattern=get_pattern(pinned, t, ng, 128, 128), scale=scale,
+        return_lse=True)
+    # softmax over both key sets: pass A's share is exp(lse) / (exp(lse) +
+    # exp(lse_g)) = sigmoid(lse - lse_g)
+    share = torch.sigmoid(lse - lse_g)[..., None]
+    return torch.lerp(out_g.float(), out.float(), share).to(q.dtype)

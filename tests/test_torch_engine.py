@@ -105,9 +105,8 @@ def test_non_finite_rows_are_quarantined(setup):
     assert eng.stats["quarantined"] == 1
 
 
-@pytest.mark.parametrize("option", [dict(speculative=2),
-                                    dict(kv_layout="paged"),
-                                    dict(prefill_chunk=32), dict(mesh="4x1"),
+@pytest.mark.parametrize("option", [dict(kv_layout="paged"),
+                                    dict(mesh="4x1"),
                                     dict(faults=object()),
                                     dict(metrics=True)],
                          ids=lambda o: next(iter(o)))
