@@ -63,7 +63,27 @@ each of which raises on failure:
                and a traced verify block split by kernel category.
  19. serve slice fp32 - the same 8 requests at fp32 through the default,
                chunked and speculative engines (SIMT forward): greedy
-               tokens equal on every request.
+               tokens equal on every request; then phase 20's fp32 gate.
+ 20. paged   - (run after phase 18) kernel #1 on a paged cache's gathered
+               view (rings stored as shuffled 16-row blocks of a pool, read
+               through a table) against its plain version, the write-back
+               round trip bitwise, and its time beside the whole paged
+               route's (gather, kernel, scatter). Then full-width
+               llama3.2-1b + SWAT, bf16, through ServingEngine(kv_layout=
+               "paged"): the 8 requests of phase 3 sequentially and with
+               speculative=4, greedy tokens bitwise equal to the contiguous
+               engines' (phases 3 and 18); the launcher's shared-prefix demo
+               workload (496 shared + 16 tokens) with prefill_chunk=64,
+               unshared and with share_prefix: launch counts as in phase
+               18, the shared first-token logits within LOGIT_BOUND of the
+               unshared ones, the shared tokens teacher-forced within
+               AGREE_BOUND, prefill tokens computed, blocks in use after
+               the first admission and copy-on-write moves printed; the
+               decode step of the contiguous and paged engines timed in
+               turns; traced paged decode block and shared / unshared
+               prefill batches. In
+               phase 19 (fp32) the shared tokens equal the unshared ones
+               on every request.
   7. backward - the dQ and dK/dV kernels against their plain version at the
                training shapes (B=4, Hq=32, Hkv=8, L=2048, D=64, window
                256, 4 globals, causal; plus group 1 and 8, softcap 30 and
@@ -202,6 +222,10 @@ GEMMA = dict(b=1, hq=8, hkv=4, d=256, seq=8192, window=4096, softcap=50.0)
 CHUNK = 64
 SPEC_K = 4
 DRAFT = dict(max_ngram=3, history=64)
+# the paged shared-prefix cell (phase 20): the serve launcher's demo
+# workload at the serve cell's 512-token prompts, a system prompt of
+# max(prompt - 16, 16) tokens and a 16-token suffix a request
+SHARED_PREFIX = MAIN["prompt"] - 16
 
 
 # kernels whose design keeps every register row in registers: a spill in
@@ -579,15 +603,23 @@ def time_ms(torch, fn, iters=30):
 def time_decode(torch, spec, t=1):
     """The fused decode at T rows a slot (T=1: a decode step; T=5: a
     speculative verify step at k=4) on a ring with T-1 lookahead rows."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import swat_decode as SD
     gen = torch.Generator(device="cuda").manual_seed(3)
     b, hq, hkv, d = MAIN["b"], MAIN["hq"], MAIN["hkv"], MAIN["d"]
     lens = [600, 575, 530, 700]             # mid-serve ring depths
     q, kc, vc, nk, nv, pos, nn, cap = _ring_inputs(
         torch, gen, torch.bfloat16, b, hq // hkv, hkv, t, d, lens)
     nn.fill_(t)
+    return _time_fused(torch, spec, q, kc, vc, nk, nv, pos, nn, cap)
+
+
+def _time_fused(torch, spec, q, kc, vc, nk, nv, pos, nn, cap):
+    """(kernel ms, plain ms, SDPA ms, bytes, operations) of the fused
+    decode on the given rings."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swat_decode as SD
+    b, hq, t, d = q.shape
+    hkv = kc.shape[1]
     k_ms = time_ms(torch, lambda: SD.swat_decode_fused(
         q, kc, vc, nk, nv, pos, nn, spec, ring_cap=cap))
     p_ms = time_ms(torch, lambda: SD.swat_decode_fused_plain(
@@ -670,20 +702,23 @@ def _union_ms(ranges):
 
 
 def trace_decode(torch, cfg, params, span="engine.decode_block",
-                 n_new=17, **engine_kw):
-    """torch.profiler over one admitted batch of 4 requests served by a
-    ServingEngine(**engine_kw): the device's busy share of the wall time
-    and of the host time of the `span` ranges ("engine.decode_block": the
-    decode or verify blocks; "engine.prefill": the admission), and device
-    time by kernel category inside them. Decode blocks must hold one
-    fused decode kernel per layer and step and no other decode kernel."""
+                 n_new=17, prompts=None, **engine_kw):
+    """torch.profiler over one admitted batch of 4 requests (random
+    prompts, or `prompts`) served by a ServingEngine(**engine_kw): the
+    device's busy share of the wall time and of the host time of the
+    `span` ranges ("engine.decode_block": the decode or verify blocks;
+    "engine.prefill": the admission), and device time by kernel category
+    inside them. Decode blocks must hold one fused decode kernel per layer
+    and step and no other decode kernel."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import Request, ServingEngine
-    rng = np.random.RandomState(1)
-    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size,
-                                              (MAIN["prompt"],)),
-                    max_new_tokens=n_new) for i in range(4)]
+    if prompts is None:
+        rng = np.random.RandomState(1)
+        prompts = [rng.randint(0, cfg.vocab_size, (MAIN["prompt"],))
+                   for _ in range(4)]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=n_new)
+            for i, p in enumerate(prompts)]
     eng = ServingEngine(cfg, params, batch_slots=4, max_len=MAIN["max_len"],
                         scan_steps=8, **engine_kw)
     torch.cuda.synchronize()
@@ -2024,38 +2059,81 @@ def time_chunk(torch, spec, dtype_name="bfloat16"):
 # ------------------------------------------------------------ phase 18 ---
 
 def _serve_run(torch, cfg, params, prompts, n_new, **kw):
+    """Serve `prompts` to completion: (engine, results in rid order, wall
+    seconds, the paged pool's blocks in use right after the first
+    admission, or None for the contiguous layout)."""
+    import collections
     from repro_torch.serving.engine import Request, ServingEngine
     eng = ServingEngine(cfg, params, batch_slots=4, max_len=MAIN["max_len"],
                         scan_steps=8, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = eng.run([Request(rid=i, prompt=p, max_new_tokens=n_new)
-                   for i, p in enumerate(prompts)])
+    pending = collections.deque(Request(rid=i, prompt=p, max_new_tokens=n_new)
+                                for i, p in enumerate(prompts))
+    eng._admit(pending)
+    blocks = eng.paged_stats().get("blocks_in_use")
+    res = eng.run(list(pending))
     torch.cuda.synchronize()
-    return eng, res, time.perf_counter() - t0
+    return eng, sorted(res, key=lambda r: r.rid), time.perf_counter() - t0, \
+        blocks
 
 
 def _cell_kw(cell):
+    """Engine arguments of each serve cell. The paged cells (phase 20) add
+    `kv_layout="paged"` to the default, speculative and chunked cells;
+    "paged_shared" also shares each admission batch's common prefix."""
     from repro_torch.serving.drafter import NGramDrafter
-    return {"default": {}, "chunked": {"prefill_chunk": CHUNK},
-            "speculative": {"speculative": SPEC_K,
-                            "draft": NGramDrafter(**DRAFT)}}[cell]
+    kw = {"default": {}, "chunked": {"prefill_chunk": CHUNK},
+          "speculative": {"speculative": SPEC_K,
+                          "draft": NGramDrafter(**DRAFT)}}
+    kw.update({f"paged_{c}": {**v, "kv_layout": "paged"}
+               for c, v in list(kw.items())})
+    kw["paged_shared"] = {**kw["paged_chunked"], "share_prefix": True}
+    return kw[cell]
 
 
-def serve_cells(torch, cfg, params, cells, route):
-    """Each cell's engine serves the 8 requests of phase 3 after a short
-    warm-up. The launch counters are zeroed just before each run and read
-    just after: the banded forward launches once per layer for each chunk's
-    pass A and once more for each chunk with pinned globals before it (a
-    single-shot batch: the band pass and the global-row pass), the fused
-    decode once per layer and decode or verify step, every forward launch
-    on `route`. Returns {cell: (summary, tokens, engine)}."""
+def _shared_prompts(cfg):
+    """The serve launcher's shared-prefix demo workload at the serve cell's
+    prompt length: one system prompt of SHARED_PREFIX tokens, then a
+    16-token suffix a request, from seed 0."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    sys_prompt = rng.randint(0, cfg.vocab_size, (SHARED_PREFIX,))
+    return [np.concatenate([sys_prompt, rng.randint(0, cfg.vocab_size,
+                                                    (16,))]).astype(np.int32)
+            for _ in range(8)]
+
+
+def _fwd_launches_per_batch(eng, l_pad, g):
+    """Banded-forward launches of one prefill batch of l_pad tokens: a
+    single-shot prefill runs the band pass and (with globals) the
+    global-row pass a layer; a chunk runs pass A, and pass B when pinned
+    globals precede it. A shared-prefix batch runs the prefix single-shot
+    on one row, then its suffix chunks from the prefix on."""
+    single = 2 if g else 1
+    c = eng.prefill_chunk
+    if eng.stats["prefill_prefix_shared"]:
+        return single + -(-(l_pad - SHARED_PREFIX) // c) * single
+    if not c or l_pad <= c:
+        return single
+    chunks = -(-l_pad // c)
+    return chunks + (chunks - 1 if g else 0)
+
+
+def serve_cells(torch, cfg, params, cells, route, prompts=None):
+    """Each cell's engine serves the 8 requests of phase 3 (or `prompts`)
+    after a short warm-up. The launch counters are zeroed just before each
+    run and read just after: the banded forward launches as
+    `_fwd_launches_per_batch` counts, the fused decode once per layer and
+    decode or verify step, every forward launch on `route`. Returns
+    ({cell: (summary, tokens, engine)}, prompts)."""
     import numpy as np
     from repro_torch.kernels import swat_attention as SA
     from repro_torch.kernels import swat_decode as SD
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab_size, (MAIN["prompt"],))
-               .astype(np.int32) for _ in range(8)]
+    if prompts is None:
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(0, cfg.vocab_size, (MAIN["prompt"],))
+                   .astype(np.int32) for _ in range(8)]
     layers = cfg.num_layers
     g = cfg.attention.num_global
     out = {}
@@ -2065,8 +2143,8 @@ def serve_cells(torch, cfg, params, cells, route):
         SD.LAUNCHES.reset()
         SA.LAUNCHES.reset()
         before = route_counts()
-        eng, res, wall = _serve_run(torch, cfg, params, prompts,
-                                    MAIN["new_tokens"], **kw)
+        eng, res, wall, blocks = _serve_run(torch, cfg, params, prompts,
+                                            MAIN["new_tokens"], **kw)
         launches = {"swat_decode": SD.LAUNCHES.n,
                     "swat_attention_fwd": SA.LAUNCHES.n}
         check_route(f"serve {cell}", before, "fwd", route,
@@ -2076,10 +2154,13 @@ def serve_cells(torch, cfg, params, cells, route):
             if r.status != "ok" or len(r.tokens) != MAIN["new_tokens"]:
                 raise AssertionError(f"{cell} request {r.rid}: {r.status}, "
                                      f"{len(r.tokens)} tokens")
-        chunks = -(-MAIN["prompt"] // eng.prefill_chunk) \
-            if eng.prefill_chunk else 1
-        per_batch = (chunks + (chunks - 1 if g else 0) if chunks > 1
-                     else (2 if g else 1))
+        l_pad = max(len(p) for p in prompts)
+        per_batch = _fwd_launches_per_batch(eng, l_pad, g)
+        if eng.share_prefix and \
+                st["prefill_prefix_shared"] != st["prefill_batches"]:
+            raise AssertionError(f"serve {cell}: {st['prefill_prefix_shared']}"
+                                 f" of {st['prefill_batches']} prefill "
+                                 "batches shared their prefix")
         expected = {"swat_decode": layers * st["decode_steps"],
                     "swat_attention_fwd": layers * per_batch
                     * st["prefill_batches"]}
@@ -2100,11 +2181,32 @@ def serve_cells(torch, cfg, params, cells, route):
             "acceptance_rate": eng.acceptance_rate,
             "launches": launches,
             "fwd_launches_per_batch": launches["swat_attention_fwd"]
-            / st["prefill_batches"]}
+            / st["prefill_batches"],
+            "prefill_tokens_computed": st["prefill_tokens_computed"]}
+        if blocks is not None:
+            summary.update(blocks_in_use_after_first_admission=blocks,
+                           prefill_prefix_shared=st["prefill_prefix_shared"],
+                           cow_moves=st["cow_moves"], **eng.paged_stats())
         log(f"serve {cell} ({str(params['embed'].dtype)}): "
             + json.dumps(summary))
         out[cell] = (summary, [r.tokens for r in res], eng)
     return out, prompts
+
+
+def _teacher_forced_agreement(torch, cfg, params, tok, tokens):
+    """Mean greedy agreement of served `tokens` (rows of the prompts
+    `tok`) with single-shot prefill and sequential contiguous decode
+    teacher-forced along them."""
+    from repro_torch.core import model as Mod
+    want = torch.as_tensor(tokens, device="cuda")
+    logits, caches = Mod.prefill(params, cfg, {"tokens": tok},
+                                 MAIN["max_len"])
+    agree = [(logits[:, 0].argmax(-1) == want[:, 0]).float().mean()]
+    for j in range(1, want.shape[1]):
+        logits, _ = Mod.decode_step(params, cfg,
+                                    {"tokens": want[:, j - 1:j]}, caches)
+        agree.append((logits[:, 0].argmax(-1) == want[:, j]).float().mean())
+    return float(torch.stack(agree).mean())
 
 
 def serve_slice(torch, cfg, params):
@@ -2113,8 +2215,8 @@ def serve_slice(torch, cfg, params):
     engine: chunked against single-shot first-token logits (max |dlogit|
     <= LOGIT_BOUND) on the first four prompts, and the speculative run's
     tokens against sequential decode teacher-forced along them (greedy
-    agreement >= AGREE_BOUND)."""
-    from repro_torch.core import model as Mod
+    agreement >= AGREE_BOUND). Returns (summaries, gates, tokens), each by
+    cell."""
     import numpy as np
     from repro_torch.serving.engine import ServingEngine
     cells, prompts = serve_cells(torch, cfg, params,
@@ -2126,16 +2228,8 @@ def serve_slice(torch, cfg, params):
     lc, _ = chunk_eng.prefill_logits(tok, lens)
     ls, _ = base.prefill_logits(tok, lens)
     dlogit = max_err(lc, ls)
-    spec_toks = torch.as_tensor(cells["speculative"][1][:4], device="cuda")
-    logits, caches = Mod.prefill(params, cfg, {"tokens": tok},
-                                 MAIN["max_len"])
-    agree = [(logits[:, 0].argmax(-1) == spec_toks[:, 0]).float().mean()]
-    for j in range(1, spec_toks.shape[1]):
-        logits, _ = Mod.decode_step(params, cfg,
-                                    {"tokens": spec_toks[:, j - 1:j]}, caches)
-        agree.append((logits[:, 0].argmax(-1) == spec_toks[:, j])
-                     .float().mean())
-    agreement = float(torch.stack(agree).mean())
+    agreement = _teacher_forced_agreement(torch, cfg, params, tok,
+                                          cells["speculative"][1][:4])
     gates = {"chunked_first_token_max_abs_logit_diff": dlogit,
              "logit_bound": LOGIT_BOUND,
              "speculative_teacher_forced_agreement": agreement,
@@ -2143,7 +2237,8 @@ def serve_slice(torch, cfg, params):
     log("serve slice gates (bf16): " + json.dumps(gates))
     if not (dlogit <= LOGIT_BOUND and agreement >= AGREE_BOUND):
         raise AssertionError(f"serve slice gates: {gates}")
-    return {c: v[0] for c, v in cells.items()}, gates
+    return ({c: v[0] for c, v in cells.items()}, gates,
+            {c: v[1] for c, v in cells.items()})
 
 
 def serve_slice_fp32(torch, cfg):
@@ -2165,9 +2260,133 @@ def serve_slice_fp32(torch, cfg):
                                  f"the default engine's on requests {bad}")
     log("serve slice fp32: chunked and speculative greedy tokens equal the "
         "default engine's on all 8 requests")
-    out = {c: v[0] for c, v in cells.items()}
+    # phase 20's fp32 gate: shared-prefix tokens equal the unshared ones
+    paged, _ = serve_cells(torch, cfg32, params,
+                           ("paged_chunked", "paged_shared"), "simt",
+                           prompts=_shared_prompts(cfg))
+    bad = [i for i, (a, b) in enumerate(zip(paged["paged_shared"][1],
+                                            paged["paged_chunked"][1]))
+           if a != b]
+    if bad:
+        raise AssertionError("fp32 paged_shared: greedy tokens differ from "
+                             f"the unshared paged engine's on requests {bad}")
+    log("serve paged fp32: shared-prefix greedy tokens equal the unshared "
+        "paged engine's on all 8 requests")
+    out = {c: v[0] for c, v in {**cells, **paged}.items()}
     del params
     return out
+
+
+# ------------------------------------------------------------ phase 20 ---
+
+def time_decode_paged(torch, spec):
+    """Kernel #1 on a paged cache's gathered view: the serve shape's T=1
+    rings stored as 16-row blocks of a pool, in shuffled block order, read
+    through a table into the view `layers.paged_gather` builds. The kernel
+    against its plain version on the view (caches bitwise, outputs within
+    TOL); the updated view scattered back and gathered again, bitwise.
+    Returns (max abs err, the kernel's (ms, plain ms, SDPA ms, bytes,
+    operations) on the view, the whole paged route's ms: gather K and V,
+    the kernel, scatter both back)."""
+    from repro_torch.core import layers as L
+    from repro_torch.kernels import swat_decode as SD
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, hq, hkv, d = MAIN["b"], MAIN["hq"], MAIN["hkv"], MAIN["d"]
+    q, kc, vc, nk, nv, pos, nn, cap = _ring_inputs(
+        torch, gen, torch.bfloat16, b, hq // hkv, hkv, 1, d,
+        [600, 575, 530, 700])
+    page = L.PAGE_SIZE
+    nb = kc.shape[2] // page
+    table = torch.randperm(b * (nb + 1), generator=gen, device="cuda")[
+        :b * nb].view(b, nb).int()
+    pools = []
+    for ring in (kc, vc):
+        pool = torch.zeros((b * (nb + 1), hkv, page, d), dtype=ring.dtype,
+                           device="cuda")
+        pools.append(L.paged_scatter(pool, table, ring))
+    kv, vv = (L.paged_gather(pool, table) for pool in pools)
+    if not (torch.equal(kv, kc) and torch.equal(vv, vc)):
+        raise AssertionError("paged view: gather of the scattered rings "
+                             "differs from the rings")
+    want, kw, vw = SD.swat_decode_fused_plain(q, kv, vv, nk, nv, pos, nn,
+                                              spec, ring_cap=cap)
+    got = SD.swat_decode_fused(q, kv, vv, nk, nv, pos, nn, spec,
+                               ring_cap=cap)
+    if not (torch.equal(kv, kw) and torch.equal(vv, vw)):
+        raise AssertionError("paged view: kernel caches not bitwise equal "
+                             "to the plain version")
+    err = check_close("swat_decode paged view", got, want, "bfloat16")
+    for pool, view in zip(pools, (kv, vv)):
+        L.paged_scatter(pool, table, view)
+        if not torch.equal(L.paged_gather(pool, table), view):
+            raise AssertionError("paged view: write-back round trip differs")
+    times = _time_fused(torch, spec, q, kv, vv, nk, nv, pos, nn, cap)
+
+    def route():
+        views = [L.paged_gather(pool, table) for pool in pools]
+        SD.swat_decode_fused(q, *views, nk, nv, pos, nn, spec, ring_cap=cap)
+        for pool, view in zip(pools, views):
+            L.paged_scatter(pool, table, view)
+    return err, times, time_ms(torch, route)
+
+
+def serve_paged(torch, cfg, params, base_tokens, spec_tokens):
+    """Phase 20, bf16 at full width and depth: the paged cell serves the 8
+    requests of phase 3 and the paged speculative cell (k=4) those of phase
+    18; their greedy tokens must equal the contiguous engines' bitwise
+    (`base_tokens`, `spec_tokens`). Then the shared-prefix demo workload
+    (SHARED_PREFIX + 16 tokens) through the paged engine with
+    prefill_chunk=CHUNK, unshared and shared: the shared batch's
+    first-token logits within LOGIT_BOUND of the unshared one's on the
+    first four prompts, and the shared run's tokens teacher-forced
+    against single-shot prefill and sequential decode (agreement >=
+    AGREE_BOUND). Returns (summaries by cell, gates)."""
+    import numpy as np
+    cells, base_prompts = serve_cells(torch, cfg, params,
+                                      ("paged_default", "paged_speculative"),
+                                      "tc")
+    for cell, want in (("paged_default", base_tokens),
+                       ("paged_speculative", spec_tokens)):
+        bad = [i for i, (a, b) in enumerate(zip(cells[cell][1], want))
+               if a != b]
+        if bad:
+            raise AssertionError(f"bf16 {cell}: greedy tokens differ from "
+                                 f"the contiguous engine's on requests {bad}")
+    prompts = _shared_prompts(cfg)
+    shared, _ = serve_cells(torch, cfg, params,
+                            ("paged_chunked", "paged_shared"), "tc",
+                            prompts=prompts)
+    tok = torch.as_tensor(np.stack(prompts[:4]), device="cuda")
+    lens = torch.full((4,), len(prompts[0]), dtype=torch.int32,
+                      device="cuda")
+    ls, _ = shared["paged_shared"][2].prefill_logits(tok, lens,
+                                                     SHARED_PREFIX)
+    lu, _ = shared["paged_chunked"][2].prefill_logits(tok, lens)
+    gates = {"paged_tokens_bitwise_equal_contiguous": True,
+             "paged_speculative_tokens_bitwise_equal_contiguous": True,
+             "shared_first_token_max_abs_logit_diff": max_err(ls, lu),
+             "logit_bound": LOGIT_BOUND,
+             "shared_teacher_forced_agreement": _teacher_forced_agreement(
+                 torch, cfg, params, tok, shared["paged_shared"][1][:4]),
+             "agreement_bound": AGREE_BOUND}
+    log("serve paged gates (bf16): " + json.dumps(gates))
+    if not (gates["shared_first_token_max_abs_logit_diff"] <= LOGIT_BOUND
+            and gates["shared_teacher_forced_agreement"] >= AGREE_BOUND):
+        raise AssertionError(f"serve paged gates: {gates}")
+    # host-clock step times spread +-40% between runs: time the two
+    # layouts in turns (contiguous, paged, paged, contiguous, twice)
+    ab = {"contiguous": [], "paged": []}
+    for layout in ("contiguous", "paged", "paged", "contiguous") * 2:
+        eng = _serve_run(torch, cfg, params, base_prompts,
+                         MAIN["new_tokens"], kv_layout=layout)[0]
+        ab[layout].append(eng.stats["decode_s"] * 1e3
+                          / eng.stats["decode_steps"])
+    ab["paged_over_contiguous"] = (sum(ab["paged"])
+                                   / sum(ab["contiguous"]))
+    log("decode ms a step, in turns (bf16): " + json.dumps(ab))
+    out = {c: v[0] for c, v in {**cells, **shared}.items()}
+    out["decode_ms_per_step_in_turns"] = ab
+    return out, gates
 
 
 def ptxas_report(out):
@@ -2268,12 +2487,24 @@ def main():
     ck = time_chunk(torch, spec)
     ck32 = time_chunk(torch, spec, "float32")
     vk = time_decode(torch, spec, t=SPEC_K + 1)
-    cells, cell_gates = serve_slice(torch, cfg, params)
+    cells, cell_gates, cell_tokens = serve_slice(torch, cfg, params)
     trace_chunked = trace_decode(torch, cfg, params, span="engine.prefill",
                                  n_new=2, **_cell_kw("chunked"))
     trace_single = trace_decode(torch, cfg, params, span="engine.prefill",
                                 n_new=2)
     trace_spec = trace_decode(torch, cfg, params, **_cell_kw("speculative"))
+
+    # this slice's path: the paged layout and prefix sharing
+    pg_err, pg_times, pg_route_ms = time_decode_paged(torch, spec)
+    pcells, pgates = serve_paged(torch, cfg, params, tokens,
+                                 cell_tokens["speculative"])
+    trace_paged = trace_decode(torch, cfg, params, **_cell_kw("paged_default"))
+    trace_shared = trace_decode(torch, cfg, params, span="engine.prefill",
+                                n_new=2, prompts=_shared_prompts(cfg)[:4],
+                                **_cell_kw("paged_shared"))
+    trace_unshared = trace_decode(torch, cfg, params, span="engine.prefill",
+                                  n_new=2, prompts=_shared_prompts(cfg)[:4],
+                                  **_cell_kw("paged_chunked"))
     del params
     cells32 = serve_slice_fp32(torch, cfg)
 
@@ -2355,6 +2586,14 @@ def main():
              "launches": tr_launches[counted], "max_abs_err": err, "ms": ms,
              "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": l_ms})
+    pb_ms_, pb_by_ = bound(pg_times[3], pg_times[4])
+    kernels.append(
+        {"name": "swat_decode_fused (paged view)", "route": "cuda",
+         "source": "src/repro_torch/csrc/swat_decode.cu",
+         "replaces": "src/repro/kernels/swat_decode.py:116",
+         "launches": pcells["paged_default"]["launches"]["swat_decode"],
+         "max_abs_err": pg_err, "ms": pg_times[0], "plain_ms": pg_times[1],
+         "bound_ms": pb_ms_, "bound_by": pb_by_, "library_ms": pg_times[2]})
     log(f"serve summary: {json.dumps(summary)}")
     log(f"serve cells (bf16): {json.dumps(cells)}")
     log(f"serve cell gates (bf16): {json.dumps(cell_gates)}")
@@ -2373,6 +2612,19 @@ def main():
     log(f"fused decode at T={SPEC_K + 1}: kernel {vk[0]:.5f} ms, plain "
         f"{vk[1]:.4f}, SDPA {vk[2]:.4f}, bound {vb_ms:.6f} ({vb_by}); "
         f"T=1 {dk:.5f} ms")
+    log(f"serve paged cells (bf16): {json.dumps(pcells)}")
+    log(f"serve paged gates (bf16): {json.dumps(pgates)}")
+    log(f"trace paged decode: {json.dumps(trace_paged)}")
+    log(f"trace shared-prefix prefill: {json.dumps(trace_shared)}")
+    log(f"trace unshared paged chunked prefill: {json.dumps(trace_unshared)}")
+    log(f"fused decode on the paged view: kernel {pg_times[0]:.5f} ms, "
+        f"plain {pg_times[1]:.4f}, SDPA {pg_times[2]:.4f}, bound "
+        f"{pb_ms_:.6f} ({pb_by_}); whole paged route (gather, kernel, "
+        f"scatter) {pg_route_ms:.5f} ms")
+    log("paged / contiguous decode ms a step (bf16, in turns): "
+        f"{pcells['decode_ms_per_step_in_turns']['paged_over_contiguous']:.3f}; "
+        "shared / unshared prefill ms a batch: "
+        f"{pcells['paged_shared']['prefill_ms_per_batch'] / pcells['paged_chunked']['prefill_ms_per_batch']:.3f}")
     log(f"e2e: {json.dumps(e2e)}")
     log(f"trace: {json.dumps(trace)}")
     log(f"unembed: {json.dumps(unembed)}")

@@ -4,9 +4,10 @@ the ring KV cache (the port of the JAX package's `core/layers.py`).
 Parameters are plain dicts of tensors with the JAX package's layouts
 (`x @ W` weights of shape (d_in, d_out)); attention tensors are
 (B, H, L, D); ring caches are (B, Hkv, W, D) with a per-slot (B,) int32
-`step`. Decode updates a cache IN PLACE (the tensors of the dict it is
-given, and its `step`), where the JAX engine donated the cache buffers; a
-prefill chunk replaces the dict's k/v entries and step.
+`step`. Paged caches hold block pools and a block table instead of the
+rings (`init_paged_kv_cache`). Decode updates a cache IN PLACE (the tensors
+of the dict it is given, and its `step`), where the JAX engine donated the
+cache buffers; a prefill chunk replaces the dict's k/v entries and step.
 """
 from __future__ import annotations
 
@@ -218,6 +219,77 @@ def init_kv_cache(cfg: AttentionLayerCfg, batch: int, max_len: int,
             "step": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
+# Paged KV ---------------------------------------------------------------
+# A paged layer cache holds one block pool per K and V, (slots*(nb+1), Hkv,
+# page, D) with global block ids (slot s's scratch block is s*(nb+1)+nb),
+# and a (slots, nb) int32 block `table`. Decode gathers each slot's blocks
+# into the contiguous (B, Hkv, nb*page, D) view, runs the ring decode on it
+# exactly as on a contiguous cache (the view's width equals the contiguous
+# allocation, which is why PAGE_SIZE must divide every
+# `cache_allocation`), and scatters the whole view back. Bitwise identity
+# with the contiguous engine follows by construction; the cost is a
+# pool-sized copy each way per layer and step.
+
+PAGE_SIZE = 16   # rows per block == the tile quantum `_round_capacity`
+                 # rounds to, so every ring allocation is block-divisible
+
+
+def paged_num_blocks(cfg: AttentionLayerCfg, max_len: int,
+                     lookahead: int = 0) -> int:
+    """Blocks per slot for one layer's ring. The allocation must tile
+    exactly: true for every sparse ring (`_round_capacity` quantum 16/64)
+    and for dense caches whenever max_len is a multiple of 16."""
+    alloc = cache_allocation(cfg, max_len, lookahead)
+    if alloc % PAGE_SIZE:
+        raise ValueError(
+            f"paged KV needs page-divisible allocations: {alloc} rows "
+            f"% {PAGE_SIZE} != 0 (pick max_len a multiple of {PAGE_SIZE})")
+    return alloc // PAGE_SIZE
+
+
+def init_paged_kv_cache(cfg: AttentionLayerCfg, batch: int, max_len: int,
+                        dtype=torch.bfloat16, lookahead: int = 0,
+                        device=None):
+    """Paged twin of `init_kv_cache`, in the shared global-id pool layout
+    (the JAX package's shared_pool=True). Tables start at the identity
+    mapping (slot s owns its home blocks), so a fresh paged cache gathers
+    to exactly `init_kv_cache`'s zeros."""
+    nb = paged_num_blocks(cfg, max_len, lookahead)
+    nbp = nb + 1                                   # + per-slot scratch block
+    shape = (batch * nbp, cfg.num_kv_heads, PAGE_SIZE, cfg.head_dim)
+    table = (torch.arange(batch, dtype=torch.int32, device=device)[:, None]
+             * nbp + torch.arange(nb, dtype=torch.int32, device=device))
+    return {"pk": torch.zeros(shape, dtype=dtype, device=device),
+            "pv": torch.zeros(shape, dtype=dtype, device=device),
+            "table": table,
+            "step": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Contiguous (B, H, nb*page, D) view of each slot's blocks: a new
+    tensor (one row gather of whole blocks, then the head-major copy),
+    contiguous as the decode kernel requires."""
+    b, nb = table.shape
+    p, h, page, d = pool.shape
+    blocks = pool.view(p, -1).index_select(0, table.reshape(-1))
+    return (blocks.view(b, nb, h, page, d).transpose(1, 2)
+            .reshape(b, h, nb * page, d))
+
+
+def paged_scatter(pool: torch.Tensor, table: torch.Tensor,
+                  view: torch.Tensor) -> torch.Tensor:
+    """Write a (B, H, nb*page, D) contiguous view back through the table,
+    IN PLACE. Duplicate table entries (shared prefix blocks, parked slots'
+    scratch rows) receive value-identical or never-read writes, so the
+    order the duplicates land in is immaterial. Returns `pool`."""
+    b, nb = table.shape
+    p, h, page, d = pool.shape
+    blocks = view.reshape(b, h, nb, page, d).transpose(1, 2)
+    pool.view(p, -1).index_copy_(0, table.reshape(-1).long(),
+                                 blocks.reshape(b * nb, -1).to(pool.dtype))
+    return pool
+
+
 def ring_scatter(cache_kv, new, positions, write, g: int, ring: int):
     """Write `new` (B, H, T, D) rows into their ring slots of a cache
     (B, H, cap, D). positions: (T,) absolute token indices shared by every
@@ -278,8 +350,10 @@ def attention_decode(params: Params, cfg: AttentionLayerCfg, x, cache, *,
     `step`) and the window attention run in one `decode_attention` call —
     the fused CUDA kernel on the card. `rope` (tables of `rope_tables` at
     positions step + arange(T)) and `num_new` ((B,) int32) may be computed
-    once per step by the caller and shared by every layer. Updates `cache`
-    IN PLACE (its k/v tensors and step) and returns (out (B, T, Dm),
+    once per step by the caller and shared by every layer. A paged cache
+    (`init_paged_kv_cache`) decodes on its gathered view, which is then
+    scattered back through the table. Updates `cache` IN PLACE (its k/v
+    tensors, or pk/pv pools, and step) and returns (out (B, T, Dm),
     cache)."""
     b, t, _ = x.shape
     q, k_new, v_new = _project_qkv(params, cfg, x, x)
@@ -291,17 +365,28 @@ def attention_decode(params: Params, cfg: AttentionLayerCfg, x, cache, *,
             rope = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, tables=rope)
         k_new = apply_rope(k_new, tables=rope)
+    paged = "table" in cache
+    if paged:
+        # the contiguous view of the block table; its width is the
+        # contiguous allocation, so everything below is the ring path
+        k_arr = paged_gather(cache["pk"], cache["table"])
+        v_arr = paged_gather(cache["pv"], cache["table"])
+    else:
+        k_arr, v_arr = cache["k"], cache["v"]
     # rotate and mask at the LOGICAL capacity: the tile-rounding tail of the
     # allocation is never written or attended
-    cap = cache_capacity(cfg, cache["k"].shape[2], lookahead)
+    cap = cache_capacity(cfg, k_arr.shape[2], lookahead)
     g = cfg.spec.num_global if cfg.spec.is_sparse else 0
     if t > 1 and cfg.spec.is_sparse and cap - g < cfg.spec.window + t:
         raise ValueError(f"T={t} decode on a {cap - g}-row ring would evict "
                          "in-window tokens: allocate caches with "
                          "lookahead >= T-1")
     out, _, _ = kops.decode_attention(
-        q, cache["k"], cache["v"], None, cfg.spec, impl=impl,
+        q, k_arr, v_arr, None, cfg.spec, impl=impl,
         new_kv=(k_new, v_new), num_new=num_new, pos=step, ring_cap=cap)
+    if paged:
+        paged_scatter(cache["pk"], cache["table"], k_arr)
+        paged_scatter(cache["pv"], cache["table"], v_arr)
     cache["step"] = step + t
     out = out.transpose(1, 2).reshape(b, t, -1)
     return out @ params["wo"], cache

@@ -6,9 +6,10 @@ Params are a plain dict with the JAX package's leaf layouts, except that
 the stacked super-blocks (`blocks/l{i}/...` and `enc_blocks/l0/...`, each
 with a leading num_super_blocks axis) are Python lists of per-super-block
 dicts (`interop.params_from_jax` unstacks them). Caches follow the same
-rule: a list over super-blocks of {"l{i}": ring cache}; an "xattn" layer's
-cache also holds the encoder's cross K/V ("xk", "xv"). Decode updates
-caches IN PLACE.
+rule: a list over super-blocks of {"l{i}": ring cache} (or, for the paged
+layout, block pools and a table shared by every super-block); an "xattn"
+layer's cache also holds the encoder's cross K/V ("xk", "xv"). Decode
+updates caches IN PLACE.
 
 `impl` selects the attention implementation (see `kernels/ops.py`); the
 default is the CUDA kernels for CUDA tensors and the plain versions for CPU
@@ -297,26 +298,60 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, *,
 # --------------------------------------------------------------- serving ---
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                enc_len: int = 0, lookahead: int = 0,
+                enc_len: int = 0, lookahead: int = 0, paged: bool = False,
                 device="cuda") -> Caches:
     """Per-super-block decode caches (zeroed rings, step 0); "xattn" layers
-    also get zeroed cross K/V ("xk", "xv") of max(enc_len, 1) rows."""
+    also get zeroed cross K/V ("xk", "xv") of max(enc_len, 1) rows. With
+    `paged`, each attention layer holds block pools and a table
+    (`layers.init_paged_kv_cache`) instead of a ring; every layer
+    position's `table` is ONE tensor shared by reference by all
+    super-blocks (the JAX package broadcasts one table over the stacked
+    axis), so a host push updates it once. Identity tables make a fresh
+    paged cache gather-equal to a fresh contiguous one."""
     _check_supported(cfg)
     dt = _dtype(cfg)
+    init = L.init_paged_kv_cache if paged else L.init_kv_cache
+    tables: Dict[int, torch.Tensor] = {}
 
     def layer(i, kind):
-        cache = L.init_kv_cache(attn_cfg(cfg, kind, index=i), batch, max_len,
-                                dtype=dt, lookahead=lookahead, device=device)
+        cache = init(attn_cfg(cfg, kind, index=i), batch, max_len, dtype=dt,
+                     lookahead=lookahead, device=device)
+        if paged:
+            cache["table"] = tables.setdefault(i, cache["table"])
         if kind == "xattn":
-            shape = (batch, cfg.num_kv_heads, max(enc_len, 1),
-                     cfg.resolved_head_dim)
-            cache["xk"] = torch.zeros(shape, dtype=dt, device=device)
-            cache["xv"] = torch.zeros(shape, dtype=dt, device=device)
+            cache.update(_cross_cache(cfg, batch, enc_len, dt, device))
         return cache
 
     return [{f"l{i}": layer(i, kind)
              for i, kind in enumerate(cfg.layer_pattern)}
             for _ in range(cfg.num_super_blocks)]
+
+
+def _cross_cache(cfg: ModelConfig, batch: int, enc_len: int, dt, device):
+    """Zeroed cross K/V ("xk", "xv") of max(enc_len, 1) encoder rows."""
+    shape = (batch, cfg.num_kv_heads, max(enc_len, 1), cfg.resolved_head_dim)
+    return {"xk": torch.zeros(shape, dtype=dt, device=device),
+            "xv": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def paged_layout(cfg: ModelConfig, max_len: int,
+                 lookahead: int = 0) -> Dict[int, Dict[str, int]]:
+    """Block geometry per attention-bearing layer_pattern position: the
+    host-side contract between `init_caches(paged=True)` and the serving block
+    allocator (`serving/paged.py`). Keys are pattern indices; values carry
+    the page size, blocks per slot (nb), logical capacity, pinned-global
+    count g and ring modulus."""
+    out: Dict[int, Dict[str, int]] = {}
+    for i, kind in enumerate(cfg.layer_pattern):
+        if kind.startswith("mamba"):
+            continue
+        acfg = attn_cfg(cfg, kind, index=i)
+        cap = L.cache_capacity(acfg, max_len, lookahead)
+        g = acfg.spec.num_global if acfg.spec.is_sparse else 0
+        out[i] = {"page": L.PAGE_SIZE,
+                  "nb": L.paged_num_blocks(acfg, max_len, lookahead),
+                  "cap": cap, "g": g, "ring": cap - g}
+    return out
 
 
 @torch.no_grad()

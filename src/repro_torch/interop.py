@@ -53,8 +53,20 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
 
 def caches_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device="cuda") -> List[Dict[str, Any]]:
-    """JAX stacked decode caches (numpy leaves) -> port caches."""
-    return _unstack(tree, cfg.num_super_blocks, device)
+    """JAX stacked decode caches (numpy leaves) -> port caches. A paged
+    layer's `table` leaf carries the stacked axis with identical rows (the
+    JAX engine broadcasts one table over it); it becomes the one tensor
+    that every super-block of the port shares."""
+    caches = _unstack(tree, cfg.num_super_blocks, device)
+    for name, layer in tree.items():
+        if isinstance(layer, dict) and "table" in layer:
+            stacked = np.asarray(layer["table"])
+            if not (stacked == stacked[:1]).all():
+                raise ValueError(f"{name}: block tables differ across "
+                                 "super-blocks")
+            for c in caches:
+                c[name]["table"] = caches[0][name]["table"]
+    return caches
 
 
 def _np32(t: torch.Tensor) -> np.ndarray:
@@ -64,7 +76,9 @@ def _np32(t: torch.Tensor) -> np.ndarray:
 
 
 def caches_to_numpy(caches: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """Port caches -> the JAX stacked layout as numpy (for comparisons)."""
+    """Port caches -> the JAX stacked layout as numpy (for comparisons); a
+    shared paged `table` is stacked once per super-block, as JAX holds
+    it."""
     def stack(*leaves):
         return np.stack([_np32(t) for t in leaves])
     first = caches[0]

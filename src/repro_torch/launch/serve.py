@@ -5,14 +5,19 @@ attention serving with ring KV caches, on the card by default.
         --swat --window 256 --requests 8 --slots 4 --prompt-len 512 \
         --new-tokens 64 --max-len 1024 --scan-steps 8
 
-Chunked prefill (`--prefill-chunk`) and speculative decoding
+Chunked prefill (`--prefill-chunk`), speculative decoding
 (`--speculative`, with the n-gram drafter's `--draft-ngram` /
-`--draft-history`) take the JAX launcher's flags and defaults. Params are
-random, from the port's own `init_model` with seed 0. On a machine without
-a CUDA device the launcher exits non-zero; `--device cpu` runs the plain
-versions of the kernels instead (small configs: `--smoke`). The JAX
-launcher's flags of later slices are accepted and exit non-zero with the
-ROADMAP item that will port them.
+`--draft-history`), the paged KV layout (`--kv-layout paged`) and prefix
+sharing (`--share-prefix`, with `--prefill-chunk`; it serves the JAX
+launcher's shared-system-prompt demo workload) take the JAX launcher's
+flags and defaults. `--decode-impl pallas` runs the fused decode kernel
+(and exits non-zero without a card), `ref` its plain version; omitted, the
+device picks (the kernel on the card). Params are random, from the port's
+own `init_model` with seed 0. On a machine without a CUDA device the
+launcher exits non-zero; `--device cpu` runs the plain versions of the
+kernels instead (small configs: `--smoke`). Every JAX launcher flag is
+declared with the JAX launcher's default; a value that turns on a later
+slice's feature exits non-zero with the ROADMAP item that will port it.
 """
 import argparse
 import sys
@@ -20,12 +25,19 @@ import time
 
 import numpy as np
 
-# JAX launcher flags whose features later slices port: dest -> ROADMAP item
-_NOT_PORTED = {"kv_layout": 9, "share_prefix": 9, "mesh": 13, "profile": 13,
-               "max_pending": 10, "deadline": 10, "chaos_poison_slot": 10,
-               "chaos_poison_step": 10, "chaos_fail_pallas": 10,
-               "decode_impl": 10, "metrics": 11, "trace_out": 11,
-               "metrics_out": 11}
+# JAX launcher flags whose features later slices port: dest -> (ROADMAP
+# item, whether the given value turns the feature on). The JAX launcher's
+# default of each turns nothing on. `--profile` only shapes a `--mesh` and
+# `--chaos-poison-step` only times a `--chaos-poison-slot`, so both are
+# ignored alone, as the JAX launcher ignores them.
+_NOT_PORTED = {"mesh": (13, lambda v: v is not None),
+               "max_pending": (10, lambda v: v > 0),
+               "deadline": (10, lambda v: v > 0),
+               "chaos_poison_slot": (10, lambda v: v is not None),
+               "chaos_fail_pallas": (10, bool),
+               "metrics": (11, bool),
+               "trace_out": (11, lambda v: v is not None),
+               "metrics_out": (11, lambda v: v is not None)}
 
 
 def main(argv=None) -> int:
@@ -69,17 +81,42 @@ def main(argv=None) -> int:
                          "acceptance rate drops below this (0 = never)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    for flag in ("--kv-layout", "--mesh", "--profile", "--trace-out",
-                 "--metrics-out", "--decode-impl", "--max-pending",
-                 "--deadline", "--chaos-poison-slot", "--chaos-poison-step"):
-        ap.add_argument(flag, default=None, help="not ported")
-    for flag in ("--share-prefix", "--chaos-fail-pallas", "--metrics"):
-        ap.add_argument(flag, action="store_true", help="not ported")
+    ap.add_argument("--decode-impl", choices=("ref", "pallas"),
+                    default=None,
+                    help="decode attention: pallas = the fused CUDA kernel "
+                         "(needs the card), ref = its plain version "
+                         "(default: the kernel on the card, the plain "
+                         "version on the CPU)")
+    ap.add_argument("--kv-layout", choices=("contiguous", "paged"),
+                    default="contiguous",
+                    help="cache residency: per-slot rings or the paged "
+                         "block pool + tables")
+    ap.add_argument("--share-prefix", action="store_true",
+                    help="prefill each admission batch's common prompt "
+                         "prefix once and block-share it (paged, with "
+                         "--prefill-chunk); demoed with a shared system "
+                         "prompt across all requests")
+    # the JAX launcher's flags of later slices, with its defaults
+    ap.add_argument("--mesh", default=None, help="not ported")
+    ap.add_argument("--profile", choices=("tp", "cp", "fsdp"), default="tp",
+                    help="not ported (ignored without --mesh)")
+    ap.add_argument("--max-pending", type=int, default=0, help="not ported")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="not ported")
+    ap.add_argument("--chaos-poison-slot", type=int, default=None,
+                    help="not ported")
+    ap.add_argument("--chaos-poison-step", type=int, default=3,
+                    help="not ported (ignored without --chaos-poison-slot)")
+    ap.add_argument("--chaos-fail-pallas", action="store_true",
+                    help="not ported")
+    ap.add_argument("--metrics", action="store_true", help="not ported")
+    ap.add_argument("--trace-out", default=None, help="not ported")
+    ap.add_argument("--metrics-out", default=None, help="not ported")
     args = ap.parse_args(argv)
 
     used = [(f"--{n.replace('_', '-')}", item)
-            for n, item in _NOT_PORTED.items()
-            if getattr(args, n) not in (None, False)]
+            for n, (item, turns_on) in _NOT_PORTED.items()
+            if turns_on(getattr(args, n))]
     if used:
         for flag, item in used:
             print(f"[serve] {flag}: not ported (ROADMAP item {item})",
@@ -104,21 +141,39 @@ def main(argv=None) -> int:
     if args.swat:
         cfg = with_swat(cfg, window=args.window, num_global=4)
     params = Mod.init_model(cfg, seed=0, device=args.device)
-    engine = ServingEngine(
-        cfg, params, batch_slots=args.slots, max_len=args.max_len,
-        scan_steps=args.scan_steps, batch_prefill=args.batch_prefill,
-        prefill_chunk=args.prefill_chunk,
-        max_prefill_tokens=args.max_prefill_tokens, top_k=args.top_k,
-        tokens_per_step=args.tokens_per_step, speculative=args.speculative,
-        draft=NGramDrafter(max_ngram=args.draft_ngram,
-                           history=args.draft_history),
-        max_prompt_len=args.max_prompt_len or None,
-        spec_min_acceptance=args.spec_min_acceptance)
+    try:
+        engine = ServingEngine(
+            cfg, params, batch_slots=args.slots, max_len=args.max_len,
+            scan_steps=args.scan_steps, batch_prefill=args.batch_prefill,
+            prefill_chunk=args.prefill_chunk,
+            max_prefill_tokens=args.max_prefill_tokens, top_k=args.top_k,
+            tokens_per_step=args.tokens_per_step,
+            speculative=args.speculative,
+            draft=NGramDrafter(max_ngram=args.draft_ngram,
+                               history=args.draft_history),
+            max_prompt_len=args.max_prompt_len or None,
+            spec_min_acceptance=args.spec_min_acceptance,
+            kv_layout=args.kv_layout, share_prefix=args.share_prefix,
+            decode_impl=args.decode_impl)
+    except ValueError as e:
+        print(f"[serve] {e}", file=sys.stderr)
+        return 2
     rng = np.random.RandomState(0)
-    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size,
-                                              (args.prompt_len,)
-                                              ).astype(np.int32),
-                    max_new_tokens=args.new_tokens,
+    if args.share_prefix:
+        # the JAX launcher's shared-prefix demo workload: one system
+        # prompt, 16-token suffixes
+        sys_prompt = rng.randint(0, cfg.vocab_size,
+                                 (max(args.prompt_len - 16, 16),)
+                                 ).astype(np.int32)
+        prompts = [np.concatenate(
+            [sys_prompt, rng.randint(0, cfg.vocab_size, (16,)
+                                     ).astype(np.int32)])
+            for _ in range(args.requests)]
+    else:
+        prompts = [rng.randint(0, cfg.vocab_size, (args.prompt_len,)
+                               ).astype(np.int32)
+                   for _ in range(args.requests)]
+    reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=args.new_tokens,
                     temperature=args.temperature)
             for i in range(args.requests)]
     t0 = time.perf_counter()
@@ -131,15 +186,28 @@ def main(argv=None) -> int:
     spec = (f", speculative={args.speculative} "
             f"(acceptance {engine.acceptance_rate:.2f})"
             if args.speculative else "")
+    impl = args.decode_impl or ("pallas" if engine.device.type == "cuda"
+                                else "ref")
     print(f"[serve] {len(results)} requests / {n} tokens in {dt:.3f}s "
           f"({n / dt:.1f} tok/s; scan_steps={args.scan_steps}, "
           f"batch_prefill={args.batch_prefill}, "
-          f"prefill_chunk={engine.prefill_chunk}{spec}; {where})")
+          f"prefill_chunk={engine.prefill_chunk}{spec}, "
+          f"decode_impl={impl}, kv_layout={args.kv_layout}; {where})")
     print(f"[serve] prefill {st['prefill_batches']} batches in "
           f"{st['prefill_s'] * 1e3:.1f}ms; decode {st['decode_steps']} steps "
           f"in {st['decode_s'] * 1e3:.1f}ms")
     print(f"[serve] cache bytes @max_len: "
           f"{ring_cache_bytes(cfg, args.slots, args.max_len) / 1e6:.1f}MB")
+    if args.kv_layout == "paged":
+        ps = engine.paged_stats()
+        line = (f"[serve] paged pool: {ps['blocks_in_use']}/"
+                f"{ps['blocks_total']} blocks in use")
+        if args.share_prefix:
+            line += (f"; prefixes shared={st['prefill_prefix_shared']}, "
+                     "prefill tokens computed="
+                     f"{st['prefill_tokens_computed']}, "
+                     f"cow moves={st['cow_moves']}")
+        print(line)
     by_status = {}
     for r in results:
         by_status[r.status] = by_status.get(r.status, 0) + 1

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine (the port of the JAX package's
-`serving/engine.py` in its contiguous-cache, single-device mode).
+`serving/engine.py` in its single-device mode).
 
   * a static batch of slots with PER-SLOT ring write positions: slots at
     different depths share one batched kernel call per layer,
@@ -23,15 +23,23 @@
     and probes to turn it back on,
   * per-slot temperature / top-k sampling, and the `finite_rows` guard:
     a slot whose logits go non-finite is quarantined (status "poisoned"),
-    every other slot untouched.
+    every other slot untouched,
+  * the paged KV layout (`kv_layout="paged"`): one block pool per layer
+    with per-slot block tables kept by `serving/paged.py`'s PagedManager.
+    Prefill stays contiguous and is paginated into the slots' blocks at
+    admission; every decode or verify block first copies-on-write the
+    shared blocks it will write and pushes the host tables. With
+    `share_prefix`, a batch whose prompts share a prefix prefills it once
+    on one row, copies that row to every row, walks only the suffixes in
+    chunks, and block-shares the prefix pages the suffixes never write.
 
 Blocks stop at the earliest slot completion, so the generator advances in
 the same order whatever `scan_steps` is and block decode is token-for-token
 stepwise decode.
 
-Options of the JAX engine that this port does not have yet (the paged
-layout and prefix sharing, meshes, fault plans, device metrics) raise
-NotImplementedError at construction; none is ignored.
+Options of the JAX engine that this port does not have yet (meshes, fault
+plans, queue bounds, device metrics) raise NotImplementedError at
+construction; none is ignored.
 """
 from __future__ import annotations
 
@@ -43,10 +51,12 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import layers as L
 from repro_torch.core import model as Mod
 from repro_torch.core.types import ModelConfig
 from repro_torch.serving import sampling
 from repro_torch.serving.drafter import NGramDrafter, get_drafter
+from repro_torch.serving.paged import PagedManager
 from repro_torch.serving.scheduler import (PrefillPlan, Scheduler,
                                            normalize_prompt)
 
@@ -87,6 +97,10 @@ class Result:
         return self.status == "ok"
 
 
+# decode_impl (the JAX engine's names) -> the `impl` of `model.decode_step`
+_DECODE_IMPLS = {None: None, "pallas": "kernel", "ref": "ref"}
+
+
 def _refuse(name: str, value, default) -> None:
     if value != default:
         raise NotImplementedError(
@@ -105,8 +119,10 @@ class ServingEngine:
                  spec_acceptance_window: int = 4,
                  spec_retry_blocks: int = 8,
                  spec_resume_acceptance: Optional[float] = None,
-                 kv_layout: str = "contiguous", mesh=None, faults=None,
-                 metrics: bool = False):
+                 kv_layout: str = "contiguous", share_prefix: bool = False,
+                 share_min_prefix: int = 16,
+                 decode_impl: Optional[str] = None, mesh=None, faults=None,
+                 max_pending: Optional[int] = None, metrics: bool = False):
         """Runs on the device that holds `params` (see `model.init_model` /
         `interop.params_from_jax`): the CUDA kernels on a card, their plain
         versions for CPU params. scan_steps: decode steps per host sync;
@@ -133,13 +149,31 @@ class ServingEngine:
         rate reaches `spec_resume_acceptance` (default: the same
         threshold). 0.0 (default) disables the ladder.
 
-        kv_layout / mesh / faults / metrics exist so that a caller porting a
-        JAX engine call gets an error, not a silently different engine: any
-        value other than the default raises NotImplementedError."""
-        _refuse("kv_layout", kv_layout, "contiguous")
+        kv_layout: "contiguous" (per-slot ring caches) or "paged" (block
+        pools and tables; tokens identical). share_prefix (paged, and
+        prefill_chunk > 0): an admission batch of >= 2 prompts sharing at
+        least `share_min_prefix` leading tokens prefills them once and
+        shares their blocks.
+
+        decode_impl: the decode and verify steps' attention. None: the
+        device's default (the fused CUDA kernel on the card, its plain
+        version on the CPU); "pallas" (the JAX engine's name): the kernel,
+        and a ValueError for CPU params; "ref": the plain versions.
+
+        mesh / faults / max_pending / metrics exist so that a caller
+        porting a JAX engine call gets an error, not a silently different
+        engine: any value other than the default raises
+        NotImplementedError."""
         _refuse("mesh", mesh, None)
         _refuse("faults", faults, None)
+        _refuse("max_pending", max_pending, None)
         _refuse("metrics", metrics, False)
+        if kv_layout not in ("contiguous", "paged"):
+            raise ValueError(f"kv_layout={kv_layout!r}: 'contiguous' or "
+                             "'paged'")
+        if decode_impl not in _DECODE_IMPLS:
+            raise ValueError(f"decode_impl={decode_impl!r}: one of "
+                             f"{sorted(_DECODE_IMPLS, key=str)}")
         self.speculative = max(0, speculative)
         if self.speculative and not Mod.speculative_supported(cfg):
             raise ValueError(
@@ -154,6 +188,11 @@ class ServingEngine:
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
+        if decode_impl == "pallas" and self.device.type != "cuda":
+            raise ValueError("decode_impl='pallas' runs the CUDA decode "
+                             f"kernel; the params are on {self.device}")
+        self.decode_impl = decode_impl
+        self._impl = _DECODE_IMPLS[decode_impl]
         self.slots = batch_slots
         self.max_len = max_len
         self.scan_steps = max(1, scan_steps)
@@ -168,9 +207,19 @@ class ServingEngine:
         self.scheduler = Scheduler(
             max_prefill_tokens=max_prefill_tokens, pad_to=pad_to,
             max_prompt_len=max_prompt_len, vocab_size=cfg.vocab_size)
+        self.kv_layout = kv_layout
+        self.share_prefix = bool(share_prefix) and kv_layout == "paged"
+        self.share_min_prefix = max(1, share_min_prefix)
+        self._paged: Optional[PagedManager] = None
+        if kv_layout == "paged":
+            self._paged = PagedManager(
+                Mod.paged_layout(cfg, max_len, self.lookahead), batch_slots)
         self.caches = Mod.init_caches(cfg, batch_slots, max_len,
                                       lookahead=self.lookahead,
+                                      paged=kv_layout == "paged",
                                       device=self.device)
+        # next ring-write token position per slot (the paged COW plan)
+        self._slot_pos = np.zeros((batch_slots,), np.int64)
         self.slot_free = [True] * batch_slots
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.slot_out: List[List[int]] = [[] for _ in range(batch_slots)]
@@ -206,7 +255,8 @@ class ServingEngine:
                       "prefill_s": 0.0, "decode_steps": 0, "decode_s": 0.0,
                       "spec_steps": 0, "draft_proposed": 0,
                       "draft_accepted": 0, "spec_autodisable": 0,
-                      "spec_resume": 0}
+                      "spec_resume": 0, "prefill_prefix_shared": 0,
+                      "cow_moves": 0}
 
     @property
     def acceptance_rate(self) -> float:
@@ -239,6 +289,12 @@ class ServingEngine:
         self.slot_free[s] = True
         self.slot_req[s] = None
         self.slot_budget[s] = 0
+        self._slot_pos[s] = 0
+        if self._paged is not None:
+            # release the blocks and park the table on the slot's scratch
+            # block; the park reaches the device before the next decode
+            # block (`_paged_sync`) or with the next admission's table push
+            self._paged.free(s)
 
     # ---------------------------------------------------------- prefill --
     def _prefill_into(self, plan: PrefillPlan, slots: List[int]):
@@ -246,26 +302,43 @@ class ServingEngine:
             self._prefill_batch(plan, slots)
 
     @torch.no_grad()
-    def prefill_logits(self, tokens: torch.Tensor, lengths: torch.Tensor):
-        """Prefill a padded batch (n, L) into fresh caches: single-shot, or
-        in `prefill_chunk` lockstep chunks when the batch is longer than
-        one. Returns (each row's last-real-token logits (n, V) fp32, the
-        caches). A chunk unembeds only the (n, 1, D) rows whose last real
-        token it holds."""
+    def prefill_logits(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                       prefix: int = 0):
+        """Prefill a padded batch (n, L) into fresh contiguous caches:
+        single-shot, or in `prefill_chunk` lockstep chunks when the batch
+        is longer than one. With `prefix` > 0 (every row's first `prefix`
+        tokens equal; needs prefill_chunk), the prefix is prefilled once,
+        single-shot on one row, its caches and last logits are copied to
+        the n rows, and the chunks walk [prefix, L). Returns (each row's
+        last-real-token logits (n, V) fp32, the caches). A chunk unembeds
+        only the (n, 1, D) rows whose last real token it holds."""
         n, l_pad = tokens.shape
         c = self.prefill_chunk
-        if not c or l_pad <= c:
+        if prefix:
+            one = torch.full((1,), prefix, dtype=torch.int32,
+                             device=self.device)
+            logits, caches = Mod.prefill(self.params, self.cfg,
+                                         {"tokens": tokens[:1, :prefix]},
+                                         self.max_len, lengths=one,
+                                         lookahead=self.lookahead)
+            caches = [{name: {leaf: t.repeat_interleave(n, dim=0)
+                              for leaf, t in layer.items()}
+                       for name, layer in blk.items()} for blk in caches]
+            last = logits[:, 0].repeat_interleave(n, dim=0)
+        elif not c or l_pad <= c:
             logits, caches = Mod.prefill(self.params, self.cfg,
                                          {"tokens": tokens}, self.max_len,
                                          lengths=lengths,
                                          lookahead=self.lookahead)
             return logits[:, 0], caches
-        caches = Mod.init_caches(self.cfg, n, self.max_len,
-                                 lookahead=self.lookahead, device=self.device)
-        last = torch.zeros((n, self.cfg.vocab_size), dtype=torch.float32,
-                           device=self.device)
+        else:
+            caches = Mod.init_caches(self.cfg, n, self.max_len,
+                                     lookahead=self.lookahead,
+                                     device=self.device)
+            last = torch.zeros((n, self.cfg.vocab_size),
+                               dtype=torch.float32, device=self.device)
         rows = torch.arange(n, device=self.device)
-        for p in range(0, l_pad, c):
+        for p in range(prefix, l_pad, c):
             x = Mod.prefill_chunk(self.params, self.cfg,
                                   {"tokens": tokens[:, p:p + c]}, caches, p,
                                   lengths, lookahead=self.lookahead)
@@ -281,21 +354,36 @@ class ServingEngine:
     def _prefill_batch(self, plan: PrefillPlan, slots: List[int]):
         t0 = time.perf_counter()
         dev = self.device
+        n, l_pad = plan.tokens.shape
         tokens = torch.as_tensor(plan.tokens, device=dev)
         lengths = torch.as_tensor(plan.lengths, device=dev)
-        logits, caches = self.prefill_logits(tokens, lengths)
+        prefix = 0
+        if (self.share_prefix and n >= 2 and self.prefill_chunk
+                and plan.prefix_len >= self.share_min_prefix):
+            prefix = int(plan.prefix_len)
+        logits, caches = self.prefill_logits(tokens, lengths, prefix)
         temps = torch.as_tensor([r.temperature for r in plan.requests],
                                 dtype=torch.float32, device=dev)
         first = sampling.sample(self.generator, logits, temps, self.top_k)
         idx = torch.as_tensor(slots, dtype=torch.long, device=dev)
-        for full, one in zip(self.caches, caches):
-            for name, layer in full.items():
-                for leaf, t in layer.items():
-                    t.index_copy_(0, idx, one[name][leaf].to(t.dtype))
+        if self._paged is not None:
+            # shareability is judged against every position prefill wrote:
+            # padded rows carry masked garbage up to l_pad, so each row's
+            # write span is [prefix, l_pad)
+            self._paged.admit(slots, [l_pad] * n, prefix_len=prefix)
+            self._insert_paged(caches, slots, idx)
+        else:
+            for full, one in zip(self.caches, caches):
+                for name, layer in full.items():
+                    for leaf, t in layer.items():
+                        t.index_copy_(0, idx, one[name][leaf].to(t.dtype))
         first = first.cpu().numpy()            # the batch's host sync
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefill_batches"] += 1
-        self.stats["prefill_tokens_computed"] += int(plan.lengths.sum())
+        self.stats["prefill_tokens_computed"] += (
+            prefix + int(np.maximum(plan.lengths - prefix, 0).sum()))
+        self.stats["prefill_prefix_shared"] += int(prefix > 0)
+        self._slot_pos[slots] = plan.lengths
         if self.drafter is not None:
             # drafter context: the prompt plus the first sampled token (the
             # history ends at slot_last, the pending token)
@@ -314,6 +402,68 @@ class ServingEngine:
                 self.slot_req[s] = req
                 self.slot_budget[s] = budget
         self._dev = None          # host mirrors changed; restage on device
+
+    def _insert_paged(self, caches, slots: List[int], idx: torch.Tensor):
+        """Paged admission (the JAX engine's `insert_paged`): write the n
+        freshly prefilled contiguous rows through their slots' table rows
+        into the pools (`layers.paged_scatter`), set the rows' steps, and
+        push the host tables. Shared-prefix rows point at the same block
+        ids; those duplicate writes carry bitwise-equal content (the
+        shareable-block invariant of `PagedManager.admit`), so whichever
+        lands is exact."""
+        for i, host in self._paged.tables.items():
+            name = f"l{i}"
+            rows = torch.as_tensor(host[slots], device=self.device)
+            for full, one in zip(self.caches, caches):
+                fc, oc = full[name], one[name]
+                L.paged_scatter(fc["pk"], rows, oc["k"])
+                L.paged_scatter(fc["pv"], rows, oc["v"])
+                fc["step"].index_copy_(0, idx, oc["step"])
+        self._push_tables()
+
+    def _push_tables(self):
+        """Copy the host table mirror into the one device table of each
+        layer position (shared by every super-block)."""
+        pm = self._paged
+        for i, host in pm.tables.items():
+            self.caches[0][f"l{i}"]["table"].copy_(torch.as_tensor(host))
+        pm.dirty = False
+
+    def _paged_sync(self, n: int):
+        """Before a decode or verify block of n steps: plan copy-on-write
+        for every ring row the block can write ([pos, pos + n * T) per
+        live slot; the block writes every row, dead ones included, so the
+        span is the whole block's), copy the moved blocks in every
+        super-block's pools, and push the tables when anything changed."""
+        pm = self._paged
+        positions = {s: int(self._slot_pos[s]) for s in range(self.slots)
+                     if not self.slot_free[s]}
+        moves = pm.cow_moves(positions, n * self.tokens_per_step)
+        count = sum(len(v) for v in moves.values())
+        if not count and not pm.dirty:
+            return
+        self.stats["cow_moves"] += count
+        for i, mv in moves.items():
+            if not mv:
+                continue
+            src, dst = (torch.as_tensor(x, dtype=torch.long,
+                                        device=self.device)
+                        for x in zip(*mv))
+            # dst ids are freshly allocated: no move reads another's
+            # destination
+            for blk in self.caches:
+                for pkey in ("pk", "pv"):
+                    pool = blk[f"l{i}"][pkey]
+                    pool.index_copy_(0, dst, pool.index_select(0, src))
+        self._push_tables()
+
+    def paged_stats(self) -> Dict[str, int]:
+        """Block-pool occupancy summed over layer positions (shared-prefix
+        dedup shows up here); {} for the contiguous layout."""
+        if self._paged is None:
+            return {}
+        return {"blocks_in_use": self._paged.blocks_in_use(),
+                "blocks_total": self._paged.blocks_total()}
 
     def _seed_history(self, slots: List[int], seqs) -> None:
         """Write the drafter history rows of `slots` from host token
@@ -396,6 +546,8 @@ class ServingEngine:
         use_spec, probe = self._spec_mode()
         if use_spec and self._hist_stale:
             self._reseed_history(live)
+        if self._paged is not None:
+            self._paged_sync(n)
         with torch.profiler.record_function("engine.decode_block"):
             if use_spec:
                 return self._verify_steps(n, live, probe)
@@ -431,7 +583,7 @@ class ServingEngine:
         for i in range(n):
             logits, _ = Mod.decode_step(self.params, self.cfg,
                                         {"tokens": tok[:, None]},
-                                        self.caches,
+                                        self.caches, impl=self._impl,
                                         lookahead=self.lookahead)
             lg = logits[:, 0]
             nxt = sampling.sample(self.generator, lg, d["temps"], self.top_k)
@@ -494,6 +646,7 @@ class ServingEngine:
             x = torch.cat([tok[:, None], drafts], dim=1)
             logits, _ = Mod.decode_step(self.params, self.cfg,
                                         {"tokens": x}, self.caches,
+                                        impl=self._impl,
                                         lookahead=self.lookahead)
             # every verify position in one sampling call
             ver = sampling.sample(
@@ -554,6 +707,11 @@ class ServingEngine:
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += steps
         self.stats["tokens_emitted"] += int(emit_np.sum())
+        # advance the ring-write position mirror: a sequential step writes
+        # one row a slot; a verify step nets its e emitted rows after the
+        # rollback
+        self._slot_pos[live] += (emit_np.sum(axis=(0, 2))[live]
+                                 if emit_np.ndim == 3 else steps)
         done: List[Result] = []
         for s in live:
             self.slot_out[s].extend(

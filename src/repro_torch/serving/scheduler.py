@@ -15,9 +15,11 @@ mesh's slot-axis size; the port is single-device and passes 1).
 from __future__ import annotations
 
 import dataclasses
-from typing import Deque, List, Optional, Sequence, Tuple
+from typing import Deque, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.serving.paged import batch_lcp
 
 
 def normalize_prompt(prompt) -> np.ndarray:
@@ -38,20 +40,6 @@ class PrefillPlan:
     tokens: np.ndarray
     lengths: np.ndarray
     prefix_len: int = 0
-
-
-def batch_lcp(prompts: Sequence[np.ndarray]) -> int:
-    """Longest token prefix shared by EVERY prompt (0 for fewer than two)."""
-    if len(prompts) < 2:
-        return 0
-    lcp = len(prompts[0])
-    for p in prompts[1:]:
-        n = min(lcp, len(p))
-        diff = np.nonzero(prompts[0][:n] != p[:n])[0]
-        lcp = int(diff[0]) if diff.size else n
-        if lcp == 0:
-            break
-    return lcp
 
 
 class Scheduler:

@@ -105,7 +105,7 @@ def test_non_finite_rows_are_quarantined(setup):
     assert eng.stats["quarantined"] == 1
 
 
-@pytest.mark.parametrize("option", [dict(kv_layout="paged"),
+@pytest.mark.parametrize("option", [dict(max_pending=4),
                                     dict(mesh="4x1"),
                                     dict(faults=object()),
                                     dict(metrics=True)],

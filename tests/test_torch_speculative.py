@@ -363,7 +363,7 @@ def test_serve_launcher_chunked_and_speculative_on_cpu():
     assert "prefill_chunk=8, speculative=2 (acceptance" in out.stdout
 
 
-@pytest.mark.parametrize("flag,item", [(["--kv-layout", "paged"], 9),
+@pytest.mark.parametrize("flag,item", [(["--chaos-poison-slot", "1"], 10),
                                        (["--mesh", "2x2"], 13),
                                        (["--deadline", "1.0"], 10),
                                        (["--metrics"], 11)])
