@@ -80,10 +80,27 @@ each of which raises on failure:
                AGREE_BOUND, prefill tokens computed, blocks in use after
                the first admission and copy-on-write moves printed; the
                decode step of the contiguous and paged engines timed in
-               turns; traced paged decode block and shared / unshared
+               turns (graph engines, warmed by one run); traced paged decode block and shared / unshared
                prefill batches. In
                phase 19 (fp32) the shared tokens equal the unshared ones
                on every request.
+ 21. graphs  - (run after phase 20) the engine's compiled dispatch against
+               eager dispatch (graphs=False), bf16 (and in phase 19 fp32):
+               the sequential, speculative, chunked, paged and
+               shared-prefix cells each serve the requests of phases 3 and
+               20 on an eager engine and twice on a graph engine (the first
+               run warms up and captures, the second only replays); the
+               graph runs' greedy tokens bitwise the eager run's and every
+               launch counter's count equal to eager's; no capture in the
+               second run. Then, bf16, eager and graph engines timed in
+               turns (4 runs each of one 4-request batch): decode ms a
+               step, verify ms a step, chunked prefill ms a batch (phase
+               20 times the paged step against the contiguous one under
+               graphs); traced eager decode, verify, chunked
+               prefill and paged decode blocks beside phases 6, 18 and
+               20's traces (which run graphs, the engine's default on the
+               card): busy share and kernels a step; graphs captured,
+               capture time and pool memory per cell.
   7. backward - the dQ and dK/dV kernels against their plain version at the
                training shapes (B=4, Hq=32, Hkv=8, L=2048, D=64, window
                256, 4 globals, causal; plus group 1 and 8, softcap 30 and
@@ -150,6 +167,11 @@ each of which raises on failure:
                decode_plain_kernel a plain decode call and no other decode
                kernel but the fused one), and the plain decode kernel, its
                plain version and SDPA at the cross shape.
+
+The serving engine replays its decode blocks, verify steps and prefill
+chunks as CUDA graphs on the card (its default); phases 3, 6 and 18-20 run
+it so, and a traced engine first serves its requests twice untraced, so
+that the traced run only replays.
 
 Prints the kernels JSON line and the card line, then as its last line
 {"ok": true, "device": {...}}.
@@ -717,28 +739,40 @@ def trace_decode(torch, cfg, params, span="engine.decode_block",
         rng = np.random.RandomState(1)
         prompts = [rng.randint(0, cfg.vocab_size, (MAIN["prompt"],))
                    for _ in range(4)]
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=n_new)
-            for i, p in enumerate(prompts)]
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=n_new)
+                for i, p in enumerate(prompts)]
+
     eng = ServingEngine(cfg, params, batch_slots=4, max_len=MAIN["max_len"],
                         scan_steps=8, **engine_kw)
+    # a graph is captured at its key's second use: after two untraced runs
+    # of the same requests the traced run only replays
+    for _ in range(2 if eng.graphs else 0):
+        eng.run(reqs())
+    stats0 = dict(eng.stats)
+    captured0 = len(eng._compiled.captured)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run(reqs)
+        eng.run(reqs())
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    st = {k: v - stats0[k] for k, v in eng.stats.items()}
     events = prof.events()
     dt = torch.autograd.DeviceType
     kernels = [e for e in events if e.device_type == dt.CUDA
                and not e.name.startswith("engine.")]
     blocks = [e.time_range for e in events
               if e.name == span and e.device_type == dt.CPU]
-    out = {"span": span, "wall_ms": wall_ms,
-           "prefill_ms": eng.stats["prefill_s"] * 1e3,
-           "decode_ms": eng.stats["decode_s"] * 1e3,
-           "decode_steps": eng.stats["decode_steps"],
-           "spec_steps": eng.stats["spec_steps"],
+    out = {"span": span, "graphs": eng.graphs,
+           "captured_in_traced_run": len(eng._compiled.captured) - captured0,
+           "wall_ms": wall_ms,
+           "prefill_ms": st["prefill_s"] * 1e3,
+           "decode_ms": st["decode_s"] * 1e3,
+           "decode_steps": st["decode_steps"],
+           "spec_steps": st["spec_steps"],
            "device_kernels": len(kernels)}
     if not kernels or not blocks:
         out["device_time"] = "not measured (no device events traced)"
@@ -760,22 +794,22 @@ def trace_decode(torch, cfg, params, span="engine.decode_block",
                     if any(k in name for k in keys)), "other")
         by_cat[cat] = by_cat.get(cat, 0.0) + e.time_range.elapsed_us() / 1e3
     if span == "engine.decode_block":
-        per = max(1, eng.stats["decode_steps"])
+        per = max(1, st["decode_steps"])
         # the fused decode is one kernel per layer and step: its cluster
         # merge launches nothing else
         fused = sum("decode_fused_kernel" in e.name for e in dec)
         stray = sorted({e.name[:60] for e in dec
                         if "decode" in e.name.lower()
                         and "decode_fused_kernel" not in e.name})
-        if fused != cfg.num_layers * eng.stats["decode_steps"] or stray:
+        if fused != cfg.num_layers * st["decode_steps"] or stray:
             raise AssertionError(
                 f"trace: {fused} fused decode kernels in "
-                f"{eng.stats['decode_steps']} decode steps of "
+                f"{st['decode_steps']} decode steps of "
                 f"{cfg.num_layers} layers; other decode kernels: {stray}")
         out["fused_decode_kernels_per_step"] = fused / per
         unit = "step"
     else:
-        per = max(1, eng.stats["prefill_batches"])
+        per = max(1, st["prefill_batches"])
         out["attention_fwd_kernels_per_batch"] = sum(
             "attention_fwd" in e.name for e in dec) / per
         unit = "batch"
@@ -2089,6 +2123,10 @@ def _cell_kw(cell):
     kw.update({f"paged_{c}": {**v, "kv_layout": "paged"}
                for c, v in list(kw.items())})
     kw["paged_shared"] = {**kw["paged_chunked"], "share_prefix": True}
+    # phase 21's mixed-temperature cells (requests alternate greedy and
+    # SAMPLED_TEMP)
+    kw["sampled"] = kw["default"]
+    kw["speculative_sampled"] = kw["speculative"]
     return kw[cell]
 
 
@@ -2187,8 +2225,8 @@ def serve_cells(torch, cfg, params, cells, route, prompts=None):
             summary.update(blocks_in_use_after_first_admission=blocks,
                            prefill_prefix_shared=st["prefill_prefix_shared"],
                            cow_moves=st["cow_moves"], **eng.paged_stats())
-        log(f"serve {cell} ({str(params['embed'].dtype)}): "
-            + json.dumps(summary))
+        log(f"serve {cell} ({str(params['embed'].dtype)}; a fresh engine: "
+            "first uses eager, captures included): " + json.dumps(summary))
         out[cell] = (summary, [r.tokens for r in res], eng)
     return out, prompts
 
@@ -2273,6 +2311,8 @@ def serve_slice_fp32(torch, cfg):
     log("serve paged fp32: shared-prefix greedy tokens equal the unshared "
         "paged engine's on all 8 requests")
     out = {c: v[0] for c, v in {**cells, **paged}.items()}
+    # phase 21's fp32 gates: graph tokens bitwise eager's, counts equal
+    out["graphs"] = graph_gates(torch, cfg32, params, "fp32")[0]
     del params
     return out
 
@@ -2373,20 +2413,305 @@ def serve_paged(torch, cfg, params, base_tokens, spec_tokens):
     if not (gates["shared_first_token_max_abs_logit_diff"] <= LOGIT_BOUND
             and gates["shared_teacher_forced_agreement"] >= AGREE_BOUND):
         raise AssertionError(f"serve paged gates: {gates}")
-    # host-clock step times spread +-40% between runs: time the two
-    # layouts in turns (contiguous, paged, paged, contiguous, twice)
+    # time the two layouts in turns (contiguous, paged, paged, contiguous,
+    # twice) on one engine each, warmed by one run, so that every timed
+    # run only replays graphs
+    from repro_torch.serving.engine import ServingEngine
+    engines = {layout: ServingEngine(cfg, params, batch_slots=4,
+                                     max_len=MAIN["max_len"], scan_steps=8,
+                                     kv_layout=layout)
+               for layout in ("contiguous", "paged")}
+    for eng in engines.values():
+        _serve_on(torch, eng, base_prompts, MAIN["new_tokens"])
     ab = {"contiguous": [], "paged": []}
     for layout in ("contiguous", "paged", "paged", "contiguous") * 2:
-        eng = _serve_run(torch, cfg, params, base_prompts,
-                         MAIN["new_tokens"], kv_layout=layout)[0]
-        ab[layout].append(eng.stats["decode_s"] * 1e3
-                          / eng.stats["decode_steps"])
+        st_ = _serve_on(torch, engines[layout], base_prompts,
+                        MAIN["new_tokens"])[2]
+        ab[layout].append(st_["decode_s"] * 1e3 / st_["decode_steps"])
     ab["paged_over_contiguous"] = (sum(ab["paged"])
                                    / sum(ab["contiguous"]))
     log("decode ms a step, in turns (bf16): " + json.dumps(ab))
+    # the shared-prefix batch against the unshared chunked one, the same
+    # way: warmed engines, prefill ms a batch in turns, no capture timed
+    engines = {c: ServingEngine(cfg, params, batch_slots=4,
+                                max_len=MAIN["max_len"], scan_steps=8,
+                                **_cell_kw(c))
+               for c in ("paged_chunked", "paged_shared")}
+    for eng in engines.values():
+        _serve_on(torch, eng, prompts, 2)
+    pf = {"paged_chunked": [], "paged_shared": []}
+    captured0 = {c: len(e._compiled.captured) for c, e in engines.items()}
+    for cell in ("paged_chunked", "paged_shared") * 2:
+        st_ = _serve_on(torch, engines[cell], prompts, 2)[2]
+        pf[cell].append(st_["prefill_s"] * 1e3 / st_["prefill_batches"])
+    if any(len(e._compiled.captured) != captured0[c]
+           for c, e in engines.items()):
+        raise AssertionError("prefill turns: a timed run captured a graph")
+    pf["shared_over_unshared"] = (sum(pf["paged_shared"])
+                                  / sum(pf["paged_chunked"]))
+    log("prefill ms a batch, in turns (bf16, warmed graph engines): "
+        + json.dumps(pf))
     out = {c: v[0] for c, v in {**cells, **shared}.items()}
     out["decode_ms_per_step_in_turns"] = ab
+    out["prefill_ms_per_batch_in_turns"] = pf
     return out, gates
+
+
+# ------------------------------------------------------------ phase 21 ---
+
+# the serve cells whose graph runs are held to eager runs; the "sampled"
+# ones serve requests that alternate greedy and SAMPLED_TEMP
+GRAPH_CELLS = ("default", "speculative", "chunked", "paged_default",
+               "paged_shared", "sampled", "speculative_sampled")
+SAMPLED_TEMP = 0.8
+
+
+def _serve_on(torch, eng, prompts, n_new, temps=None):
+    """Serve `prompts` on an existing engine (n_new tokens each, or a list;
+    temperature 0, or `temps`): (tokens in rid order, every launch
+    counter's count in the run, the engine's stats in the run, wall
+    seconds)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import Request
+    news = n_new if isinstance(n_new, list) else [n_new] * len(prompts)
+    temps = temps or [0.0] * len(prompts)
+    torch.cuda.synchronize()
+    counts0, stats0 = _build.launch_counts(), dict(eng.stats)
+    t0 = time.perf_counter()
+    res = eng.run([Request(rid=i, prompt=p, max_new_tokens=n, temperature=t)
+                   for i, (p, n, t) in enumerate(zip(prompts, news, temps))])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = [a - b for a, b in zip(_build.launch_counts(), counts0)]
+    return ([r.tokens for r in sorted(res, key=lambda r: r.rid)], counts,
+            {k: v - stats0[k] for k, v in eng.stats.items()}, wall)
+
+
+def _chunk_buffer_mb(eng):
+    """The persistent chunked-prefill set's size (caches, logits, tokens,
+    lengths), MiB; 0 before the engine's first chunked batch."""
+    buf = eng._chunk_buf
+    if buf is None:
+        return 0.0
+    leaves = [t for blk in buf["caches"] for layer in blk.values()
+              for t in layer.values()]
+    leaves += [buf[k] for k in ("last", "tok", "lens")]
+    return sum(t.numel() * t.element_size() for t in leaves) / 2 ** 20
+
+
+def _graph_stats(eng):
+    c = eng._compiled
+    return {"graphs_captured": len(c.captured),
+            "keys": sorted({k[0] for k in c.captured}),
+            "capture_s": c.capture_s, "pool_mb": c.pool_bytes / 2 ** 20,
+            "chunk_buffer_mb": _chunk_buffer_mb(eng),
+            "replays": c.replays, "evicted": c.evicted}
+
+
+def sampler_replays(torch, vocab):
+    """A sampled key through the engine's graph cache: the sampler at
+    SAMPLED_TEMP on fixed logits (4 rows of the vocabulary), run 4 times
+    under one key (eager, capture and replay, replay, replay) on the
+    engine's kind of generator. Each draw must equal an eager draw from a
+    generator of the same seed, bitwise, and the replays must draw fresh
+    noise (no two consecutive draws equal)."""
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import sampling
+    lg = torch.randn((4, vocab), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(12))
+    temps = torch.full((4,), SAMPLED_TEMP, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = torch.zeros((4,), dtype=torch.int32, device="cuda")
+    comp = E._Compiled(True, gen)
+
+    def body():
+        out.copy_(sampling.sample(gen, lg, temps, 0, any_sampling=True))
+
+    draws = []
+    for _ in range(4):
+        comp.run(("sample",), body)
+        draws.append(out.clone())
+    ref = torch.Generator(device="cuda").manual_seed(11)
+    want = [sampling.sample(ref, lg, temps, 0, any_sampling=True)
+            for _ in range(4)]
+    res = {"captured": len(comp.captured), "replays": comp.replays,
+           "draws_equal_eager": all(torch.equal(a, b)
+                                    for a, b in zip(draws, want)),
+           "consecutive_draws_differ": all(
+               not torch.equal(a, b) for a, b in zip(draws, draws[1:]))}
+    log("graphs sampled key: " + json.dumps(res))
+    if not (res["captured"] == 1 and res["replays"] == 3
+            and res["draws_equal_eager"] and res["consecutive_draws_differ"]):
+        raise AssertionError(f"graphs sampled key: {res}")
+    return res
+
+
+def graph_gates(torch, cfg, params, tag):
+    """Phase 21's gates at one dtype: in each of GRAPH_CELLS an eager
+    engine (graphs=False) and a graph engine with the same seed serve the
+    same requests (the 8 of phase 3, or phase 20's shared-prefix
+    workload), the graph engine twice: its first run warms each key up and
+    captures it at its second use, its second run only replays. Each graph
+    run's tokens must equal the eager run's bitwise (in the sampled cells
+    the eager engine runs twice too, run for run, and the second run's
+    sampled requests must differ from the first's: fresh noise), every
+    launch counter must count what eager counted, the step and batch
+    counts must agree, and the second run must capture nothing. Then a
+    sampled key's replays against eager draws (`sampler_replays`). Returns
+    ({cell: summary}, {cell: (eager engine, graph engine, prompts)})."""
+    import numpy as np
+    from repro_torch.serving.engine import ServingEngine
+    rng = np.random.RandomState(0)
+    base = [rng.randint(0, cfg.vocab_size, (MAIN["prompt"],))
+            .astype(np.int32) for _ in range(8)]
+    out, engines = {}, {}
+    keys = ("decode_steps", "spec_steps", "prefill_batches", "tokens_emitted")
+    for cell in GRAPH_CELLS:
+        prompts = _shared_prompts(cfg) if cell == "paged_shared" else base
+        sampled = cell.endswith("sampled")
+        temps = [SAMPLED_TEMP * (i % 2) for i in range(8)] if sampled \
+            else None
+        make = lambda graphs: ServingEngine(
+            cfg, params, batch_slots=4, max_len=MAIN["max_len"],
+            scan_steps=8, graphs=graphs, **_cell_kw(cell))
+        eager, graph = make(False), make(True)
+        wants = [_serve_on(torch, eager, prompts, MAIN["new_tokens"], temps)
+                 for _ in range(2 if sampled else 1)]
+        runs, got_runs = [], []
+        for i, run in enumerate(("warm-up and capture", "replay")):
+            want, w_counts, w_st, _ = wants[i if sampled else 0]
+            captured0 = len(graph._compiled.captured)
+            got, counts, st_, _ = _serve_on(torch, graph, prompts,
+                                            MAIN["new_tokens"], temps)
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            if bad:
+                raise AssertionError(f"graphs {tag} {cell} ({run}): tokens "
+                                     "differ from the eager engine's on "
+                                     f"requests {bad}")
+            if counts != w_counts:
+                raise AssertionError(f"graphs {tag} {cell} ({run}): launch "
+                                     f"counts {counts}, eager {w_counts}")
+            if any(st_[k] != w_st[k] for k in keys):
+                raise AssertionError(f"graphs {tag} {cell} ({run}): stats "
+                                     f"{st_} vs eager {w_st}")
+            runs.append(len(graph._compiled.captured) - captured0)
+            got_runs.append(got)
+        if runs[1]:
+            raise AssertionError(f"graphs {tag} {cell}: {runs[1]} captures "
+                                 "in the replay run")
+        out[cell] = {"tokens_bitwise_equal_eager": True,
+                     "launch_counts_equal_eager": True, **_graph_stats(graph)}
+        if sampled:
+            fresh = sum(got_runs[0][i] != got_runs[1][i]
+                        for i in range(1, 8, 2))
+            if not fresh:
+                raise AssertionError(f"graphs {tag} {cell}: the replay run's "
+                                     "sampled requests repeat the first "
+                                     "run's tokens")
+            out[cell]["sampled_requests_differing_between_runs"] = fresh
+            out[cell]["sampled_keys"] = sorted(
+                {k for k in graph._compiled.captured if k[-1] is False})
+            if not out[cell]["sampled_keys"]:
+                raise AssertionError(f"graphs {tag} {cell}: no key of the "
+                                     "full sampler was captured")
+        engines[cell] = (eager, graph, prompts)
+        log(f"graphs {tag} {cell}: " + json.dumps(out[cell]))
+    out["sampled_key_replays"] = sampler_replays(torch, cfg.vocab_size)
+    return out, engines
+
+
+def _mixed_stream(cfg, cell):
+    """Phase 21's mixed stream, from seed 2: 12 requests of 8-40 new
+    tokens. "chunked": random prompts of 80-640 tokens. "paged_shared":
+    three system prompts of 96-448 tokens, four requests each (in order),
+    each with its own 8-64-token suffix. (prompts, new tokens)."""
+    import numpy as np
+    rng = np.random.RandomState(2)
+    news = [int(x) for x in rng.randint(8, 41, 12)]
+    if cell == "chunked":
+        return [rng.randint(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+                for n in rng.randint(80, 641, 12)], news
+    prompts = []
+    for n in rng.randint(96, 449, 3):
+        sys_p = rng.randint(0, cfg.vocab_size, (int(n),))
+        prompts += [np.concatenate([sys_p, rng.randint(
+            0, cfg.vocab_size, (int(m),))]).astype(np.int32)
+            for m in rng.randint(8, 65, 4)]
+    return prompts, news
+
+
+def graph_mixed_stream(torch, cfg, params):
+    """Phase 21, bf16: a stream whose chunk keys rarely repeat (mixed
+    prompt lengths; mixed system-prompt lengths behind shared prefixes),
+    on fresh engines in turns: eager, graphs (the stream, then the stream
+    again), graphs (the same), eager. Every run's greedy tokens, launch
+    counts and step counts must equal the first eager run's. Prints each
+    run's wall, prefill and decode seconds, and the graph engines'
+    captures, drops, capture seconds, pool and chunk-buffer sizes."""
+    from repro_torch.serving.engine import ServingEngine
+    out = {}
+    keys = ("decode_steps", "spec_steps", "prefill_batches", "tokens_emitted")
+    for cell in ("chunked", "paged_shared"):
+        prompts, news = _mixed_stream(cfg, cell)
+        runs, want = [], None
+        for mode in ("eager", "graphs", "graphs", "eager"):
+            eng = ServingEngine(cfg, params, batch_slots=4,
+                                max_len=MAIN["max_len"], scan_steps=8,
+                                graphs=mode == "graphs", **_cell_kw(cell))
+            for rep in ("first", "again") if mode == "graphs" else ("first",):
+                captured0 = len(eng._compiled.captured)
+                got, counts, st_, wall = _serve_on(torch, eng, prompts, news)
+                if want is None:
+                    want = (got, counts, st_)
+                elif (got != want[0] or counts != want[1]
+                      or any(st_[k] != want[2][k] for k in keys)):
+                    raise AssertionError(
+                        f"mixed stream {cell} ({mode}, {rep}): tokens, "
+                        "launch counts or step counts differ from eager's")
+                row = {"mode": mode, "pass": rep, "wall_s": wall,
+                       "prefill_s": st_["prefill_s"],
+                       "decode_s": st_["decode_s"],
+                       "prefill_batches": st_["prefill_batches"],
+                       "decode_steps": st_["decode_steps"]}
+                if mode == "graphs":
+                    row.update(_graph_stats(eng), captured_in_pass=len(
+                        eng._compiled.captured) - captured0,
+                        chunk_keys=len({k for k in eng._compiled.captured
+                                        if k[0] == "chunk"}))
+                runs.append(row)
+        wall = {m: [r["wall_s"] for r in runs
+                    if r["mode"] == m and r["pass"] == "first"]
+                for m in ("eager", "graphs")}
+        out[cell] = {"runs": runs,
+                     "first_pass_eager_over_graphs":
+                     sum(wall["eager"]) / sum(wall["graphs"])}
+        log(f"graphs mixed stream {cell} (bf16): " + json.dumps(out[cell]))
+    return out
+
+
+def graph_turns(torch, engines):
+    """Phase 21's times, bf16: eager and graph engines (warmed by the
+    gates) serve the first 4 of their cell's requests, one admission
+    batch, in turns (eager, graphs, graphs, eager, twice): decode ms a
+    step in the sequential and paged cells, verify ms a step in the
+    speculative cell, prefill ms a batch in the chunked cell (host clock,
+    ending in the block's or batch's host sync)."""
+    metric = {"default": ("decode_s", "decode_steps"),
+              "speculative": ("decode_s", "decode_steps"),
+              "chunked": ("prefill_s", "prefill_batches"),
+              "paged_default": ("decode_s", "decode_steps")}
+    out = {}
+    for cell, (num, den) in metric.items():
+        eager, graph, prompts = engines[cell]
+        t = {"eager": [], "graphs": []}
+        for mode in ("eager", "graphs", "graphs", "eager") * 2:
+            eng = eager if mode == "eager" else graph
+            st_ = _serve_on(torch, eng, prompts[:4], MAIN["new_tokens"])[2]
+            t[mode].append(st_[num] * 1e3 / st_[den])
+        t["eager_over_graphs"] = sum(t["eager"]) / sum(t["graphs"])
+        out[f"{cell} ms a {'batch' if cell == 'chunked' else 'step'}"] = t
+    log("graphs vs eager, in turns (bf16): " + json.dumps(out))
+    return out
 
 
 def ptxas_report(out):
@@ -2505,6 +2830,20 @@ def main():
     trace_unshared = trace_decode(torch, cfg, params, span="engine.prefill",
                                   n_new=2, prompts=_shared_prompts(cfg)[:4],
                                   **_cell_kw("paged_chunked"))
+    # phase 21: compiled dispatch against eager dispatch
+    ggates, gengines = graph_gates(torch, cfg, params, "bf16")
+    gturns = graph_turns(torch, gengines)
+    gmixed = graph_mixed_stream(torch, cfg, params)
+    gtraces = {
+        "decode": trace_decode(torch, cfg, params, graphs=False),
+        "verify": trace_decode(torch, cfg, params, graphs=False,
+                               **_cell_kw("speculative")),
+        "chunked prefill": trace_decode(torch, cfg, params,
+                                        span="engine.prefill", n_new=2,
+                                        graphs=False, **_cell_kw("chunked")),
+        "paged decode": trace_decode(torch, cfg, params, graphs=False,
+                                     **_cell_kw("paged_default"))}
+    del gengines
     del params
     cells32 = serve_slice_fp32(torch, cfg)
 
@@ -2621,10 +2960,28 @@ def main():
         f"plain {pg_times[1]:.4f}, SDPA {pg_times[2]:.4f}, bound "
         f"{pb_ms_:.6f} ({pb_by_}); whole paged route (gather, kernel, "
         f"scatter) {pg_route_ms:.5f} ms")
-    log("paged / contiguous decode ms a step (bf16, in turns): "
-        f"{pcells['decode_ms_per_step_in_turns']['paged_over_contiguous']:.3f}; "
-        "shared / unshared prefill ms a batch: "
-        f"{pcells['paged_shared']['prefill_ms_per_batch'] / pcells['paged_chunked']['prefill_ms_per_batch']:.3f}")
+    ratio = (pcells["decode_ms_per_step_in_turns"]["paged_over_contiguous"],
+             pcells["prefill_ms_per_batch_in_turns"]["shared_over_unshared"])
+    log(f"paged / contiguous decode ms a step (bf16, in turns): "
+        f"{ratio[0]:.3f}; shared / unshared prefill ms a batch (warmed "
+        f"engines, in turns): {ratio[1]:.3f}")
+    log(f"graphs gates (bf16): {json.dumps(ggates)}")
+    log(f"graphs gates (fp32): {json.dumps(cells32['graphs'])}")
+    log(f"graphs vs eager in turns (bf16): {json.dumps(gturns)}")
+    log(f"graphs mixed stream (bf16): {json.dumps(gmixed)}")
+    for name, (g, e) in {"decode": (trace, gtraces["decode"]),
+                         "verify": (trace_spec, gtraces["verify"]),
+                         "chunked prefill": (trace_chunked,
+                                             gtraces["chunked prefill"]),
+                         "paged decode": (trace_paged,
+                                          gtraces["paged decode"])}.items():
+        unit = "batch" if name == "chunked prefill" else "step"
+        log(f"graphs vs eager trace, {name}: " + json.dumps({
+            mode: {k: t.get(k) for k in (
+                "span_busy_share", "run_busy_share", f"kernels_per_{unit}",
+                "fused_decode_kernels_per_step", "span_host_ms",
+                "span_device_busy_ms", "captured_in_traced_run")}
+            for mode, t in (("graphs", g), ("eager", e))}))
     log(f"e2e: {json.dumps(e2e)}")
     log(f"trace: {json.dumps(trace)}")
     log(f"unembed: {json.dumps(unembed)}")

@@ -5,9 +5,12 @@ Parameters are plain dicts of tensors with the JAX package's layouts
 (`x @ W` weights of shape (d_in, d_out)); attention tensors are
 (B, H, L, D); ring caches are (B, Hkv, W, D) with a per-slot (B,) int32
 `step`. Paged caches hold block pools and a block table instead of the
-rings (`init_paged_kv_cache`). Decode updates a cache IN PLACE (the tensors
-of the dict it is given, and its `step`), where the JAX engine donated the
-cache buffers; a prefill chunk replaces the dict's k/v entries and step.
+rings (`init_paged_kv_cache`). Decode and prefill chunks update a cache IN
+PLACE (the tensors of the dict it is given, its `step` included; a lone
+`attention_decode` call rebinds `step` unless asked not to), where the JAX
+engine donated the cache buffers: through `model.decode_step` and
+`model.prefill_chunk` every cache tensor keeps its storage for the cache's
+lifetime, which is what lets the serving engine replay them as CUDA graphs.
 """
 from __future__ import annotations
 
@@ -297,7 +300,7 @@ def ring_scatter(cache_kv, new, positions, write, g: int, ring: int):
     slot) the highest-index writer wins, so a span longer than the ring and
     per-row ragged lengths both resolve as sequential FIFO insertion would.
     Returns a new tensor (a gather of the winning rows: exact in any
-    dtype)."""
+    dtype), which the callers copy into the cache."""
     b, h, cap, d = cache_kv.shape
     t = new.shape[2]
     positions = positions.long()
@@ -337,15 +340,15 @@ def prefill_kv_cache(cfg: AttentionLayerCfg, k, v, max_len: int,
     else:
         write = torch.arange(l, device=dev)[None, :] < lens[:, None]
         tok = torch.arange(l, device=dev)
-        cache["k"] = ring_scatter(cache["k"], k, tok, write, g, cap - g)
-        cache["v"] = ring_scatter(cache["v"], v, tok, write, g, cap - g)
-    cache["step"] = lens.clone()
+        cache["k"].copy_(ring_scatter(cache["k"], k, tok, write, g, cap - g))
+        cache["v"].copy_(ring_scatter(cache["v"], v, tok, write, g, cap - g))
+    cache["step"].copy_(lens)
     return cache
 
 
 def attention_decode(params: Params, cfg: AttentionLayerCfg, x, cache, *,
                      impl: Optional[str] = None, lookahead: int = 0,
-                     rope=None, num_new=None):
+                     rope=None, num_new=None, step_in_place: bool = False):
     """T-token decode. x: (B, T, Dm). The ring insert (at each slot's own
     `step`) and the window attention run in one `decode_attention` call —
     the fused CUDA kernel on the card. `rope` (tables of `rope_tables` at
@@ -354,7 +357,9 @@ def attention_decode(params: Params, cfg: AttentionLayerCfg, x, cache, *,
     (`init_paged_kv_cache`) decodes on its gathered view, which is then
     scattered back through the table. Updates `cache` IN PLACE (its k/v
     tensors, or pk/pv pools, and step) and returns (out (B, T, Dm),
-    cache)."""
+    cache). The step advances by T: into a new tensor by default, or in
+    the given tensor's storage with `step_in_place` (`model.decode_step`,
+    whose caches keep their storage for CUDA graph replay)."""
     b, t, _ = x.shape
     q, k_new, v_new = _project_qkv(params, cfg, x, x)
     step = cache["step"]
@@ -387,7 +392,10 @@ def attention_decode(params: Params, cfg: AttentionLayerCfg, x, cache, *,
     if paged:
         paged_scatter(cache["pk"], cache["table"], k_arr)
         paged_scatter(cache["pv"], cache["table"], v_arr)
-    cache["step"] = step + t
+    if step_in_place:
+        step.add_(t)
+    else:
+        cache["step"] = step + t
     out = out.transpose(1, 2).reshape(b, t, -1)
     return out @ params["wo"], cache
 
@@ -404,7 +412,7 @@ def attention_prefill_chunk(params: Params, cfg: AttentionLayerCfg, x, cache,
     pos0 is shared by every row; lengths (B,) stop each row's writes at its
     own length (outputs past it are garbage the caller drops). `rope`:
     tables of `rope_tables` at pos0 + arange(T), shared by every layer.
-    Updates `cache` IN PLACE (its k/v entries and step = min(lengths,
+    Updates `cache` IN PLACE (its k/v tensors and step = min(lengths,
     pos0+T)) and returns (out (B, T, Dm), cache). Causal specs only."""
     if not cfg.spec.causal or cfg.cross:
         raise ValueError("prefill chunks need causal self-attention")
@@ -423,9 +431,9 @@ def attention_prefill_chunk(params: Params, cfg: AttentionLayerCfg, x, cache,
         q, k_new, v_new, cache["k"], cache["v"], cfg.spec, pos0, lens,
         ring_cap=cap, impl=impl)
     write = pos[None, :] < lens[:, None]                         # (B, T)
-    cache["k"] = ring_scatter(cache["k"], k_new, pos, write, g, cap - g)
-    cache["v"] = ring_scatter(cache["v"], v_new, pos, write, g, cap - g)
-    cache["step"] = torch.clamp(lens, max=pos0 + t)
+    cache["k"].copy_(ring_scatter(cache["k"], k_new, pos, write, g, cap - g))
+    cache["v"].copy_(ring_scatter(cache["v"], v_new, pos, write, g, cap - g))
+    cache["step"].copy_(torch.clamp(lens, max=pos0 + t))
     out = out.transpose(1, 2).reshape(b, t, -1)
     return out @ params["wo"], cache
 

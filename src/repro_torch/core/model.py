@@ -361,7 +361,8 @@ def decode_step(params: Params, cfg: ModelConfig, batch, caches: Caches, *,
     (or {"embeddings": (B, T, Dm)}). Per-slot cache steps: rows may sit at
     different positions. T > 1 needs caches allocated with lookahead >=
     T-1. "xattn" layers attend the cross K/V that prefill stored. Caches
-    update IN PLACE. Runs without autograd. Returns (logits (B, T, V)
+    update IN PLACE, steps included: every cache tensor keeps its storage.
+    Runs without autograd. Returns (logits (B, T, V)
     fp32, caches)."""
     _check_supported(cfg)
     x = embed_tokens(params, cfg, batch)
@@ -386,7 +387,8 @@ def decode_step(params: Params, cfg: ModelConfig, batch, caches: Caches, *,
             y, _ = L.attention_decode(p["mixer"],
                                       attn_cfg(cfg, kind, index=i), h,
                                       cache, impl=impl, lookahead=lookahead,
-                                      rope=rope, num_new=num_new)
+                                      rope=rope, num_new=num_new,
+                                      step_in_place=True)
             x = x + y
             if kind == "xattn":
                 h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)

@@ -102,15 +102,41 @@ def load(stem: str) -> ctypes.CDLL:
         return _LIBS[stem]
 
 
+# every LaunchCounter, in creation order (see `launch_counts`)
+_COUNTERS: List["LaunchCounter"] = []
+
+
 class LaunchCounter:
     """Counts a wrapper's kernel launches: `n` grows by one where the
-    wrapper launches its kernel, and nowhere else."""
+    wrapper launches its kernel, and nowhere else. A CUDA graph that
+    replays the launch is the one exception: the serving engine takes back
+    what the wrappers counted while it captured the graph (a capture
+    records launches and runs nothing) and adds that count at every replay
+    (`launch_counts`, `set_launch_counts`, `add_launches`)."""
 
     def __init__(self):
         self.n = 0
+        _COUNTERS.append(self)
 
     def reset(self) -> None:
         self.n = 0
+
+
+def launch_counts() -> List[int]:
+    """Every LaunchCounter's count, in creation order."""
+    return [c.n for c in _COUNTERS]
+
+
+def set_launch_counts(counts: List[int]) -> None:
+    """Restore counts that `launch_counts` returned."""
+    for c, n in zip(_COUNTERS, counts):
+        c.n = n
+
+
+def add_launches(deltas: List[int]) -> None:
+    """Add per-counter launch counts (a graph replay's launches)."""
+    for c, n in zip(_COUNTERS, deltas):
+        c.n += n
 
 
 def check_status(name: str, status: int) -> None:

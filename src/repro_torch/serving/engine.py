@@ -37,6 +37,25 @@ Blocks stop at the earliest slot completion, so the generator advances in
 the same order whatever `scan_steps` is and block decode is token-for-token
 stepwise decode.
 
+Compiled dispatch (`graphs`, the JAX engine's `_Compiled` jit cache): on the
+card, each hot path is captured once per shape as a CUDA graph and
+replayed, so the host launches one graph where it launched hundreds of
+kernels. A sequential decode block is keyed by (n, slots, greedy-only), a
+verify step by (slots, greedy-only) and replayed up to n times, a prefill
+chunk by (rows, pos0, chunk length). A key's first use runs eagerly (the
+warm-up: kernel builds, pattern uploads, cuBLAS set-up), its second use
+captures and replays it, and every later use replays. Decode and verify
+keys are bounded by `scan_steps`; chunk keys grow with every new prompt or
+prefix length, so at most CHUNK_GRAPHS chunk graphs are kept and the least
+recently used is dropped (its key is captured again at its next use).
+Every carry a graph reads and writes (the caches and their steps, the
+staged per-slot vectors, the drafter history, the chunked-prefill caches
+and logits) is updated in place, so its storage is fixed for the engine's
+lifetime; on the CPU the engine runs the same functions eagerly.
+Copy-on-write, table pushes, admission and the one host read a block (or
+verify step) stay between replays, where the JAX engine has them too. A
+capture or replay that fails raises; nothing falls back to eager.
+
 Options of the JAX engine that this port does not have yet (meshes, fault
 plans, queue bounds, device metrics) raise NotImplementedError at
 construction; none is ignored.
@@ -45,6 +64,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import time
 from typing import Deque, Dict, List, Optional, Tuple
 
@@ -54,6 +74,7 @@ import torch
 from repro_torch.core import layers as L
 from repro_torch.core import model as Mod
 from repro_torch.core.types import ModelConfig
+from repro_torch.kernels import _build
 from repro_torch.serving import sampling
 from repro_torch.serving.drafter import NGramDrafter, get_drafter
 from repro_torch.serving.paged import PagedManager
@@ -100,11 +121,108 @@ class Result:
 # decode_impl (the JAX engine's names) -> the `impl` of `model.decode_step`
 _DECODE_IMPLS = {None: None, "pallas": "kernel", "ref": "ref"}
 
+# chunk graphs an engine keeps: a chunk's key holds its pos0, which a
+# traced pos0 would remove (ROADMAP item 6d)
+CHUNK_GRAPHS = 64
+
 
 def _refuse(name: str, value, default) -> None:
     if value != default:
         raise NotImplementedError(
             f"ServingEngine({name}={value!r}) is not ported yet")
+
+
+def capture_graph(body, shared: Dict, generator: torch.Generator):
+    """Capture `body()` into a CUDA graph. Every graph of an engine
+    captures on one side stream and allocates from one memory pool, kept
+    in `shared` (made at its first capture). The engine's generator is
+    registered with the graph, so each replay draws fresh noise and
+    advances it as an eager call would. The capture records and runs
+    nothing; the caller replays the graph to run it. Returns (the graph,
+    the bytes the pool grew by while capturing it)."""
+    if not shared:
+        shared.update(pool=torch.cuda.graph_pool_handle(),
+                      stream=torch.cuda.Stream())
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    with torch.cuda.graph(graph, pool=shared["pool"],
+                          stream=shared["stream"]):
+        reserved = torch.cuda.memory_reserved()
+        body()
+        grown = torch.cuda.memory_reserved() - reserved
+    return graph, grown
+
+
+class _Compiled:
+    """The engine's captured CUDA graphs, one per key (the counterpart of
+    the JAX engine's `_Compiled` jit cache). `run(key, body)` runs body()
+    eagerly at the key's first use (the warm-up), captures it at the
+    second and replays it then and at every later use; with `enabled`
+    False (CPU params, or graphs=False) it always runs body() eagerly.
+    At most CHUNK_GRAPHS chunk graphs (key[0] == "chunk") are kept, the
+    least recently used dropped. The launch counters count what ran: the
+    launches the wrappers counted during a capture are taken back and
+    added at every replay."""
+
+    def __init__(self, enabled: bool, generator: torch.Generator):
+        self.enabled = enabled
+        self.generator = generator
+        self._seen = set()
+        self._graphs: "collections.OrderedDict[tuple, tuple]" = \
+            collections.OrderedDict()       # least recently used first
+        self._shared: Dict = {}             # capture_graph's pool, stream
+        self.captured: List[tuple] = []     # keys, in capture order
+        self.capture_s = 0.0                # host time spent capturing
+        self.pool_bytes = 0                 # the shared pool's size
+        self.replays = 0
+        self.evicted = 0                    # chunk graphs dropped
+
+    def run(self, key: tuple, body) -> None:
+        if not self.enabled:
+            body()
+            return
+        entry = self._graphs.get(key)
+        if entry is None:
+            if key not in self._seen:
+                self._seen.add(key)
+                body()
+                return
+            if key[0] == "chunk":
+                self._make_room()
+            entry = self._graphs[key] = self._capture(key, body)
+        self._graphs.move_to_end(key)
+        graph, deltas = entry
+        try:
+            graph.replay()
+        except RuntimeError as e:
+            raise RuntimeError(f"CUDA graph replay of {key} failed: {e}") \
+                from e
+        _build.add_launches(deltas)
+        self.replays += 1
+
+    def _make_room(self) -> None:
+        """Drop the least recently used chunk graphs until one more fits
+        under CHUNK_GRAPHS."""
+        held = [k for k in self._graphs if k[0] == "chunk"]
+        for k in held[:max(0, len(held) - CHUNK_GRAPHS + 1)]:
+            del self._graphs[k]
+            self.evicted += 1
+
+    def _capture(self, key: tuple, body) -> tuple:
+        t0 = time.perf_counter()
+        before = _build.launch_counts()
+        try:
+            graph, grown = capture_graph(body, self._shared, self.generator)
+        except RuntimeError as e:
+            raise RuntimeError(f"CUDA graph capture of {key} failed: {e}") \
+                from e
+        finally:
+            after = _build.launch_counts()
+            _build.set_launch_counts(before)
+        self.captured.append(key)
+        self.capture_s += time.perf_counter() - t0
+        self.pool_bytes += grown
+        return graph, [a - b for a, b in zip(after, before)]
 
 
 class ServingEngine:
@@ -121,7 +239,8 @@ class ServingEngine:
                  spec_resume_acceptance: Optional[float] = None,
                  kv_layout: str = "contiguous", share_prefix: bool = False,
                  share_min_prefix: int = 16,
-                 decode_impl: Optional[str] = None, mesh=None, faults=None,
+                 decode_impl: Optional[str] = None,
+                 graphs: Optional[bool] = None, mesh=None, faults=None,
                  max_pending: Optional[int] = None, metrics: bool = False):
         """Runs on the device that holds `params` (see `model.init_model` /
         `interop.params_from_jax`): the CUDA kernels on a card, their plain
@@ -160,6 +279,13 @@ class ServingEngine:
         version on the CPU); "pallas" (the JAX engine's name): the kernel,
         and a ValueError for CPU params; "ref": the plain versions.
 
+        graphs: replay decode blocks, verify steps and prefill chunks as
+        captured CUDA graphs (see the module docstring). None: on CUDA
+        params, eagerly on CPU ones; False: eagerly on the card too (the
+        counterpart of running the JAX engine under jax.disable_jit, and
+        the eager reference graphs are held to); True on CPU params raises
+        ValueError.
+
         mesh / faults / max_pending / metrics exist so that a caller
         porting a JAX engine call gets an error, not a silently different
         engine: any value other than the default raises
@@ -191,6 +317,9 @@ class ServingEngine:
         if decode_impl == "pallas" and self.device.type != "cuda":
             raise ValueError("decode_impl='pallas' runs the CUDA decode "
                              f"kernel; the params are on {self.device}")
+        if graphs and self.device.type != "cuda":
+            raise ValueError("graphs=True replays CUDA graphs; the params "
+                             f"are on {self.device}")
         self.decode_impl = decode_impl
         self._impl = _DECODE_IMPLS[decode_impl]
         self.slots = batch_slots
@@ -204,6 +333,9 @@ class ServingEngine:
         self.lookahead = self.tokens_per_step - 1
         self.drafter = get_drafter(draft) if self.speculative else None
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._compiled = _Compiled(
+            self.device.type == "cuda" if graphs is None else bool(graphs),
+            self.generator)
         self.scheduler = Scheduler(
             max_prefill_tokens=max_prefill_tokens, pad_to=pad_to,
             max_prompt_len=max_prompt_len, vocab_size=cfg.vocab_size)
@@ -230,6 +362,37 @@ class ServingEngine:
             # drafter history: device-resident, rows written at admission
             self.slot_hist, self.slot_hcnt = self.drafter.init_state(
                 batch_slots, self.device)
+        dev = self.device
+        # the per-slot decode vectors on the device: static buffers that the
+        # host mirrors are copied into after an admission (`_stage`) and
+        # that every block updates in place
+        self._dev: Dict[str, torch.Tensor] = dict(
+            tok=torch.zeros((batch_slots,), dtype=torch.int32, device=dev),
+            active=torch.zeros((batch_slots,), dtype=torch.bool, device=dev),
+            budget=torch.zeros((batch_slots,), dtype=torch.int32, device=dev),
+            temps=torch.zeros((batch_slots,), dtype=torch.float32,
+                              device=dev),
+            poisoned=torch.zeros((batch_slots,), dtype=torch.bool,
+                                 device=dev))
+        self._stale = True       # host mirrors changed since the last stage
+        self._anyt = False       # any live slot samples (temperature > 0)
+        # each block's tokens and emit flags: (scan_steps, slots) for
+        # sequential blocks, (scan_steps, slots, k+1) for verify blocks,
+        # whose steps write row `_sidx` and flag in `_flip` that a slot's
+        # `active` changed since the block began (`_active0`)
+        t = self.speculative + 1
+        self._toks = torch.zeros((self.scan_steps, batch_slots, t),
+                                 dtype=torch.int32, device=dev)
+        self._emit = torch.zeros((self.scan_steps, batch_slots, t),
+                                 dtype=torch.bool, device=dev)
+        self._sidx = torch.zeros((1,), dtype=torch.long, device=dev)
+        self._flip = torch.zeros((), dtype=torch.bool, device=dev)
+        self._active0 = torch.zeros((batch_slots,), dtype=torch.bool,
+                                    device=dev)
+        # chunked prefill's caches, last logits, chunk tokens and lengths:
+        # one persistent set of batch_slots rows, made at the first chunked
+        # batch; a batch of n rows runs in its first n rows
+        self._chunk_buf: Optional[Dict] = None
         self.spec_min_acceptance = float(spec_min_acceptance)
         self.spec_resume_acceptance = float(
             spec_min_acceptance if spec_resume_acceptance is None
@@ -240,9 +403,6 @@ class ServingEngine:
         self._spec_off = False            # acceptance-ladder state
         self._blocks_since_spec = 0
         self._hist_stale = False          # drafter history behind slot_out
-        # device-staged copies of the per-slot decode vectors; None means
-        # stale (every admission), rebuilt from the host mirrors
-        self._dev: Optional[Dict[str, torch.Tensor]] = None
         self._completed: List[Result] = []
         # host-clock time of the work that ends in a host sync: a prefill
         # batch ends with its first sampled tokens, a decode block with its
@@ -257,6 +417,11 @@ class ServingEngine:
                       "draft_accepted": 0, "spec_autodisable": 0,
                       "spec_resume": 0, "prefill_prefix_shared": 0,
                       "cow_moves": 0}
+
+    @property
+    def graphs(self) -> bool:
+        """Whether the engine replays captured CUDA graphs."""
+        return self._compiled.enabled
 
     @property
     def acceptance_rate(self) -> float:
@@ -304,16 +469,30 @@ class ServingEngine:
     @torch.no_grad()
     def prefill_logits(self, tokens: torch.Tensor, lengths: torch.Tensor,
                        prefix: int = 0):
-        """Prefill a padded batch (n, L) into fresh contiguous caches:
+        """Prefill a padded batch (n, L) into contiguous caches:
         single-shot, or in `prefill_chunk` lockstep chunks when the batch
         is longer than one. With `prefix` > 0 (every row's first `prefix`
         tokens equal; needs prefill_chunk), the prefix is prefilled once,
         single-shot on one row, its caches and last logits are copied to
         the n rows, and the chunks walk [prefix, L). Returns (each row's
         last-real-token logits (n, V) fp32, the caches). A chunk unembeds
-        only the (n, 1, D) rows whose last real token it holds."""
+        only the (n, 1, D) rows whose last real token it holds.
+
+        Single-shot prefill returns fresh tensors. A chunked batch (n <=
+        batch_slots) runs in the first n rows of the engine's persistent
+        set (zeroed in place first, so the rings match fresh caches), each
+        chunk keyed (n, pos0, chunk length) for compiled dispatch; the
+        returned logits and caches are views of that set, valid until the
+        next chunked batch."""
         n, l_pad = tokens.shape
         c = self.prefill_chunk
+        if not prefix and (not c or l_pad <= c):
+            logits, caches = Mod.prefill(self.params, self.cfg,
+                                         {"tokens": tokens}, self.max_len,
+                                         lengths=lengths,
+                                         lookahead=self.lookahead)
+            return logits[:, 0], caches
+        buf = self._chunk_rows(n)
         if prefix:
             one = torch.full((1,), prefix, dtype=torch.int32,
                              device=self.device)
@@ -321,34 +500,62 @@ class ServingEngine:
                                          {"tokens": tokens[:1, :prefix]},
                                          self.max_len, lengths=one,
                                          lookahead=self.lookahead)
-            caches = [{name: {leaf: t.repeat_interleave(n, dim=0)
-                              for leaf, t in layer.items()}
-                       for name, layer in blk.items()} for blk in caches]
-            last = logits[:, 0].repeat_interleave(n, dim=0)
-        elif not c or l_pad <= c:
-            logits, caches = Mod.prefill(self.params, self.cfg,
-                                         {"tokens": tokens}, self.max_len,
-                                         lengths=lengths,
-                                         lookahead=self.lookahead)
-            return logits[:, 0], caches
+            for full, first in zip(buf["caches"], caches):
+                for name, layer in full.items():
+                    for leaf, t in layer.items():
+                        t.copy_(first[name][leaf].expand_as(t))
+            buf["last"].copy_(logits[:, 0].expand_as(buf["last"]))
         else:
-            caches = Mod.init_caches(self.cfg, n, self.max_len,
-                                     lookahead=self.lookahead,
-                                     device=self.device)
-            last = torch.zeros((n, self.cfg.vocab_size),
-                               dtype=torch.float32, device=self.device)
-        rows = torch.arange(n, device=self.device)
+            for layer in (x for blk in buf["caches"] for x in blk.values()):
+                for t in layer.values():
+                    t.zero_()
+            buf["last"].zero_()
+        buf["lens"].copy_(lengths)
         for p in range(prefix, l_pad, c):
-            x = Mod.prefill_chunk(self.params, self.cfg,
-                                  {"tokens": tokens[:, p:p + c]}, caches, p,
-                                  lengths, lookahead=self.lookahead)
-            t = x.shape[1]
-            tpos = lengths.long() - 1 - p
-            hit = (tpos >= 0) & (tpos < t)
-            xsel = x[rows, tpos.clamp(0, t - 1)][:, None]
-            sel = Mod._unembed(self.params, self.cfg, xsel)[:, 0]
-            last = torch.where(hit[:, None], sel, last)
-        return last, caches
+            t = min(c, l_pad - p)
+            buf["tok"][:, :t].copy_(tokens[:, p:p + t])
+            self._compiled.run(("chunk", n, p, t),
+                               functools.partial(self._chunk_body, buf, p, t))
+        return buf["last"], buf["caches"]
+
+    def _chunk_rows(self, n: int) -> Dict:
+        """Views of the first n rows of the persistent chunked-prefill set
+        (batch_slots rows, made at its first use). The views of one n
+        always start at the same addresses, which is what a chunk's graph
+        replays."""
+        if n > self.slots:
+            raise ValueError(f"a chunked prefill batch holds at most "
+                             f"batch_slots={self.slots} rows, not {n}")
+        if self._chunk_buf is None:
+            dev, b = self.device, self.slots
+            self._chunk_buf = dict(
+                caches=Mod.init_caches(self.cfg, b, self.max_len,
+                                       lookahead=self.lookahead, device=dev),
+                last=torch.zeros((b, self.cfg.vocab_size),
+                                 dtype=torch.float32, device=dev),
+                tok=torch.zeros((b, self.prefill_chunk), dtype=torch.long,
+                                device=dev),
+                lens=torch.zeros((b,), dtype=torch.int32, device=dev))
+        full = self._chunk_buf
+        return dict(caches=[{name: {leaf: t[:n] for leaf, t in layer.items()}
+                             for name, layer in blk.items()}
+                            for blk in full["caches"]],
+                    **{k: full[k][:n] for k in ("last", "tok", "lens")})
+
+    def _chunk_body(self, buf: Dict, p: int, t: int) -> None:
+        """One prefill chunk (tokens [p, p+t) of buf's rows) into buf's
+        caches, and each row's last-real-token logits into buf["last"]
+        where the chunk holds that token."""
+        lens, last = buf["lens"], buf["last"]
+        x = Mod.prefill_chunk(self.params, self.cfg,
+                              {"tokens": buf["tok"][:, :t]}, buf["caches"],
+                              p, lens, lookahead=self.lookahead)
+        tpos = lens.long() - 1 - p
+        hit = (tpos >= 0) & (tpos < t)
+        rows = torch.arange(x.shape[0], device=x.device)
+        xsel = x[rows, tpos.clamp(0, t - 1)][:, None]
+        sel = Mod._unembed(self.params, self.cfg, xsel)[:, 0]
+        last.copy_(torch.where(hit[:, None], sel, last))
 
     @torch.no_grad()
     def _prefill_batch(self, plan: PrefillPlan, slots: List[int]):
@@ -362,9 +569,11 @@ class ServingEngine:
                 and plan.prefix_len >= self.share_min_prefix):
             prefix = int(plan.prefix_len)
         logits, caches = self.prefill_logits(tokens, lengths, prefix)
-        temps = torch.as_tensor([r.temperature for r in plan.requests],
-                                dtype=torch.float32, device=dev)
-        first = sampling.sample(self.generator, logits, temps, self.top_k)
+        host_temps = np.asarray([r.temperature for r in plan.requests],
+                                np.float32)
+        temps = torch.as_tensor(host_temps, device=dev)
+        first = sampling.sample(self.generator, logits, temps, self.top_k,
+                                any_sampling=bool((host_temps > 0).any()))
         idx = torch.as_tensor(slots, dtype=torch.long, device=dev)
         if self._paged is not None:
             # shareability is judged against every position prefill wrote:
@@ -401,7 +610,7 @@ class ServingEngine:
                 self.slot_free[s] = False
                 self.slot_req[s] = req
                 self.slot_budget[s] = budget
-        self._dev = None          # host mirrors changed; restage on device
+        self._stale = True        # host mirrors changed; restage on device
 
     def _insert_paged(self, caches, slots: List[int], idx: torch.Tensor):
         """Paged admission (the JAX engine's `insert_paged`): write the n
@@ -540,6 +749,9 @@ class ServingEngine:
         The block runs inside a profiler range named "engine.decode_block"
         ("engine.prefill" for admission): free when no profiler is
         active."""
+        if not 1 <= n <= self.scan_steps:
+            raise ValueError(f"a block runs 1..scan_steps={self.scan_steps} "
+                             f"steps, not {n}")
         live = [s for s in range(self.slots) if not self.slot_free[s]]
         if not live:
             return []
@@ -555,38 +767,49 @@ class ServingEngine:
                 self._hist_stale = True     # drafter history lags output
             return self._decode_steps(n, live)
 
-    def _stage(self) -> Dict[str, torch.Tensor]:
-        """The per-slot decode vectors on the device, restaged from the
-        host mirrors after an admission and reused verbatim between
-        blocks."""
-        if self._dev is None:
-            dev = self.device
-            active = np.asarray([not f for f in self.slot_free], bool)
-            self._dev = dict(
-                tok=torch.as_tensor(self.slot_last, device=dev),
-                active=torch.as_tensor(active, device=dev),
-                budget=torch.as_tensor(self.slot_budget, device=dev),
-                temps=torch.as_tensor(self.slot_temp, device=dev),
-                poisoned=torch.zeros((self.slots,), dtype=torch.bool,
-                                     device=dev))
-        return self._dev
+    def _stage(self) -> None:
+        """Copy the host mirrors into the static per-slot decode vectors
+        after an admission (between blocks the device copies are reused
+        verbatim), and decide the sampler's branch: `_anyt`, whether any
+        live slot samples, as the JAX engine computes it when it
+        restages."""
+        if not self._stale:
+            return
+        active = np.asarray([not f for f in self.slot_free], bool)
+        d = self._dev
+        for name, host in (("tok", self.slot_last), ("active", active),
+                           ("budget", self.slot_budget),
+                           ("temps", self.slot_temp)):
+            d[name].copy_(torch.from_numpy(host))
+        d["poisoned"].zero_()
+        self._anyt = bool(np.any((self.slot_temp > 0) & active))
+        self._stale = False
 
     @torch.no_grad()
     def _decode_steps(self, n: int, live: List[int]) -> List[Result]:
         t0 = time.perf_counter()
-        dev = self.device
-        d = self._stage()
+        self._stage()
+        greedy = not self._anyt
+        self._compiled.run(("decode", n, self.slots, greedy),
+                           functools.partial(self._decode_body, n, greedy))
+        return self._retire(live, n, self._toks[:n, :, 0],
+                            self._emit[:n, :, 0], t0)[0]
+
+    def _decode_body(self, n: int, greedy: bool) -> None:
+        """n sequential decode steps on the static vectors: tokens and emit
+        flags into rows [0, n) of the block buffers, the carries written
+        back in place."""
+        d = self._dev
         tok, active, budget, poisoned = (d["tok"], d["active"], d["budget"],
                                          d["poisoned"])
-        toks = torch.empty((n, self.slots), dtype=torch.int32, device=dev)
-        emit = torch.empty((n, self.slots), dtype=torch.bool, device=dev)
         for i in range(n):
             logits, _ = Mod.decode_step(self.params, self.cfg,
                                         {"tokens": tok[:, None]},
                                         self.caches, impl=self._impl,
                                         lookahead=self.lookahead)
             lg = logits[:, 0]
-            nxt = sampling.sample(self.generator, lg, d["temps"], self.top_k)
+            nxt = sampling.sample(self.generator, lg, d["temps"], self.top_k,
+                                  any_sampling=not greedy)
             # numerical guard: a non-finite row is QUARANTINED — not
             # emitted, budget untouched, slot deactivated
             bad = active & ~sampling.finite_rows(lg)
@@ -595,11 +818,12 @@ class ServingEngine:
             budget = budget - ok.to(torch.int32)
             poisoned = poisoned | bad
             active = ok & (budget > 0)
-            toks[i] = nxt
-            emit[i] = ok
+            self._toks[i, :, 0].copy_(nxt)
+            self._emit[i, :, 0].copy_(ok)
             tok = nxt
-        d.update(tok=tok, active=active, budget=budget, poisoned=poisoned)
-        return self._retire(live, n, toks, emit, t0)[0]
+        for name, val in (("tok", tok), ("active", active),
+                          ("budget", budget), ("poisoned", poisoned)):
+            d[name].copy_(val)
 
     @torch.no_grad()
     def _verify_steps(self, n: int, live: List[int],
@@ -625,62 +849,23 @@ class ServingEngine:
         Like the JAX engine's while_loop, the block ends as soon as any
         slot's `active` flips, so a freed slot refills at once and
         `spec_steps` counts as in JAX. That test is one host read of one
-        bool per verify step, the only host sync inside the block."""
+        bool per verify step, the only host sync inside the block; each
+        step is one compiled dispatch, keyed (slots, greedy-only)."""
         t0 = time.perf_counter()
-        dev = self.device
-        d = self._stage()
-        k = self.speculative
-        t = k + 1
-        tok, active, budget, poisoned = (d["tok"], d["active"], d["budget"],
-                                         d["poisoned"])
-        hist, hcnt = self.slot_hist, self.slot_hcnt
-        temps = d["temps"].repeat_interleave(t)
-        pos = torch.arange(t, device=dev)
-        toks = torch.zeros((n, self.slots, t), dtype=torch.int32, device=dev)
-        emit = torch.zeros((n, self.slots, t), dtype=torch.bool, device=dev)
-        active0 = active
+        self._stage()
+        greedy = not self._anyt
+        self._sidx.zero_()
+        self._active0.copy_(self._dev["active"])
+        body = functools.partial(self._verify_body, greedy)
         steps = 0
         while steps < n:
-            drafts = self.drafter.sanitize(
-                self.drafter.propose(hist, hcnt, k), self.cfg.vocab_size)
-            x = torch.cat([tok[:, None], drafts], dim=1)
-            logits, _ = Mod.decode_step(self.params, self.cfg,
-                                        {"tokens": x}, self.caches,
-                                        impl=self._impl,
-                                        lookahead=self.lookahead)
-            # every verify position in one sampling call
-            ver = sampling.sample(
-                self.generator, logits.reshape(self.slots * t, -1), temps,
-                self.top_k).reshape(self.slots, t)
-            finpos = torch.isfinite(logits).all(dim=-1)          # (B, T)
-            first_bad = torch.where(
-                finpos.all(dim=1), t,
-                finpos.to(torch.int32).argmin(dim=1)).to(torch.int32)
-            match = (drafts == ver[:, :k]).to(torch.int32)
-            acc = match.cumprod(dim=1).sum(dim=1, dtype=torch.int32)
-            e_clean = torch.minimum(acc + 1, budget)
-            bad = active & (first_bad < e_clean)
-            ok = active & ~bad
-            e = torch.where(active, torch.where(bad, first_bad, e_clean),
-                            0).to(torch.int32)
-            back = t - e
-            for blk in self.caches:
-                for layer in blk.values():
-                    layer["step"] = layer["step"] - back
-            newlast = ver.gather(1, (e - 1).clamp(min=0).long()[:, None])[:, 0]
-            tok = torch.where(ok, newlast, tok)
-            hist, hcnt = self.drafter.observe(hist, hcnt, ver, e)
-            toks[steps] = ver
-            emit[steps] = pos[None, :] < e[:, None]
-            budget = budget - e
-            poisoned = poisoned | bad
-            active = ok & (budget > 0)
+            self._compiled.run(("verify", self.slots, greedy), body)
             steps += 1
-            if not torch.equal(active, active0):     # one host read
+            if bool(self._flip):                     # one host read
                 break
-        self.slot_hist, self.slot_hcnt = hist, hcnt
-        d.update(tok=tok, active=active, budget=budget, poisoned=poisoned)
-        done, emit_np = self._retire(live, steps, toks, emit, t0)
+        done, emit_np = self._retire(live, steps, self._toks[:steps],
+                                     self._emit[:steps], t0)
+        k = self.speculative
         counts = emit_np.sum(axis=-1)                          # (n, slots)
         ran = counts >= 1
         prop = k * int(ran.sum())
@@ -690,6 +875,61 @@ class ServingEngine:
         self.stats["draft_accepted"] += accepted
         self._spec_ladder_update(prop, accepted, probe)
         return done
+
+    def _verify_body(self, greedy: bool) -> None:
+        """One verify step on the static vectors and the drafter history:
+        tokens and emit flags into row `_sidx` of the block buffers (then
+        `_sidx` += 1), `_flip` set when a slot's active flag differs from
+        the block's start, every carry written back in place."""
+        d = self._dev
+        k = self.speculative
+        t = k + 1
+        tok, active, budget, poisoned = (d["tok"], d["active"], d["budget"],
+                                         d["poisoned"])
+        hist, hcnt = self.slot_hist, self.slot_hcnt
+        drafts = self.drafter.sanitize(
+            self.drafter.propose(hist, hcnt, k), self.cfg.vocab_size)
+        x = torch.cat([tok[:, None], drafts], dim=1)
+        logits, _ = Mod.decode_step(self.params, self.cfg,
+                                    {"tokens": x}, self.caches,
+                                    impl=self._impl,
+                                    lookahead=self.lookahead)
+        # every verify position in one sampling call
+        ver = sampling.sample(
+            self.generator, logits.reshape(self.slots * t, -1),
+            d["temps"].repeat_interleave(t), self.top_k,
+            any_sampling=not greedy).reshape(self.slots, t)
+        finpos = torch.isfinite(logits).all(dim=-1)              # (B, T)
+        first_bad = torch.where(
+            finpos.all(dim=1), t,
+            finpos.to(torch.int32).argmin(dim=1)).to(torch.int32)
+        match = (drafts == ver[:, :k]).to(torch.int32)
+        acc = match.cumprod(dim=1).sum(dim=1, dtype=torch.int32)
+        e_clean = torch.minimum(acc + 1, budget)
+        bad = active & (first_bad < e_clean)
+        ok = active & ~bad
+        e = torch.where(active, torch.where(bad, first_bad, e_clean),
+                        0).to(torch.int32)
+        back = t - e
+        for blk in self.caches:
+            for layer in blk.values():
+                layer["step"].sub_(back)
+        newlast = ver.gather(1, (e - 1).clamp(min=0).long()[:, None])[:, 0]
+        new_hist, new_hcnt = self.drafter.observe(hist, hcnt, ver, e)
+        pos = torch.arange(t, device=ver.device)
+        self._toks.index_copy_(0, self._sidx, ver[None])
+        self._emit.index_copy_(0, self._sidx,
+                               (pos[None, :] < e[:, None])[None])
+        self._sidx.add_(1)
+        budget = budget - e
+        active = ok & (budget > 0)
+        self._flip.copy_((active != self._active0).any())
+        for name, val in (("tok", torch.where(ok, newlast, tok)),
+                          ("active", active), ("budget", budget),
+                          ("poisoned", poisoned | bad)):
+            d[name].copy_(val)
+        hist.copy_(new_hist)
+        hcnt.copy_(new_hcnt)
 
     def _retire(self, live: List[int], steps: int, toks: torch.Tensor,
                 emit: torch.Tensor, t0: float

@@ -6,13 +6,20 @@ the argmax of the raw logits, sampling rows draw from the temperature-scaled
 (optionally top-k-truncated) distribution by the Gumbel-max trick. An
 explicit `torch.Generator` takes the place of the JAX key.
 
-Every call draws the same amount of noise, one uniform per (row, vocab)
+The full path draws the same amount of noise, one uniform per (row, vocab)
 entry, whatever the temperatures are, so flipping one slot's temperature
 never shifts any other slot's random stream, and a fixed generator state
-reproduces. The draws are not JAX's: sampled rows are held to these
-properties, not to JAX's tokens.
+reproduces. The greedy-only branch (`any_sampling=False`, the JAX
+sampler's `lax.cond` branch) takes one argmax and draws nothing: where the
+JAX key still splits in a greedy-only block, the port's generator does not
+advance. The engine decides the branch on the host, from the same slot
+state for every `scan_steps`, so its runs still reproduce under a fixed
+seed. The draws are not JAX's: sampled rows are held to these properties,
+not to JAX's tokens.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -25,12 +32,18 @@ def finite_rows(logits: torch.Tensor) -> torch.Tensor:
 
 
 def sample(generator: torch.Generator, logits: torch.Tensor,
-           temperatures: torch.Tensor, top_k: int = 0) -> torch.Tensor:
+           temperatures: torch.Tensor, top_k: int = 0,
+           any_sampling: Optional[bool] = None) -> torch.Tensor:
     """Draw one token per row. logits: (B, V); temperatures: (B,) float.
-    top_k: 0 disables truncation. Returns int32 (B,)."""
+    top_k: 0 disables truncation. any_sampling: the host's `any(temps > 0)`
+    over the live rows; False takes the greedy-only branch, one argmax of
+    the raw logits, bitwise the full path's greedy rows. None (the caller
+    does not know) and True take the full path. Returns int32 (B,)."""
     logits = logits.float()
-    temps = temperatures.to(device=logits.device, dtype=torch.float32)
     greedy = logits.argmax(dim=-1).to(torch.int32)
+    if any_sampling is False:
+        return greedy
+    temps = temperatures.to(device=logits.device, dtype=torch.float32)
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp_(min=1e-20)))
     lg = logits
