@@ -101,6 +101,18 @@ each of which raises on failure:
                20's traces (which run graphs, the engine's default on the
                card): busy share and kernels a step; graphs captured,
                capture time and pool memory per cell.
+ 22. telemetry - (run after phase 21) the sequential, speculative,
+               chunked, paged and shared-prefix cells of phase 21 on graph
+               engines with metrics=True (bf16): tokens bitwise phase 21's
+               metrics-off graph runs, run for run, with every launch
+               counter, the keys captured and the replays equal; the device
+               counters equal to the host oracle; the Chrome trace and
+               Prometheus exports valid; the fused decode's dispatch census
+               (its split and chunk). Then TTFT, TPOT and queue-delay
+               p50/p95/p99 per cell, metrics-on against metrics-off decode
+               and verify ms a step in turns, a traced metrics-on decode
+               block beside phase 6's, and one kernelprof.profile_decode
+               row at phase 5's decode shape with its share of the bound.
   7. backward - the dQ and dK/dV kernels against their plain version at the
                training shapes (B=4, Hq=32, Hkv=8, L=2048, D=64, window
                256, 4 globals, causal; plus group 1 and 8, softcap 30 and
@@ -2558,7 +2570,9 @@ def graph_gates(torch, cfg, params, tag):
     launch counter must count what eager counted, the step and batch
     counts must agree, and the second run must capture nothing. Then a
     sampled key's replays against eager draws (`sampler_replays`). Returns
-    ({cell: summary}, {cell: (eager engine, graph engine, prompts)})."""
+    ({cell: summary}, {cell: (eager engine, graph engine, prompts, the
+    graph engine's runs: (tokens, launch counts, keys captured, replays)
+    each)})."""
     import numpy as np
     from repro_torch.serving.engine import ServingEngine
     rng = np.random.RandomState(0)
@@ -2577,12 +2591,15 @@ def graph_gates(torch, cfg, params, tag):
         eager, graph = make(False), make(True)
         wants = [_serve_on(torch, eager, prompts, MAIN["new_tokens"], temps)
                  for _ in range(2 if sampled else 1)]
-        runs, got_runs = [], []
+        runs, got_runs, graph_runs = [], [], []
         for i, run in enumerate(("warm-up and capture", "replay")):
             want, w_counts, w_st, _ = wants[i if sampled else 0]
             captured0 = len(graph._compiled.captured)
+            replays0 = graph._compiled.replays
             got, counts, st_, _ = _serve_on(torch, graph, prompts,
                                             MAIN["new_tokens"], temps)
+            graph_runs.append((got, counts, graph._compiled.captured[
+                captured0:], graph._compiled.replays - replays0))
             bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
             if bad:
                 raise AssertionError(f"graphs {tag} {cell} ({run}): tokens "
@@ -2614,7 +2631,7 @@ def graph_gates(torch, cfg, params, tag):
             if not out[cell]["sampled_keys"]:
                 raise AssertionError(f"graphs {tag} {cell}: no key of the "
                                      "full sampler was captured")
-        engines[cell] = (eager, graph, prompts)
+        engines[cell] = (eager, graph, prompts, graph_runs)
         log(f"graphs {tag} {cell}: " + json.dumps(out[cell]))
     out["sampled_key_replays"] = sampler_replays(torch, cfg.vocab_size)
     return out, engines
@@ -2702,7 +2719,7 @@ def graph_turns(torch, engines):
               "paged_default": ("decode_s", "decode_steps")}
     out = {}
     for cell, (num, den) in metric.items():
-        eager, graph, prompts = engines[cell]
+        eager, graph, prompts, _ = engines[cell]
         t = {"eager": [], "graphs": []}
         for mode in ("eager", "graphs", "graphs", "eager") * 2:
             eng = eager if mode == "eager" else graph
@@ -2712,6 +2729,125 @@ def graph_turns(torch, engines):
         out[f"{cell} ms a {'batch' if cell == 'chunked' else 'step'}"] = t
     log("graphs vs eager, in turns (bf16): " + json.dumps(out))
     return out
+
+
+# ------------------------------------------------------------ phase 22 ---
+
+# the serve cells whose metrics-on graph runs are held to phase 21's
+# metrics-off graph runs
+TELEMETRY_CELLS = ("default", "speculative", "chunked", "paged_default",
+                   "paged_shared")
+# phase 5's fused-decode shape for kernelprof.profile_decode: 4 slots, 8 kv
+# heads of 4 queries, D=64, the 261-row ring of window 256 + 4 globals
+PROFILE_SHAPE = dict(b=MAIN["b"], h_kv=MAIN["hkv"],
+                     group=MAIN["hq"] // MAIN["hkv"], t=1, d=MAIN["d"],
+                     window=MAIN["window"], num_global=MAIN["num_global"],
+                     cap=MAIN["window"] + 1 + MAIN["num_global"])
+
+
+def _latency_ms(records):
+    """p50 / p95 / p99 (ms) and count of TTFT, TPOT and queue delay over
+    tracer records."""
+    from repro_torch.telemetry.tracer import Tracer
+    out = {}
+    for name in ("ttft", "tpot", "queue_delay"):
+        q = Tracer.percentiles([v for r in records
+                                if (v := getattr(r, name)) is not None])
+        out[name] = {k: v if k == "count" else v * 1e3 for k, v in q.items()}
+    return out
+
+
+def telemetry(torch, cfg, params, engines):
+    """Phase 22, bf16: in each of TELEMETRY_CELLS a graph engine with
+    metrics=True (same seed) serves phase 21's requests twice, as phase
+    21's metrics-off graph engine did (`engines`, from graph_gates): each
+    run's greedy tokens bitwise the metrics-off run's, every launch counter
+    equal, the same keys captured and the same replays. The device counters
+    must equal the host oracle (tokens and pos: tokens emitted; drafts:
+    the host's draft counts; steps: decode steps; nothing quarantined),
+    and the Chrome trace and Prometheus text must pass the port's
+    validators. The census is on for the sequential cell's first run: the
+    fused decode kernel must record its geometry. Then, per cell, TTFT,
+    TPOT and queue-delay percentiles of the replay run; metrics-on against
+    metrics-off decode and verify ms a step in turns (warmed engines, 4
+    runs each, untraced); and one kernelprof.profile_decode row at
+    PROFILE_SHAPE. Returns (summary by cell, turns, profile row, census)."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.telemetry import kernelprof as KP
+    from repro_torch.telemetry import validate as V
+    t_phase = time.perf_counter()
+    out, on_engines, census = {}, {}, []
+    for cell in TELEMETRY_CELLS:
+        off, prompts, off_runs = engines[cell][1:]
+        eng = ServingEngine(cfg, params, batch_slots=4,
+                            max_len=MAIN["max_len"], scan_steps=8,
+                            graphs=True, metrics=True, **_cell_kw(cell))
+        for i, (want, w_counts, w_keys, w_replays) in enumerate(off_runs):
+            captured0, replays0 = (len(eng._compiled.captured),
+                                   eng._compiled.replays)
+            KP.enable_census(cell == "default" and i == 0)
+            try:
+                got, counts, _, _ = _serve_on(torch, eng, prompts,
+                                              MAIN["new_tokens"])
+            finally:
+                KP.enable_census(False)
+            census += KP.consume_census()
+            keys = eng._compiled.captured[captured0:]
+            replays = eng._compiled.replays - replays0
+            if got != want:
+                bad = [j for j, (a, b) in enumerate(zip(got, want)) if a != b]
+                raise AssertionError(f"telemetry {cell} run {i}: metrics-on "
+                                     "tokens differ from metrics-off on "
+                                     f"requests {bad}")
+            if (counts, keys, replays) != (w_counts, w_keys, w_replays):
+                raise AssertionError(
+                    f"telemetry {cell} run {i}: launches {counts}, captured "
+                    f"{keys}, replays {replays}; metrics-off {w_counts}, "
+                    f"{w_keys}, {w_replays}")
+        st, dev = eng.stats, eng.device_metrics()
+        oracle = {"tokens": st["tokens_emitted"], "pos": st["tokens_emitted"],
+                  "drafts_proposed": st["draft_proposed"],
+                  "drafts_accepted": st["draft_accepted"],
+                  "steps": st["decode_steps"], "quarantined": 0}
+        if any(dev[k] != v for k, v in oracle.items()):
+            raise AssertionError(f"telemetry {cell}: device counters {dev}, "
+                                 f"host oracle {oracle}")
+        problems = (V.validate_chrome_trace(eng.chrome_trace())
+                    + V.validate_prometheus(eng.metrics_text()))
+        if problems:
+            raise AssertionError(f"telemetry {cell} exports: {problems}")
+        out[cell] = {
+            "tokens_bitwise_metrics_off": True,
+            "launches_captures_replays_equal_metrics_off": True,
+            "device_counters": dev, "exports_valid": True,
+            "latency_ms_replay_run": _latency_ms(
+                list(eng.tracer.records)[-len(prompts):]),
+            "latency_ms_first_run": _latency_ms(
+                list(eng.tracer.records)[:len(prompts)])}
+        on_engines[cell] = eng
+        log(f"telemetry {cell}: " + json.dumps(out[cell]))
+    if not any(r["op"] == "swat_decode" for r in census):
+        raise AssertionError(f"telemetry census: no swat_decode record in "
+                             f"{census}")
+    log("telemetry census (sequential cell, first run): "
+        + json.dumps(census))
+    turns = {}
+    for cell, unit in (("default", "decode"), ("speculative", "verify")):
+        off, prompts = engines[cell][1], engines[cell][2][:4]
+        t = {"metrics_off": [], "metrics_on": []}
+        for mode in ("metrics_off", "metrics_on", "metrics_on",
+                     "metrics_off") * 2:
+            eng = on_engines[cell] if mode == "metrics_on" else off
+            st_ = _serve_on(torch, eng, prompts, MAIN["new_tokens"])[2]
+            t[mode].append(st_["decode_s"] * 1e3 / st_["decode_steps"])
+        t["on_over_off"] = sum(t["metrics_on"]) / sum(t["metrics_off"])
+        turns[f"{unit} ms a step"] = t
+    log("telemetry metrics on vs off, in turns (bf16): " + json.dumps(turns))
+    (row,) = KP.profile_decode([PROFILE_SHAPE], impl="kernel",
+                               device="cuda", iters=30)
+    log("telemetry profile_decode (kernel): " + json.dumps(row))
+    log(f"telemetry phase: {time.perf_counter() - t_phase:.1f}s")
+    return out, turns, row, census
 
 
 def ptxas_report(out):
@@ -2843,6 +2979,10 @@ def main():
                                         graphs=False, **_cell_kw("chunked")),
         "paged decode": trace_decode(torch, cfg, params, graphs=False,
                                      **_cell_kw("paged_default"))}
+    # phase 22: telemetry on the graph engines of phase 21's cells
+    tel, tel_turns, tel_prof, tel_census = telemetry(torch, cfg, params,
+                                                     gengines)
+    tel_trace = trace_decode(torch, cfg, params, metrics=True)
     del gengines
     del params
     cells32 = serve_slice_fp32(torch, cfg)
@@ -2982,6 +3122,25 @@ def main():
                 "fused_decode_kernels_per_step", "span_host_ms",
                 "span_device_busy_ms", "captured_in_traced_run")}
             for mode, t in (("graphs", g), ("eager", e))}))
+    log(f"telemetry cells (bf16): {json.dumps(tel)}")
+    for cell, v in tel.items():
+        lat = v["latency_ms_replay_run"]
+        log(f"telemetry latency {cell} (bf16, replay run, ms): " + "; ".join(
+            f"{m} p50 {lat[m]['p50']:.3f} p95 {lat[m]['p95']:.3f} p99 "
+            f"{lat[m]['p99']:.3f}" for m in ("ttft", "tpot", "queue_delay")))
+    log(f"telemetry metrics on vs off in turns (bf16): "
+        f"{json.dumps(tel_turns)}")
+    log("telemetry trace, decode step with metrics on vs off (graphs): "
+        + json.dumps({k: {"metrics_on": tel_trace.get(k),
+                          "metrics_off": trace.get(k)}
+                      for k in ("kernels_per_step",
+                                "fused_decode_kernels_per_step",
+                                "span_busy_share", "span_host_ms",
+                                "span_device_busy_ms", "decode_steps")}))
+    log(f"telemetry profile_decode at phase 5's shape: kernel p50 "
+        f"{tel_prof['p50_us'] / 1e3:.5f} ms, bound {tel_prof['bound_ms']:.6f}"
+        f" ms ({tel_prof['bound_by']}), {tel_prof['bound_share'] * 100:.2f}% "
+        f"of the bound; phase 5 (L2 flushed) {dk:.5f} ms")
     log(f"e2e: {json.dumps(e2e)}")
     log(f"trace: {json.dumps(trace)}")
     log(f"unembed: {json.dumps(unembed)}")

@@ -43,6 +43,7 @@ from repro_torch.kernels import ref as ref_impl
 from repro_torch.kernels import swat_attention as fwd_mod
 from repro_torch.kernels import swat_backward as bwd_mod
 from repro_torch.kernels import swat_decode as dec_mod
+from repro_torch.telemetry import kernelprof as KP
 
 NEG_INF = fwd_mod.NEG_INF
 IMPLS = ("kernel", "banded", "ref")
@@ -162,6 +163,14 @@ def decode_attention(q, k_cache, v_cache, cache_len, spec: AttentionSpec, *,
     cap = w_phys if ring_cap is None else int(ring_cap)
     g = spec.num_global if spec.is_sparse else 0
     impl = _resolve(impl, q)
+    if KP.census_enabled():
+        # the JAX package's fields (its ops.py records them at trace time;
+        # here at every eager call and capture, never at a graph replay)
+        KP.record_dispatch(op="decode_attention", impl=impl,
+                           fused=new_kv is not None, b=b, h_q=q.shape[1],
+                           h_kv=k_cache.shape[1], t=t, d=q.shape[3],
+                           cap=cap, num_global=g,
+                           window=spec.window if spec.is_sparse else 0)
     dev = q.device
     if new_kv is None:
         wide = bool(spec.is_sparse and spec.window

@@ -36,6 +36,7 @@ import torch
 from repro_torch.core.types import AttentionSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_impl
+from repro_torch.telemetry import kernelprof as KP
 
 LAUNCHES = _build.LaunchCounter()         # fused kernel
 PLAIN_LAUNCHES = _build.LaunchCounter()   # plain kernel
@@ -157,6 +158,13 @@ def swat_decode_fused(q, k_cache, v_cache, new_k, new_v, pos, num_new,
     b, hq, t, d = q.shape
     hkv, w = k_cache.shape[1], k_cache.shape[2]
     chunk, nsplit = fused_splits(b * hkv, cap, _num_sms(q.device))
+    if KP.census_enabled():
+        # the geometry the kernel runs with (the JAX package records its
+        # block_kv and pad fallback here)
+        KP.record_dispatch(op="swat_decode", b=b, h_q=hq, h_kv=hkv, t=t,
+                           d=d, w=w, cap=cap, num_global=g,
+                           window=int(window), fused=True, split=nsplit,
+                           chunk=chunk)
     out = torch.empty_like(q)
     fn = _kernel("swat_decode_fused", 12)
     with torch.cuda.device(q.device):

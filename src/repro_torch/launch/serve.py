@@ -12,11 +12,14 @@ sharing (`--share-prefix`, with `--prefill-chunk`; it serves the JAX
 launcher's shared-system-prompt demo workload) take the JAX launcher's
 flags and defaults. `--decode-impl pallas` runs the fused decode kernel
 (and exits non-zero without a card), `ref` its plain version; omitted, the
-device picks (the kernel on the card). Params are random, from the port's
-own `init_model` with seed 0. On a machine without a CUDA device the
-launcher exits non-zero; `--device cpu` runs the plain versions of the
-kernels instead (small configs: `--smoke`). Every JAX launcher flag is
-declared with the JAX launcher's default; a value that turns on a later
+device picks (the kernel on the card). `--metrics` keeps the engine's
+device counters, `--trace-out` / `--metrics-out` write its Chrome trace
+and Prometheus text (`python -m repro_torch.launch.scope validate` checks
+them); every run prints its TTFT / TPOT percentiles. Params are random,
+from the port's own `init_model` with seed 0. On a machine without a CUDA
+device the launcher exits non-zero; `--device cpu` runs the plain versions
+of the kernels instead (small configs: `--smoke`). Every JAX launcher flag
+is declared with the JAX launcher's default; a value that turns on a later
 slice's feature exits non-zero with the ROADMAP item that will port it.
 """
 import argparse
@@ -34,10 +37,7 @@ _NOT_PORTED = {"mesh": (13, lambda v: v is not None),
                "max_pending": (10, lambda v: v > 0),
                "deadline": (10, lambda v: v > 0),
                "chaos_poison_slot": (10, lambda v: v is not None),
-               "chaos_fail_pallas": (10, bool),
-               "metrics": (11, bool),
-               "trace_out": (11, lambda v: v is not None),
-               "metrics_out": (11, lambda v: v is not None)}
+               "chaos_fail_pallas": (10, bool)}
 
 
 def main(argv=None) -> int:
@@ -109,9 +109,18 @@ def main(argv=None) -> int:
                     help="not ported (ignored without --chaos-poison-slot)")
     ap.add_argument("--chaos-fail-pallas", action="store_true",
                     help="not ported")
-    ap.add_argument("--metrics", action="store_true", help="not ported")
-    ap.add_argument("--trace-out", default=None, help="not ported")
-    ap.add_argument("--metrics-out", default=None, help="not ported")
+    # observability
+    ap.add_argument("--metrics", action="store_true",
+                    help="keep device-resident counters in the decode and "
+                         "verify steps (tokens identical; read after the "
+                         "run) and print them")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome-trace JSON of request lifecycle "
+                         "spans to PATH (open in chrome://tracing / "
+                         "Perfetto)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the Prometheus text exposition to PATH "
+                         "(implies --metrics)")
     args = ap.parse_args(argv)
 
     used = [(f"--{n.replace('_', '-')}", item)
@@ -136,6 +145,7 @@ def main(argv=None) -> int:
     from repro_torch.serving.drafter import NGramDrafter
     from repro_torch.serving.engine import (Request, ServingEngine,
                                             ring_cache_bytes)
+    from repro_torch.telemetry import events as TEV
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.swat:
@@ -154,7 +164,8 @@ def main(argv=None) -> int:
             max_prompt_len=args.max_prompt_len or None,
             spec_min_acceptance=args.spec_min_acceptance,
             kv_layout=args.kv_layout, share_prefix=args.share_prefix,
-            decode_impl=args.decode_impl)
+            decode_impl=args.decode_impl,
+            metrics=args.metrics or bool(args.metrics_out))
     except ValueError as e:
         print(f"[serve] {e}", file=sys.stderr)
         return 2
@@ -213,6 +224,35 @@ def main(argv=None) -> int:
         by_status[r.status] = by_status.get(r.status, 0) + 1
     print("[serve] statuses: "
           + ", ".join(f"{k}={v}" for k, v in sorted(by_status.items())))
+    for ev in TEV.consume_events():
+        kind = ev.pop("kind")
+        print(f"[serve] degradation event: {kind} "
+              + " ".join(f"{k}={v}" for k, v in sorted(ev.items())))
+    for r in results:
+        if r.status != "ok":
+            print(f"[serve]   rid {r.rid}: {r.status}"
+                  + (f" - {r.reason}" if r.reason else ""))
+    lat = engine.tracer.latency_summary()
+    if lat["ttft"]["count"]:
+        ttft, tpot = lat["ttft"], lat["tpot"]
+        print(f"[serve] latency: ttft p50={ttft['p50'] * 1e3:.1f}ms "
+              f"p95={ttft['p95'] * 1e3:.1f}ms; "
+              f"tpot p50={tpot['p50'] * 1e3:.2f}ms "
+              f"p95={tpot['p95'] * 1e3:.2f}ms "
+              f"({ttft['count']} finished; {where})")
+    if engine.metrics:
+        dev = engine.device_metrics()
+        print("[serve] device counters: "
+              + " ".join(f"{k}={v}" for k, v in sorted(dev.items())))
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(engine.metrics_text())
+        print(f"[serve] wrote metrics: {args.metrics_out}")
+    if args.trace_out:
+        import json
+        with open(args.trace_out, "w") as f:
+            json.dump(engine.chrome_trace(), f)
+        print(f"[serve] wrote trace: {args.trace_out}")
     return 0
 
 

@@ -56,9 +56,17 @@ Copy-on-write, table pushes, admission and the one host read a block (or
 verify step) stay between replays, where the JAX engine has them too. A
 capture or replay that fails raises; nothing falls back to eager.
 
+Telemetry (`repro_torch.telemetry`, the JAX engine's swatscope hooks): with
+`metrics=True` the decode and verify bodies update int32 device counters in
+place (captured and replayed with the rest of the body; tokens unchanged),
+read only by `device_metrics()`. Every engine keeps a `Tracer` of request
+lifecycles and block spans (TTFT, TPOT, queue delay), fed by host hooks
+between dispatches and by the degradation-event bus, and exports
+`metrics_text()`, `chrome_trace()` and `snapshot()`.
+
 Options of the JAX engine that this port does not have yet (meshes, fault
-plans, queue bounds, device metrics) raise NotImplementedError at
-construction; none is ignored.
+plans, queue bounds) raise NotImplementedError at construction; none is
+ignored.
 """
 from __future__ import annotations
 
@@ -80,6 +88,9 @@ from repro_torch.serving.drafter import NGramDrafter, get_drafter
 from repro_torch.serving.paged import PagedManager
 from repro_torch.serving.scheduler import (PrefillPlan, Scheduler,
                                            normalize_prompt)
+from repro_torch.telemetry import events as TEV
+from repro_torch.telemetry import metrics as MX
+from repro_torch.telemetry.tracer import Tracer, prometheus_text
 
 # Result statuses ported so far (the JAX engine's taxonomy also has
 # "deadline" and "failed", which belong to the resilience slice):
@@ -241,7 +252,8 @@ class ServingEngine:
                  share_min_prefix: int = 16,
                  decode_impl: Optional[str] = None,
                  graphs: Optional[bool] = None, mesh=None, faults=None,
-                 max_pending: Optional[int] = None, metrics: bool = False):
+                 max_pending: Optional[int] = None, metrics: bool = False,
+                 trace_capacity: int = 4096):
         """Runs on the device that holds `params` (see `model.init_model` /
         `interop.params_from_jax`): the CUDA kernels on a card, their plain
         versions for CPU params. scan_steps: decode steps per host sync;
@@ -286,14 +298,24 @@ class ServingEngine:
         the eager reference graphs are held to); True on CPU params raises
         ValueError.
 
-        mesh / faults / max_pending / metrics exist so that a caller
-        porting a JAX engine call gets an error, not a silently different
-        engine: any value other than the default raises
-        NotImplementedError."""
+        metrics: keep device-resident telemetry counters
+        (`telemetry.metrics`), updated in place by every decode and verify
+        step and read only by `device_metrics()` / `metrics_text()`, never
+        inside a block. metrics=False (default) engines run and capture
+        exactly the bodies they ran without telemetry; metrics=True tokens
+        are bitwise identical.
+
+        trace_capacity: ring-buffer depth of the always-on host-side
+        `self.tracer` (request lifecycle spans, decode-block spans,
+        degradation events): memory stays O(trace_capacity), however long
+        the engine serves.
+
+        mesh / faults / max_pending exist so that a caller porting a JAX
+        engine call gets an error, not a silently different engine: any
+        value other than the default raises NotImplementedError."""
         _refuse("mesh", mesh, None)
         _refuse("faults", faults, None)
         _refuse("max_pending", max_pending, None)
-        _refuse("metrics", metrics, False)
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"kv_layout={kv_layout!r}: 'contiguous' or "
                              "'paged'")
@@ -374,6 +396,16 @@ class ServingEngine:
                               device=dev),
             poisoned=torch.zeros((batch_slots,), dtype=torch.bool,
                                  device=dev))
+        # device metrics (metrics=True): static counters beside the staged
+        # vectors, never reset by a restage, updated in place by every
+        # captured body and read only by device_metrics()
+        self.metrics = bool(metrics)
+        self.ring_mod = MX.ring_modulus(cfg, max_len, self.lookahead)
+        self._mx = MX.init_metrics(batch_slots, dev) if self.metrics else None
+        # host-side lifecycle tracer (always on: O(1) Python per hook, no
+        # device work) and its subscription to the degradation-event bus
+        self.tracer = Tracer(capacity=trace_capacity)
+        TEV.BUS.subscribe(self.tracer.on_bus_event)
         self._stale = True       # host mirrors changed since the last stage
         self._anyt = False       # any live slot samples (temperature > 0)
         # each block's tokens and emit flags: (scan_steps, slots) for
@@ -429,16 +461,68 @@ class ServingEngine:
         p = self.stats["draft_proposed"]
         return self.stats["draft_accepted"] / p if p else 0.0
 
+    # ---------------------------------------------------- observability --
+    def device_metrics(self, per_slot: bool = False) -> Dict[str, object]:
+        """Read the device-resident counters: an explicit host sync between
+        blocks (the one place the device counters reach the host). Returns
+        int totals, or the raw (slots,) int32 vectors (and the step count)
+        as numpy with per_slot=True. Empty when metrics=False."""
+        if self._mx is None:
+            return {}
+        host = {k: v.cpu().numpy() for k, v in self._mx.items()}
+        if per_slot:
+            return host
+        return {k: int(v.sum()) if v.ndim else int(v)
+                for k, v in host.items()}
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition of host stats + device counters +
+        tracer latency quantiles (one scrape endpoint's worth)."""
+        counters = dict(self.stats)
+        counters.update({f"device_{k}": v
+                         for k, v in self.device_metrics().items()})
+        counters.update(self.paged_stats())
+        doc = {f"device_{k}": f"{v} (device-resident counter)"
+               for k, v in MX.COUNTER_DOC.items()}
+        return prometheus_text(counters, self.tracer.latency_summary(),
+                               doc=doc)
+
+    def chrome_trace(self) -> dict:
+        """Chrome-trace JSON of the tracer's retained window (load in
+        chrome://tracing / Perfetto)."""
+        return self.tracer.chrome_trace(metadata={
+            "model": self.cfg.name, "slots": self.slots,
+            "decode_impl": self.decode_impl,
+            "speculative": self.speculative, "kv_layout": self.kv_layout,
+            "metrics": self.metrics})
+
+    def snapshot(self) -> Dict[str, object]:
+        """One observability snapshot (`scope census` prints it): host
+        stats, device counters, latency quantiles, pool occupancy."""
+        return {"stats": dict(self.stats),
+                "device": self.device_metrics(),
+                "latency": self.tracer.latency_summary(),
+                "paged": self.paged_stats(),
+                "ring_modulus": self.ring_mod,
+                "dropped_trace_records": self.tracer.dropped_requests}
+
     # ---------------------------------------------------------- results --
+    # non-ok statuses: the stats counter each bumps and the bus event each
+    # records
+    _STATUS_COUNTER = {"rejected": "rejected", "poisoned": "quarantined"}
+    _STATUS_EVENT = {"rejected": "request_rejected",
+                     "poisoned": "slot_quarantined"}
+
     def _finish(self, rid: int, tokens: List[int], status: str,
                 reason: str = "") -> Result:
         res = Result(rid, tokens, status=status, reason=reason)
         self._completed.append(res)
         self.stats["tokens_delivered"] += len(tokens)
-        if status == "poisoned":
-            self.stats["quarantined"] += 1
-        elif status == "rejected":
-            self.stats["rejected"] += 1
+        self.tracer.on_finish(rid, status, len(tokens))
+        if status != "ok":
+            self.stats[self._STATUS_COUNTER[status]] += 1
+            TEV.record_event(self._STATUS_EVENT[status], rid=rid,
+                             reason=reason)
         return res
 
     def take_completed(self) -> List[Result]:
@@ -463,6 +547,7 @@ class ServingEngine:
 
     # ---------------------------------------------------------- prefill --
     def _prefill_into(self, plan: PrefillPlan, slots: List[int]):
+        self.tracer.on_admit([r.rid for r in plan.requests])
         with torch.profiler.record_function("engine.prefill"):
             self._prefill_batch(plan, slots)
 
@@ -587,6 +672,7 @@ class ServingEngine:
                     for leaf, t in layer.items():
                         t.index_copy_(0, idx, one[name][leaf].to(t.dtype))
         first = first.cpu().numpy()            # the batch's host sync
+        self.tracer.on_first_token([r.rid for r in plan.requests])
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefill_batches"] += 1
         self.stats["prefill_tokens_computed"] += (
@@ -720,6 +806,7 @@ class ServingEngine:
             if rate >= self.spec_resume_acceptance:
                 self._spec_off = False
                 self.stats["spec_resume"] += 1
+                TEV.record_event("spec_resume", rate=rate)
                 self._acc_window.clear()
             else:
                 self._blocks_since_spec = 0    # stay off; probe again later
@@ -732,6 +819,7 @@ class ServingEngine:
             self._blocks_since_spec = 0
             self._acc_window.clear()
             self.stats["spec_autodisable"] += 1
+            TEV.record_event("spec_autodisable", rate=wa / wp)
 
     def _reseed_history(self, live: List[int]):
         """Sequential blocks emit tokens the drafter never observed:
@@ -787,13 +875,15 @@ class ServingEngine:
 
     @torch.no_grad()
     def _decode_steps(self, n: int, live: List[int]) -> List[Result]:
-        t0 = time.perf_counter()
+        t0, span0 = time.perf_counter(), self.tracer.clock()
         self._stage()
         greedy = not self._anyt
         self._compiled.run(("decode", n, self.slots, greedy),
                            functools.partial(self._decode_body, n, greedy))
-        return self._retire(live, n, self._toks[:n, :, 0],
-                            self._emit[:n, :, 0], t0)[0]
+        read = self._read_block(live, n, self._toks[:n, :, 0],
+                                self._emit[:n, :, 0], t0)
+        self.tracer.on_block("seq", n, span0, int(read[1].sum()))
+        return self._retire(live, *read)
 
     def _decode_body(self, n: int, greedy: bool) -> None:
         """n sequential decode steps on the static vectors: tokens and emit
@@ -818,6 +908,8 @@ class ServingEngine:
             budget = budget - ok.to(torch.int32)
             poisoned = poisoned | bad
             active = ok & (budget > 0)
+            if self._mx is not None:
+                MX.seq_update_(self._mx, ok, bad, self.ring_mod)
             self._toks[i, :, 0].copy_(nxt)
             self._emit[i, :, 0].copy_(ok)
             tok = nxt
@@ -851,7 +943,7 @@ class ServingEngine:
         `spec_steps` counts as in JAX. That test is one host read of one
         bool per verify step, the only host sync inside the block; each
         step is one compiled dispatch, keyed (slots, greedy-only)."""
-        t0 = time.perf_counter()
+        t0, span0 = time.perf_counter(), self.tracer.clock()
         self._stage()
         greedy = not self._anyt
         self._sidx.zero_()
@@ -863,8 +955,9 @@ class ServingEngine:
             steps += 1
             if bool(self._flip):                     # one host read
                 break
-        done, emit_np = self._retire(live, steps, self._toks[:steps],
-                                     self._emit[:steps], t0)
+        read = self._read_block(live, steps, self._toks[:steps],
+                                self._emit[:steps], t0)
+        emit_np = read[1]
         k = self.speculative
         counts = emit_np.sum(axis=-1)                          # (n, slots)
         ran = counts >= 1
@@ -874,7 +967,8 @@ class ServingEngine:
         self.stats["draft_proposed"] += prop
         self.stats["draft_accepted"] += accepted
         self._spec_ladder_update(prop, accepted, probe)
-        return done
+        self.tracer.on_block("spec", n, span0, int(emit_np.sum()))
+        return self._retire(live, *read)
 
     def _verify_body(self, greedy: bool) -> None:
         """One verify step on the static vectors and the drafter history:
@@ -910,6 +1004,8 @@ class ServingEngine:
         ok = active & ~bad
         e = torch.where(active, torch.where(bad, first_bad, e_clean),
                         0).to(torch.int32)
+        if self._mx is not None:
+            MX.spec_update_(self._mx, e, bad, k, self.ring_mod)
         back = t - e
         for blk in self.caches:
             for layer in blk.values():
@@ -931,13 +1027,12 @@ class ServingEngine:
         hist.copy_(new_hist)
         hcnt.copy_(new_hcnt)
 
-    def _retire(self, live: List[int], steps: int, toks: torch.Tensor,
-                emit: torch.Tensor, t0: float
-                ) -> Tuple[List[Result], np.ndarray]:
-        """The block's one host sync: read its tokens and flags back, then
-        extend each live slot's output (chronologically: row-major over
-        step and verify position) and retire finished and quarantined
-        slots. Returns (the retired slots' Results, the emit flags)."""
+    def _read_block(self, live: List[int], steps: int, toks: torch.Tensor,
+                    emit: torch.Tensor, t0: float
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The block's one host sync: read its tokens, emit flags and the
+        carried slot vectors back, and count the block in `stats`. Returns
+        (tokens, emit flags, poisoned flags) as numpy."""
         d = self._dev
         toks_np = toks.cpu().numpy()
         emit_np = emit.cpu().numpy()
@@ -952,6 +1047,15 @@ class ServingEngine:
         # rollback
         self._slot_pos[live] += (emit_np.sum(axis=(0, 2))[live]
                                  if emit_np.ndim == 3 else steps)
+        return toks_np, emit_np, poisoned_np
+
+    def _retire(self, live: List[int], toks_np: np.ndarray,
+                emit_np: np.ndarray, poisoned_np: np.ndarray
+                ) -> List[Result]:
+        """After `_read_block`: extend each live slot's output
+        (chronologically: row-major over step and verify position) and
+        retire finished and quarantined slots. Returns the retired slots'
+        Results."""
         done: List[Result] = []
         for s in live:
             self.slot_out[s].extend(
@@ -965,7 +1069,7 @@ class ServingEngine:
                 done.append(self._finish(
                     self.slot_req[s].rid, self.slot_out[s], "ok"))
                 self._free_slot(s)
-        return done, emit_np
+        return done
 
     def step(self) -> List[Result]:
         """One decode (or verify) step for every live slot."""
@@ -991,6 +1095,8 @@ class ServingEngine:
         """Serve a batch to completion; one Result per request, rid order.
         Finished requests land in `self._completed` as they finalize, so
         after an exception `take_completed()` recovers them."""
+        for r in requests:
+            self.tracer.on_submit(r.rid)
         pending: Deque[Request] = collections.deque(requests)
         try:
             while pending or not all(self.slot_free):

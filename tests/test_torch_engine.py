@@ -107,8 +107,7 @@ def test_non_finite_rows_are_quarantined(setup):
 
 @pytest.mark.parametrize("option", [dict(max_pending=4),
                                     dict(mesh="4x1"),
-                                    dict(faults=object()),
-                                    dict(metrics=True)],
+                                    dict(faults=object())],
                          ids=lambda o: next(iter(o)))
 def test_unported_options_raise(setup, option):
     _, tcfg, _, tp, _ = setup

@@ -24,7 +24,10 @@ PORT_MODULES = [
     "repro_torch.optim.adamw", "repro_torch.optim.compress",
     "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
     "repro_torch.launch.steps", "repro_torch.runtime.trainer",
-    "repro_torch.launch.train",
+    "repro_torch.launch.train", "repro_torch.telemetry",
+    "repro_torch.telemetry.events", "repro_torch.telemetry.tracer",
+    "repro_torch.telemetry.validate", "repro_torch.telemetry.metrics",
+    "repro_torch.telemetry.kernelprof", "repro_torch.launch.scope",
 ]
 
 
@@ -83,7 +86,9 @@ def test_port_sources_name_no_jax_or_repro_import():
     assert {"repro_torch/optim/adamw.py", "repro_torch/data/pipeline.py",
             "repro_torch/checkpoint/manager.py",
             "repro_torch/runtime/trainer.py",
-            "repro_torch/launch/train.py"} <= names
+            "repro_torch/launch/train.py", "repro_torch/launch/scope.py",
+            "repro_torch/telemetry/metrics.py",
+            "repro_torch/telemetry/kernelprof.py"} <= names
     assert len(files) > 25
     for f in files:
         hits = _BANNED.findall(f.read_text())

@@ -365,8 +365,7 @@ def test_serve_launcher_chunked_and_speculative_on_cpu():
 
 @pytest.mark.parametrize("flag,item", [(["--chaos-poison-slot", "1"], 10),
                                        (["--mesh", "2x2"], 13),
-                                       (["--deadline", "1.0"], 10),
-                                       (["--metrics"], 11)])
+                                       (["--deadline", "1.0"], 10)])
 def test_serve_launcher_refuses_later_slice_flags(flag, item):
     out = _serve("--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
                  *flag)
