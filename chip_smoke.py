@@ -113,6 +113,24 @@ each of which raises on failure:
                and verify ms a step in turns, a traced metrics-on decode
                block beside phase 6's, and one kernelprof.profile_decode
                row at phase 5's decode shape with its share of the bound.
+ 23. resilience - (run after phase 22) fault plans on phase 21's cell
+               (graphs, bf16): a FaultPlan() engine equal to the plan-less
+               one (tokens, launches, keys, replays); NaN / +Inf on slot 1
+               at token 3, sequential and speculative, each served twice
+               (the second time inside replays): that request keeps the
+               clean run's first 3 tokens, the others stay bitwise, kernels
+               #1 and #2 launch as in phase 3; corrupt drafts give the
+               clean speculative tokens; cache poison, contiguous and
+               paged with a shared prefix, poisons only its request; the
+               one step down (fail_pallas_dispatch on decode_impl="pallas",
+               sequential and speculative): one kernel_fallbacks, one
+               pallas_fallback event and one warning, no fused decode
+               launch, tokens bitwise a decode_impl="ref" engine's;
+               max_pending and deadlines end their requests "rejected" and
+               "deadline". Then the plan's and the degraded engine's step
+               costs in turns, capture after the step down and the
+               degraded run's TTFT / TPOT. Every healthy serve engine of
+               every phase is checked for zero steps down.
   7. backward - the dQ and dK/dV kernels against their plain version at the
                training shapes (B=4, Hq=32, Hkv=8, L=2048, D=64, window
                256, 4 globals, causal; plus group 1 and 8, softcap 30 and
@@ -278,6 +296,19 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     return out.splitlines()[0].strip()
+
+
+def no_step_down(eng, where, impl=None):
+    """A healthy serve engine never steps down from kernel #1 to its plain
+    version: kernel_fallbacks 0, decode_impl as constructed (None: the
+    kernel on the card) and no pallas_fallback event on the bus."""
+    from repro_torch.telemetry import events as TEV
+    bus = "pallas_fallback" in [e["kind"] for e in TEV.peek_events()]
+    if eng.stats["kernel_fallbacks"] or eng.decode_impl != impl or bus:
+        raise AssertionError(
+            f"{where}: a healthy engine stepped down (kernel_fallbacks "
+            f"{eng.stats['kernel_fallbacks']}, decode_impl "
+            f"{eng.decode_impl!r}, pallas_fallback on the bus: {bus})")
 
 
 def max_err(a, b):
@@ -522,6 +553,7 @@ def serve(torch, cfg, params):
         res = eng.run([Request(rid=i, prompt=p, max_new_tokens=n_new)
                        for i, p in enumerate(reqs)])
         torch.cuda.synchronize()
+        no_step_down(eng, "serve")
         return eng, res, time.perf_counter() - t0
 
     run(4, prompts[:4])                      # warm-up (cuBLAS, allocator)
@@ -771,6 +803,7 @@ def trace_decode(torch, cfg, params, span="engine.decode_block",
         eng.run(reqs())
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    no_step_down(eng, f"trace {span}")
     st = {k: v - stats0[k] for k, v in eng.stats.items()}
     events = prof.events()
     dt = torch.autograd.DeviceType
@@ -2120,6 +2153,7 @@ def _serve_run(torch, cfg, params, prompts, n_new, **kw):
     blocks = eng.paged_stats().get("blocks_in_use")
     res = eng.run(list(pending))
     torch.cuda.synchronize()
+    no_step_down(eng, "serve cell")
     return eng, sorted(res, key=lambda r: r.rid), time.perf_counter() - t0, \
         blocks
 
@@ -2478,24 +2512,38 @@ GRAPH_CELLS = ("default", "speculative", "chunked", "paged_default",
 SAMPLED_TEMP = 0.8
 
 
-def _serve_on(torch, eng, prompts, n_new, temps=None):
+def _serve_on(torch, eng, prompts, n_new, temps=None, healthy=True):
     """Serve `prompts` on an existing engine (n_new tokens each, or a list;
     temperature 0, or `temps`): (tokens in rid order, every launch
     counter's count in the run, the engine's stats in the run, wall
-    seconds)."""
-    from repro_torch.kernels import _build
+    seconds). A healthy engine (every engine but phase 23's stepped-down
+    ones) must not have stepped down."""
     from repro_torch.serving.engine import Request
     news = n_new if isinstance(n_new, list) else [n_new] * len(prompts)
     temps = temps or [0.0] * len(prompts)
+    res, counts, st, wall = _run_requests(
+        torch, eng, [Request(rid=i, prompt=p, max_new_tokens=n,
+                             temperature=t)
+                     for i, (p, n, t) in enumerate(zip(prompts, news,
+                                                        temps))])
+    if healthy:
+        no_step_down(eng, "serve")
+    return [r.tokens for r in res], counts, st, wall
+
+
+def _run_requests(torch, eng, reqs):
+    """eng.run(reqs) between two syncs: (Results in rid order, every launch
+    counter's count in the run, the engine's stats in the run, wall
+    seconds)."""
+    from repro_torch.kernels import _build
     torch.cuda.synchronize()
     counts0, stats0 = _build.launch_counts(), dict(eng.stats)
     t0 = time.perf_counter()
-    res = eng.run([Request(rid=i, prompt=p, max_new_tokens=n, temperature=t)
-                   for i, (p, n, t) in enumerate(zip(prompts, news, temps))])
+    res = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = [a - b for a, b in zip(_build.launch_counts(), counts0)]
-    return ([r.tokens for r in sorted(res, key=lambda r: r.rid)], counts,
+    return (sorted(res, key=lambda r: r.rid), counts,
             {k: v - stats0[k] for k, v in eng.stats.items()}, wall)
 
 
@@ -2850,6 +2898,293 @@ def telemetry(torch, cfg, params, engines):
     return out, turns, row, census
 
 
+# ------------------------------------------------------------ phase 23 ---
+
+def _resilience_gate(name, res, clean, poisoned_rid, kept=None,
+                     bitwise=None):
+    """One chaos run's outcome against the clean run's tokens: only
+    `poisoned_rid` ends "poisoned", with `kept` tokens (or any clean
+    prefix of at least one token), every other request ends ok, and the
+    requests in `bitwise` (default: all of them) hold the clean tokens
+    bitwise."""
+    statuses = {r.rid: r.status for r in res}
+    want = {r.rid: "poisoned" if r.rid == poisoned_rid else "ok"
+            for r in res}
+    if statuses != want:
+        raise AssertionError(f"{name}: statuses {statuses}")
+    bad = res[poisoned_rid].tokens
+    if (kept is not None and len(bad) != kept) or not bad \
+            or bad != clean[poisoned_rid][:len(bad)]:
+        raise AssertionError(f"{name}: the poisoned request kept {len(bad)} "
+                             f"tokens, not a clean prefix of {kept}")
+    rids = [r.rid for r in res if r.rid != poisoned_rid]
+    if bitwise is not None:
+        rids = [i for i in rids if i in bitwise]
+    diff = [i for i in rids if res[i].tokens != clean[i]]
+    if diff:
+        raise AssertionError(f"{name}: healthy requests {diff} differ from "
+                             "the clean run's tokens")
+    return len(bad)
+
+
+def resilience(torch, cfg, params, engines, card):
+    """Phase 23, bf16, the serve cell of phase 21 (8 requests on 4 slots,
+    prompt 512, 64 new tokens, graphs): the resilience slice on the card,
+    held to phase 21's clean graph runs (`engines`, from graph_gates).
+
+      * plan off: a FaultPlan() engine's two runs equal the plan-less
+        graph engine's: tokens bitwise, launch counts, keys captured,
+        replays;
+      * logit poison: NaN on slot 1 at token 3 (sequential) and +Inf
+        (speculative, k=4): the poisoned request keeps exactly the clean
+        run's first 3 tokens, the others are bitwise the clean run's; each
+        engine serves twice (the second run's fault fires again, now inside
+        replayed graphs); kernel #1 launches once a layer and step, #2 as
+        in phase 3;
+      * corrupt drafts on slot 0: the clean speculative run's tokens,
+        bitwise, on every request;
+      * cache poison on slot 1 at token 3, contiguous and paged with a
+        shared prefix: only that request is poisoned; its prefix sharers
+        stay ok and bitwise;
+      * the step down: decode_impl="pallas" with fail_pallas_dispatch,
+        sequential and speculative: one kernel_fallbacks, one
+        pallas_fallback event, one warning, decode_impl "ref", no fused
+        decode launch, kernel #2's launches as usual, tokens bitwise a
+        decode_impl="ref" engine's; the flag cleared in a finally;
+      * backpressure and deadlines: max_pending=4 rejects 4 of 8 ("queue
+        overflow"); a deadline already past expires in the queue with no
+        tokens; a deadline of the warm prefill batch plus 4 decode blocks
+        ends its live request with 0 < tokens < 64; stats and the bus
+        agree.
+
+    Then the cost of a logit-fault plan's select and countdown (decode and
+    verify ms a step, plan against no plan, in turns of 4, untraced), the
+    degraded engines' decode and verify steps against the kernel
+    engines', the capture time after the step down, and the degraded
+    run's TTFT and TPOT. Returns a summary."""
+    import warnings
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_decode as SD
+    from repro_torch.serving import faults as F
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.faults import FaultPlan
+    t_phase = time.perf_counter()
+    if "pallas_fallback" in [e["kind"] for e in F.consume_events()]:
+        raise AssertionError("resilience: a pallas_fallback event before "
+                             "phase 23")
+    n_new, layers = MAIN["new_tokens"], cfg.num_layers
+    passes = 2 if cfg.attention.num_global else 1
+    clean = {c: engines[c][3][1][0] for c in ("default", "speculative",
+                                                 "paged_shared")}
+    prompts = {c: engines[c][2] for c in clean}
+    out = {}
+
+    def make(cell, **kw):
+        return ServingEngine(cfg, params, batch_slots=4,
+                             max_len=MAIN["max_len"], scan_steps=8,
+                             graphs=True, **_cell_kw(cell), **kw)
+
+    def reqs(cell, **kw):
+        return [Request(rid=i, prompt=p, max_new_tokens=n_new, **kw)
+                for i, p in enumerate(prompts[cell])]
+
+    def launches(st_):
+        return {"swat_decode": layers * st_["decode_steps"],
+                "swat_attention_fwd": layers * passes
+                * st_["prefill_batches"]}
+
+    # plan off is production
+    eng = make("default", faults=FaultPlan())
+    for i, (want, w_counts, w_keys, w_replays) in enumerate(
+            engines["default"][3]):
+        c0, r0 = len(eng._compiled.captured), eng._compiled.replays
+        got, counts, _, _ = _serve_on(torch, eng, prompts["default"], n_new)
+        got_ = (got, counts, eng._compiled.captured[c0:],
+                eng._compiled.replays - r0)
+        if got_ != (want, w_counts, w_keys, w_replays):
+            raise AssertionError(f"resilience plan off run {i}: tokens, "
+                                 "launches, keys or replays differ from the "
+                                 "plan-less graph engine's")
+    out["plan_off_equals_no_plan"] = True
+
+    # logit poison, sequential and speculative, each served twice
+    plan_engines = {}
+    for cell, kind in (("default", "nan"), ("speculative", "inf")):
+        eng = make(cell, faults=FaultPlan(poison_logits=((1, 3, kind),)))
+        runs = []
+        for i in range(2):
+            # each run's slot-1 occupant is the entry's first target; in
+            # the second run every key of its first block is captured, so
+            # the fault fires inside a replayed graph
+            eng._faults_fired.clear()
+            c0, r0 = len(eng._compiled.captured), eng._compiled.replays
+            SD.LAUNCHES.reset()
+            SA.LAUNCHES.reset()
+            res, _, st_, _ = _run_requests(torch, eng, reqs(cell))
+            got = {"swat_decode": SD.LAUNCHES.n,
+                   "swat_attention_fwd": SA.LAUNCHES.n}
+            if got != launches(st_):
+                raise AssertionError(f"resilience {cell} poison: launches "
+                                     f"{got}, expected {launches(st_)}")
+            kept = _resilience_gate(f"resilience {cell} {kind} run {i}", res,
+                                    clean[cell], 1, kept=3)
+            if st_["quarantined"] != 1:
+                raise AssertionError(f"resilience {cell}: quarantined "
+                                     f"{st_['quarantined']}")
+            runs.append({"kept": kept, "launches": got,
+                         "captured": len(eng._compiled.captured) - c0,
+                         "replays": eng._compiled.replays - r0})
+        if not runs[1]["replays"]:
+            raise AssertionError(f"resilience {cell}: no replay in the "
+                                 "second run")
+        no_step_down(eng, f"resilience {cell} poison")
+        plan_engines[cell] = eng
+        out[f"logit_poison_{cell}"] = runs
+
+    # corrupt drafts
+    eng = make("speculative", faults=FaultPlan(corrupt_draft_slots=(0,)))
+    res, _, st_, _ = _run_requests(torch, eng, reqs("speculative"))
+    diff = [r.rid for r in res
+            if r.status != "ok" or r.tokens != clean["speculative"][r.rid]]
+    if diff or not eng._compiled.replays:
+        raise AssertionError(f"resilience corrupt drafts: requests {diff} "
+                             "differ from the clean speculative run's")
+    out["corrupt_drafts"] = {"tokens_bitwise_clean": True,
+                             "draft_accepted": st_["draft_accepted"],
+                             "replays": eng._compiled.replays}
+
+    # cache poison: contiguous, and paged with a shared prefix (rids 0-3
+    # are admitted together and share their prefix blocks)
+    for cell in ("default", "paged_shared"):
+        eng = make(cell, faults=FaultPlan(poison_cache=((1, 3),)))
+        res, _, st_, _ = _run_requests(torch, eng, reqs(cell))
+        kept = _resilience_gate(
+            f"resilience cache poison {cell}", res, clean[cell], 1,
+            bitwise=(0, 2, 3) if cell == "paged_shared" else None)
+        out[f"cache_poison_{cell}"] = {
+            "kept": kept, "prefill_prefix_shared":
+            st_["prefill_prefix_shared"],
+            "later_requests_bitwise": sum(
+                res[i].tokens == clean[cell][i] for i in range(4, 8))}
+        no_step_down(eng, f"resilience cache poison {cell}")
+    kinds = [e["kind"] for e in F.consume_events()]
+    if "pallas_fallback" in kinds:
+        raise AssertionError("resilience: a step down before the step-down "
+                             "cell")
+
+    # the step down, sequential and speculative
+    degraded = {}
+    for cell in ("default", "speculative"):
+        ref = make(cell, decode_impl="ref")
+        want, _, _, _ = _run_requests(torch, ref, reqs(cell))
+        no_step_down(ref, f"resilience ref {cell}", impl="ref")
+        F.consume_events()
+        try:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                eng = make(cell, decode_impl="pallas",
+                           faults=FaultPlan(fail_pallas_dispatch=True))
+                SD.LAUNCHES.reset()
+                SA.LAUNCHES.reset()
+                records0 = len(eng.tracer.records)
+                res, _, st_, wall = _run_requests(torch, eng, reqs(cell))
+        finally:
+            F.clear_kernel_failure()
+        got = {"swat_decode": SD.LAUNCHES.n,
+               "swat_attention_fwd": SA.LAUNCHES.n}
+        kinds = [e["kind"] for e in F.consume_events()]
+        warned = [x for x in w if issubclass(x.category, RuntimeWarning)
+                  and "plain version" in str(x.message)]
+        diff = [r.rid for r in res
+                if r.status != "ok" or r.tokens != want[r.rid].tokens]
+        if (eng.stats["kernel_fallbacks"] != 1 or eng.decode_impl != "ref"
+                or kinds.count("pallas_fallback") != 1 or len(warned) != 1
+                or got["swat_decode"] != 0
+                or got["swat_attention_fwd"]
+                != launches(st_)["swat_attention_fwd"] or diff):
+            raise AssertionError(
+                f"resilience step down {cell}: kernel_fallbacks "
+                f"{eng.stats['kernel_fallbacks']}, decode_impl "
+                f"{eng.decode_impl!r}, events {kinds}, {len(warned)} "
+                f"warnings, launches {got}, requests {diff} differ from the "
+                "ref engine's")
+        degraded[cell] = eng
+        out[f"step_down_{cell}"] = {
+            "kernel_fallbacks": 1, "pallas_fallback_events": 1,
+            "warnings": 1, "decode_impl": eng.decode_impl,
+            "launches": got, "tokens_bitwise_ref_engine": True,
+            "capture_s_after_step_down": eng._compiled.capture_s,
+            "graphs_captured_after_step_down": len(eng._compiled.captured),
+            "wall_s": wall,
+            "latency_ms": _latency_ms(list(eng.tracer.records)[records0:])}
+
+    # backpressure and deadlines, on a warm block time
+    warm = plan_engines["default"]
+    st_ = _serve_on(torch, warm, prompts["default"][:4], n_new)[2]
+    block_s = st_["decode_s"] / st_["decode_steps"] * 8
+    live_deadline = st_["prefill_s"] / st_["prefill_batches"] + 4 * block_s
+    eng = make("default", max_pending=4)
+    rq = reqs("default")
+    rq[2] = Request(rid=2, prompt=rq[2].prompt, max_new_tokens=n_new,
+                    deadline=0.0)
+    rq[3] = Request(rid=3, prompt=rq[3].prompt, max_new_tokens=n_new,
+                    deadline=live_deadline)
+    res, _, st_, _ = _run_requests(torch, eng, rq)
+    kinds = [e["kind"] for e in F.consume_events()]
+    statuses = [r.status for r in res]
+    over = [r.rid for r in res if "queue overflow" in r.reason]
+    if (statuses != ["ok", "ok", "deadline", "deadline"] + ["rejected"] * 4
+            or over != [4, 5, 6, 7] or res[2].tokens
+            or not 0 < len(res[3].tokens) < n_new
+            or st_["rejected"] != 4 or kinds.count("request_rejected") != 4
+            or st_["deadline"] != 2
+            or kinds.count("deadline_expired") != 2):
+        raise AssertionError(
+            f"resilience deadlines: statuses {statuses}, overflow {over}, "
+            f"tokens {[len(r.tokens) for r in res]}, stats rejected "
+            f"{st_['rejected']} deadline {st_['deadline']}, events {kinds}")
+    no_step_down(eng, "resilience deadlines")
+    out["deadlines"] = {"statuses": statuses,
+                        "live_deadline_ms": live_deadline * 1e3,
+                        "live_request_tokens": len(res[3].tokens),
+                        "bus_agrees_with_stats": True}
+
+    # costs, in turns of 4 (untraced; engines warmed on the 4 prompts)
+    turns = {}
+    for cell, unit in (("default", "decode"), ("speculative", "verify")):
+        kernel = engines[cell][1]
+        pairs = (("fault plan", plan_engines[cell], "no plan"),
+                 ("degraded", degraded[cell], "kernel"))
+        for a_name, a, b_name in pairs:
+            for e in (a, kernel):
+                _serve_on(torch, e, prompts[cell][:4], n_new, healthy=False)
+            t = {a_name: [], b_name: []}
+            for name in (b_name, a_name, a_name, b_name) * 2:
+                st_ = _serve_on(torch, a if name == a_name else kernel,
+                                prompts[cell][:4], n_new, healthy=False)[2]
+                t[name].append(st_["decode_s"] * 1e3 / st_["decode_steps"])
+            t[f"{a_name}_over_{b_name}"] = sum(t[a_name]) / sum(t[b_name])
+            turns[f"{unit} ms a step, {a_name} vs {b_name}"] = t
+        no_step_down(kernel, f"resilience turns {cell}")
+        no_step_down(plan_engines[cell], f"resilience turns {cell}")
+    out["turns"] = turns
+    for name, t in turns.items():
+        log(f"resilience {name} (bf16, in turns; {card}): {json.dumps(t)}")
+    for cell in ("default", "speculative"):
+        sd = out[f"step_down_{cell}"]
+        lat = sd["latency_ms"]
+        log(f"resilience degraded {cell} run ({card}): capture after the "
+            f"step down {sd['capture_s_after_step_down']:.3f} s over "
+            f"{sd['graphs_captured_after_step_down']} graphs; ttft p50 "
+            f"{lat['ttft']['p50']:.3f} p95 {lat['ttft']['p95']:.3f} ms, "
+            f"tpot p50 {lat['tpot']['p50']:.3f} p95 "
+            f"{lat['tpot']['p95']:.3f} ms")
+    if "pallas_fallback" in [e["kind"] for e in F.consume_events()]:
+        raise AssertionError("resilience: a step down in the timed turns")
+    log(f"resilience phase: {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
 def ptxas_report(out):
     """(kernel, registers, spill-store bytes) for every entry function in
     the `nvcc -Xptxas -v` output of one source; kernel reads like
@@ -2983,6 +3318,8 @@ def main():
     tel, tel_turns, tel_prof, tel_census = telemetry(torch, cfg, params,
                                                      gengines)
     tel_trace = trace_decode(torch, cfg, params, metrics=True)
+    # phase 23: resilience on phase 21's cell
+    res23 = resilience(torch, cfg, params, gengines, card)
     del gengines
     del params
     cells32 = serve_slice_fp32(torch, cfg)
@@ -3141,6 +3478,7 @@ def main():
         f"{tel_prof['p50_us'] / 1e3:.5f} ms, bound {tel_prof['bound_ms']:.6f}"
         f" ms ({tel_prof['bound_by']}), {tel_prof['bound_share'] * 100:.2f}% "
         f"of the bound; phase 5 (L2 flushed) {dk:.5f} ms")
+    log(f"resilience (bf16; {card}): {json.dumps(res23)}")
     log(f"e2e: {json.dumps(e2e)}")
     log(f"trace: {json.dumps(trace)}")
     log(f"unembed: {json.dumps(unembed)}")

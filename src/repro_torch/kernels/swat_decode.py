@@ -24,6 +24,11 @@ thread-block cluster: one launch, no workspace.
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 the kernel does not take. For CPU tensors, and only for them, it runs its
 plain version (`swat_decode_fused_plain`, `swat_decode_plain_ref`).
+
+`set_force_fail(True)` (the fault harness's `install_kernel_failure`) arms
+both wrappers to raise `KernelDispatchError` at entry, before any operand
+is read or written, on every device; the serving engine steps down to the
+plain version when it sees one.
 """
 from __future__ import annotations
 
@@ -44,6 +49,24 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_ROWS = 128   # query rows per CTA (group*T packed, T unpacked)
 MAX_SPLITS = 8   # CTAs per fused ring: the portable thread-block cluster size
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FORCE_FAIL = False
+
+
+def set_force_fail(enabled: bool) -> None:
+    """Arm or disarm the injected dispatch failure: while armed, every call
+    of `swat_decode_fused` or `swat_decode_plain` raises
+    `KernelDispatchError` at entry, before touching an operand. A graph
+    captured before it was armed replays without Python and so does not
+    raise. Module-global; `serving.faults` manages it."""
+    global _FORCE_FAIL
+    _FORCE_FAIL = bool(enabled)
+
+
+def _check_force_fail() -> None:
+    if _FORCE_FAIL:
+        from repro_torch.serving.faults import KernelDispatchError
+        raise KernelDispatchError(
+            "injected decode kernel dispatch failure (set_force_fail armed)")
 
 
 def _ring_geometry(spec: AttentionSpec, w: int,
@@ -143,6 +166,7 @@ def swat_decode_fused(q, k_cache, v_cache, new_k, new_v, pos, num_new,
     new_k/new_v: (B, Hkv, T, D) in the cache dtype; pos/num_new: int32
     (B,). Returns out (B, Hq, T, D). Rows j >= num_new are neither written
     nor attendable, and their outputs are garbage the caller discards."""
+    _check_force_fail()
     cap, g, window = _ring_geometry(spec, k_cache.shape[2], ring_cap)
     scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
     if q.device.type == "cpu":
@@ -279,6 +303,7 @@ def swat_decode_plain(q, k_cache, v_cache, pos, spec: AttentionSpec, *,
     (B, Hq, T, D). pack_gqa: one cluster per kv head holding its group*T
     query rows (True), or per q head with its T rows (False). Each cache
     is cut into `plain_splits` chunks."""
+    _check_force_fail()
     cap = _ring_geometry(spec, k_cache.shape[2], ring_cap)[0]
     scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
     if q.device.type == "cpu":

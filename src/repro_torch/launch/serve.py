@@ -15,12 +15,19 @@ flags and defaults. `--decode-impl pallas` runs the fused decode kernel
 device picks (the kernel on the card). `--metrics` keeps the engine's
 device counters, `--trace-out` / `--metrics-out` write its Chrome trace
 and Prometheus text (`python -m repro_torch.launch.scope validate` checks
-them); every run prints its TTFT / TPOT percentiles. Params are random,
-from the port's own `init_model` with seed 0. On a machine without a CUDA
-device the launcher exits non-zero; `--device cpu` runs the plain versions
-of the kernels instead (small configs: `--smoke`). Every JAX launcher flag
-is declared with the JAX launcher's default; a value that turns on a later
-slice's feature exits non-zero with the ROADMAP item that will port it.
+them); every run prints its TTFT / TPOT percentiles. Resilience takes
+the JAX launcher's flags: `--max-pending` sheds requests beyond a queue
+depth, `--deadline` gives every request a deadline in seconds, and the
+chaos flags build a fault plan: `--chaos-poison-slot S` (with
+`--chaos-poison-step`) puts NaN into slot S's logits at that token,
+`--chaos-fail-pallas` makes the decode kernel's dispatch fail so the
+engine steps down to the plain version. Each run prints its statuses, its
+degradation events and every request that did not end ok. Params are
+random, from the port's own `init_model` with seed 0. On a machine without
+a CUDA device the launcher exits non-zero; `--device cpu` runs the plain
+versions of the kernels instead (small configs: `--smoke`). Every JAX
+launcher flag is declared with the JAX launcher's default; `--mesh` exits
+non-zero with the ROADMAP item that will port it.
 """
 import argparse
 import sys
@@ -30,14 +37,9 @@ import numpy as np
 
 # JAX launcher flags whose features later slices port: dest -> (ROADMAP
 # item, whether the given value turns the feature on). The JAX launcher's
-# default of each turns nothing on. `--profile` only shapes a `--mesh` and
-# `--chaos-poison-step` only times a `--chaos-poison-slot`, so both are
-# ignored alone, as the JAX launcher ignores them.
-_NOT_PORTED = {"mesh": (13, lambda v: v is not None),
-               "max_pending": (10, lambda v: v > 0),
-               "deadline": (10, lambda v: v > 0),
-               "chaos_poison_slot": (10, lambda v: v is not None),
-               "chaos_fail_pallas": (10, bool)}
+# default turns nothing on. `--profile` only shapes a `--mesh`, so it is
+# ignored alone, as the JAX launcher ignores it.
+_NOT_PORTED = {"mesh": (13, lambda v: v is not None)}
 
 
 def main(argv=None) -> int:
@@ -100,15 +102,22 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default=None, help="not ported")
     ap.add_argument("--profile", choices=("tp", "cp", "fsdp"), default="tp",
                     help="not ported (ignored without --mesh)")
-    ap.add_argument("--max-pending", type=int, default=0, help="not ported")
+    # resilience
+    ap.add_argument("--max-pending", type=int, default=0,
+                    help="reject requests beyond this queue depth (status "
+                         "'rejected', queue overflow; 0 = unbounded)")
     ap.add_argument("--deadline", type=float, default=0.0,
-                    help="not ported")
+                    help="per-request deadline in seconds from submission "
+                         "(status 'deadline'; 0 = none)")
     ap.add_argument("--chaos-poison-slot", type=int, default=None,
-                    help="not ported")
+                    help="fault injection: NaN into this slot's logits "
+                         "(the slot is quarantined, status 'poisoned')")
     ap.add_argument("--chaos-poison-step", type=int, default=3,
-                    help="not ported (ignored without --chaos-poison-slot)")
+                    help="token index at which --chaos-poison-slot fires")
     ap.add_argument("--chaos-fail-pallas", action="store_true",
-                    help="not ported")
+                    help="fault injection: the decode kernel's dispatch "
+                         "fails; the engine steps down to the plain "
+                         "version")
     # observability
     ap.add_argument("--metrics", action="store_true",
                     help="keep device-resident counters in the decode and "
@@ -143,14 +152,19 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config, get_smoke_config, with_swat
     from repro_torch.core import model as Mod
     from repro_torch.serving.drafter import NGramDrafter
+    from repro_torch.serving import faults as F
     from repro_torch.serving.engine import (Request, ServingEngine,
                                             ring_cache_bytes)
-    from repro_torch.telemetry import events as TEV
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.swat:
         cfg = with_swat(cfg, window=args.window, num_global=4)
     params = Mod.init_model(cfg, seed=0, device=args.device)
+    plan = F.FaultPlan(
+        poison_logits=(((args.chaos_poison_slot, args.chaos_poison_step,
+                         "nan"),)
+                       if args.chaos_poison_slot is not None else ()),
+        fail_pallas_dispatch=args.chaos_fail_pallas)
     try:
         engine = ServingEngine(
             cfg, params, batch_slots=args.slots, max_len=args.max_len,
@@ -162,6 +176,7 @@ def main(argv=None) -> int:
             draft=NGramDrafter(max_ngram=args.draft_ngram,
                                history=args.draft_history),
             max_prompt_len=args.max_prompt_len or None,
+            max_pending=args.max_pending or None, faults=plan,
             spec_min_acceptance=args.spec_min_acceptance,
             kv_layout=args.kv_layout, share_prefix=args.share_prefix,
             decode_impl=args.decode_impl,
@@ -185,10 +200,14 @@ def main(argv=None) -> int:
                                ).astype(np.int32)
                    for _ in range(args.requests)]
     reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=args.new_tokens,
-                    temperature=args.temperature)
+                    temperature=args.temperature,
+                    deadline=args.deadline or None)
             for i in range(args.requests)]
     t0 = time.perf_counter()
-    results = engine.run(reqs)
+    try:
+        results = engine.run(reqs)
+    finally:
+        F.clear_kernel_failure()
     dt = time.perf_counter() - t0
     n = sum(len(r.tokens) for r in results)
     st = engine.stats
@@ -197,8 +216,9 @@ def main(argv=None) -> int:
     spec = (f", speculative={args.speculative} "
             f"(acceptance {engine.acceptance_rate:.2f})"
             if args.speculative else "")
-    impl = args.decode_impl or ("pallas" if engine.device.type == "cuda"
-                                else "ref")
+    # the engine's impl after the run: "ref" once it stepped down
+    impl = engine.decode_impl or ("pallas" if engine.device.type == "cuda"
+                                  else "ref")
     print(f"[serve] {len(results)} requests / {n} tokens in {dt:.3f}s "
           f"({n / dt:.1f} tok/s; scan_steps={args.scan_steps}, "
           f"batch_prefill={args.batch_prefill}, "
@@ -224,7 +244,7 @@ def main(argv=None) -> int:
         by_status[r.status] = by_status.get(r.status, 0) + 1
     print("[serve] statuses: "
           + ", ".join(f"{k}={v}" for k, v in sorted(by_status.items())))
-    for ev in TEV.consume_events():
+    for ev in F.consume_events():
         kind = ev.pop("kind")
         print(f"[serve] degradation event: {kind} "
               + " ".join(f"{k}={v}" for k, v in sorted(ev.items())))

@@ -64,9 +64,22 @@ lifecycles and block spans (TTFT, TPOT, queue delay), fed by host hooks
 between dispatches and by the degradation-event bus, and exports
 `metrics_text()`, `chrome_trace()` and `snapshot()`.
 
-Options of the JAX engine that this port does not have yet (meshes, fault
-plans, queue bounds) raise NotImplementedError at construction; none is
-ignored.
+Resilience (the JAX engine's chaos layer, `serving/faults.py`): a
+`FaultPlan` puts NaN or +Inf into chosen slots' logits inside the decode
+and verify bodies (a per-slot countdown in place beside the staged vectors
+and one masked `where`, captured and replayed with the body; an engine
+with no logit or draft faults captures exactly the production bodies),
+corrupts drafts, or writes NaN over a slot's K cache between blocks; the
+guard quarantines the slot and every other slot stays bitwise. `run()`
+sheds requests beyond `max_pending`, expires `Request.deadline`s at block
+boundaries, and readmits failed requests up to `Request.max_retries`
+times. The one step down is `_kernel_fallback`: a `KernelDispatchError`
+out of a decode or verify block switches the engine to the plain decode
+version for good, counted in `stats["kernel_fallbacks"]`, put on the
+event bus and warned once. A failure armed after a key was captured does
+not raise: its replays run no Python (as a JAX jit-cache hit is not
+traced again). Meshes are not ported (ROADMAP item 13) and raise
+NotImplementedError at construction.
 """
 from __future__ import annotations
 
@@ -74,6 +87,7 @@ import collections
 import dataclasses
 import functools
 import time
+import warnings
 from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -83,8 +97,10 @@ from repro_torch.core import layers as L
 from repro_torch.core import model as Mod
 from repro_torch.core.types import ModelConfig
 from repro_torch.kernels import _build
+from repro_torch.serving import faults as F
 from repro_torch.serving import sampling
 from repro_torch.serving.drafter import NGramDrafter, get_drafter
+from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.paged import PagedManager
 from repro_torch.serving.scheduler import (PrefillPlan, Scheduler,
                                            normalize_prompt)
@@ -92,13 +108,15 @@ from repro_torch.telemetry import events as TEV
 from repro_torch.telemetry import metrics as MX
 from repro_torch.telemetry.tracer import Tracer, prometheus_text
 
-# Result statuses ported so far (the JAX engine's taxonomy also has
-# "deadline" and "failed", which belong to the resilience slice):
+# the Result status taxonomy (the JAX engine's):
 #   ok        full budget served (or prompt-only request)
-#   rejected  never admitted: malformed / oversized / out-of-vocab prompt
+#   rejected  never admitted: malformed / oversized / out-of-vocab prompt,
+#             or queue overflow
 #   poisoned  quarantined mid-decode: non-finite logits in the slot's row;
 #             tokens holds everything emitted BEFORE the poison
-STATUSES = ("ok", "rejected", "poisoned")
+#   deadline  the request's deadline expired (partial tokens kept)
+#   failed    a kernel dispatch failed after the block wrote the caches
+STATUSES = ("ok", "rejected", "poisoned", "deadline", "failed")
 
 
 @dataclasses.dataclass
@@ -107,6 +125,14 @@ class Request:
     prompt: np.ndarray           # any int spelling; normalized to (L,) int32
     max_new_tokens: int = 32
     temperature: float = 0.0
+    # seconds from run()'s start; None: no deadline. Checked at block
+    # boundaries, so it resolves to one block; an expired request keeps
+    # what it has
+    deadline: Optional[float] = None
+    # readmissions after a "failed" slot (a kernel dispatch failure after
+    # the caches were written): each retry restarts from the prompt, the
+    # dead slot's tokens are dropped
+    max_retries: int = 0
 
     def __post_init__(self):
         # a ragged prompt that cannot normalize is kept as-is: the
@@ -123,6 +149,7 @@ class Result:
     tokens: List[int]
     status: str = "ok"           # one of STATUSES
     reason: str = ""             # detail for status != ok
+    retries: int = 0             # readmissions used (see max_retries)
 
     @property
     def ok(self) -> bool:
@@ -135,12 +162,6 @@ _DECODE_IMPLS = {None: None, "pallas": "kernel", "ref": "ref"}
 # chunk graphs an engine keeps: a chunk's key holds its pos0, which a
 # traced pos0 would remove (ROADMAP item 6d)
 CHUNK_GRAPHS = 64
-
-
-def _refuse(name: str, value, default) -> None:
-    if value != default:
-        raise NotImplementedError(
-            f"ServingEngine({name}={value!r}) is not ported yet")
 
 
 def capture_graph(body, shared: Dict, generator: torch.Generator):
@@ -224,6 +245,8 @@ class _Compiled:
         before = _build.launch_counts()
         try:
             graph, grown = capture_graph(body, self._shared, self.generator)
+        except F.KernelDispatchError:
+            raise                    # the engine's step down handles it
         except RuntimeError as e:
             raise RuntimeError(f"CUDA graph capture of {key} failed: {e}") \
                 from e
@@ -310,12 +333,20 @@ class ServingEngine:
         degradation events): memory stays O(trace_capacity), however long
         the engine serves.
 
-        mesh / faults / max_pending exist so that a caller porting a JAX
-        engine call gets an error, not a silently different engine: any
-        value other than the default raises NotImplementedError."""
-        _refuse("mesh", mesh, None)
-        _refuse("faults", faults, None)
-        _refuse("max_pending", max_pending, None)
+        faults: a `serving.faults.FaultPlan` (the chaos layer). Logit
+        faults add a countdown vector and one masked select to the decode
+        and verify bodies, corrupt_draft_slots one select to the verify
+        body; None or FaultPlan() keeps the production bodies. The guard
+        (quarantine of non-finite rows) is always in them.
+        max_pending: `run()` rejects requests beyond this queue depth
+        (status "rejected", "queue overflow") instead of queueing them.
+
+        mesh exists so that a caller porting a JAX engine call gets an
+        error, not a silently different engine: any value but None raises
+        NotImplementedError (ROADMAP item 13)."""
+        if mesh is not None:
+            raise NotImplementedError(f"ServingEngine(mesh={mesh!r}) is not "
+                                      "ported yet (ROADMAP item 13)")
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"kv_layout={kv_layout!r}: 'contiguous' or "
                              "'paged'")
@@ -421,6 +452,31 @@ class ServingEngine:
         self._flip = torch.zeros((), dtype=torch.bool, device=dev)
         self._active0 = torch.zeros((batch_slots,), dtype=torch.bool,
                                     device=dev)
+        # chaos (faults): the per-slot countdown `fin` is a staged vector,
+        # restaged with the others and decremented in place by the bodies;
+        # the poison value per slot (NaN, or +Inf) and the draft corruption
+        # mask are made once
+        self.faults = faults if faults is not None else FaultPlan()
+        self._bad_val = self._draft_mask = None
+        if self.faults.has_logit_faults:
+            self._dev["fin"] = torch.zeros((batch_slots,), dtype=torch.int32,
+                                           device=dev)
+            self._bad_val = torch.as_tensor(
+                np.where(self.faults.inf_mask(batch_slots), np.inf, np.nan)
+                .astype(np.float32), device=dev)
+        if self.faults.corrupt_draft_slots and self.speculative:
+            self._draft_mask = torch.as_tensor(
+                self.faults.draft_mask(batch_slots), device=dev)[:, None]
+            self._draft_bad = torch.full(
+                (batch_slots, self.speculative), cfg.vocab_size + 1337,
+                dtype=torch.int32, device=dev)
+        self._faults_fired: set = set()      # slots whose logit fault fired
+        self._cache_poison_applied: set = set()
+        self._fallback_warned = False
+        self.max_pending = max_pending
+        self._run_t0: Optional[float] = None   # run()'s start (deadlines)
+        self._retry_counts: Dict[int, int] = {}
+        self._readmit: List[Request] = []
         # chunked prefill's caches, last logits, chunk tokens and lengths:
         # one persistent set of batch_slots rows, made at the first chunked
         # batch; a batch of n rows runs in its first n rows
@@ -440,15 +496,21 @@ class ServingEngine:
         # batch ends with its first sampled tokens, a decode block with its
         # token read-back. decode_steps counts executed steps of either
         # kind; spec_steps the verify steps among them, draft_proposed /
-        # draft_accepted the drafts offered and kept
+        # draft_accepted the drafts offered and kept. tokens_emitted counts
+        # decode work (a failed attempt's tokens included), tokens_delivered
+        # the tokens of final Results, once a request. The resilience
+        # counters mirror the degradation-event bus
         self.stats = {"tokens_emitted": 0, "tokens_delivered": 0,
-                      "quarantined": 0, "rejected": 0,
+                      "quarantined": 0, "rejected": 0, "deadline": 0,
+                      "failed": 0, "kernel_fallbacks": 0, "readmitted": 0,
                       "prefill_tokens_computed": 0, "prefill_batches": 0,
                       "prefill_s": 0.0, "decode_steps": 0, "decode_s": 0.0,
                       "spec_steps": 0, "draft_proposed": 0,
                       "draft_accepted": 0, "spec_autodisable": 0,
                       "spec_resume": 0, "prefill_prefix_shared": 0,
                       "cow_moves": 0}
+        if self.faults.fail_pallas_dispatch:
+            F.install_kernel_failure()
 
     @property
     def graphs(self) -> bool:
@@ -509,13 +571,20 @@ class ServingEngine:
     # ---------------------------------------------------------- results --
     # non-ok statuses: the stats counter each bumps and the bus event each
     # records
-    _STATUS_COUNTER = {"rejected": "rejected", "poisoned": "quarantined"}
+    _STATUS_COUNTER = {"rejected": "rejected", "poisoned": "quarantined",
+                       "deadline": "deadline", "failed": "failed"}
     _STATUS_EVENT = {"rejected": "request_rejected",
-                     "poisoned": "slot_quarantined"}
+                     "poisoned": "slot_quarantined",
+                     "deadline": "deadline_expired",
+                     "failed": "request_failed"}
 
     def _finish(self, rid: int, tokens: List[int], status: str,
                 reason: str = "") -> Result:
-        res = Result(rid, tokens, status=status, reason=reason)
+        """Finalize one request into `_completed` (the one result store, so
+        an exception mid-run loses no finished work) and mirror a non-ok
+        status to `stats` and the event bus."""
+        res = Result(rid, tokens, status=status, reason=reason,
+                     retries=self._retry_counts.get(rid, 0))
         self._completed.append(res)
         self.stats["tokens_delivered"] += len(tokens)
         self.tracer.on_finish(rid, status, len(tokens))
@@ -544,6 +613,32 @@ class ServingEngine:
             # block; the park reaches the device before the next decode
             # block (`_paged_sync`) or with the next admission's table push
             self._paged.free(s)
+
+    def _expire_deadlines(self, pending: Deque[Request]):
+        """Finalize the requests whose deadline (seconds since run()'s
+        start) has passed: queued ones with no tokens, live ones with what
+        they emitted. Block-boundary resolution."""
+        if self._run_t0 is None:
+            return
+        elapsed = time.monotonic() - self._run_t0
+        if any(r.deadline is not None for r in pending):
+            keep = []
+            for r in pending:
+                if r.deadline is not None and elapsed > r.deadline:
+                    self._finish(r.rid, [], "deadline",
+                                 f"deadline {r.deadline}s expired in queue")
+                else:
+                    keep.append(r)
+            pending.clear()
+            pending.extend(keep)
+        for s in range(self.slots):
+            req = self.slot_req[s]
+            if (req is not None and req.deadline is not None
+                    and elapsed > req.deadline):
+                self._finish(req.rid, self.slot_out[s], "deadline",
+                             f"deadline {req.deadline}s expired mid-decode")
+                self._free_slot(s)
+                self._stale = True    # a live slot left: restage
 
     # ---------------------------------------------------------- prefill --
     def _prefill_into(self, plan: PrefillPlan, slots: List[int]):
@@ -728,12 +823,17 @@ class ServingEngine:
         """Before a decode or verify block of n steps: plan copy-on-write
         for every ring row the block can write ([pos, pos + n * T) per
         live slot; the block writes every row, dead ones included, so the
-        span is the whole block's), copy the moved blocks in every
-        super-block's pools, and push the tables when anything changed."""
-        pm = self._paged
+        span is the whole block's) and flush it."""
         positions = {s: int(self._slot_pos[s]) for s in range(self.slots)
                      if not self.slot_free[s]}
-        moves = pm.cow_moves(positions, n * self.tokens_per_step)
+        self._paged_flush(self._paged.cow_moves(positions,
+                                                n * self.tokens_per_step))
+
+    def _paged_flush(self, moves: Dict[int, List[Tuple[int, int]]]):
+        """Copy the moved blocks ({layer position: [(src, dst), ...]}) in
+        every super-block's pools, and push the tables when anything
+        changed."""
+        pm = self._paged
         count = sum(len(v) for v in moves.values())
         if not count and not pm.dirty:
             return
@@ -830,30 +930,122 @@ class ServingEngine:
                                   for s in live])
         self._hist_stale = False
 
+    def _apply_cache_poisons(self) -> None:
+        """Chaos: write NaN over a slot's K caches, in place, once it has
+        emitted its trigger count (corruption the guard did not see born).
+        The next step's attention carries it into the slot's logits, where
+        the guard quarantines the slot."""
+        if not self.faults.poison_cache:
+            return
+        done = [len(self.slot_out[s]) if not self.slot_free[s] else -1
+                for s in range(self.slots)]
+        for s in self.faults.cache_poisons_due(self.slots, done,
+                                               self._cache_poison_applied):
+            self._cache_poison_applied.add(s)
+            if self._paged is not None:
+                # the slot must own its blocks before they are NaN-ed: a
+                # shared prefix block would poison every sharer
+                self._paged_flush(self._paged.force_private(s))
+                _poison_slot_k_paged(self.caches, self._paged.tables, s)
+            else:
+                _poison_slot_k(self.caches, s)
+            TEV.record_event("cache_poisoned", slot=s)
+
+    def _cache_versions(self) -> Tuple[int, ...]:
+        """The version counters of every cache tensor: PyTorch bumps one at
+        each in-place write (the decode kernel's raw writes come with its
+        layer's `step.add_`), so a change says a block wrote the caches."""
+        return tuple(t._version for blk in self.caches
+                     for layer in blk.values() for t in layer.values())
+
+    def _kernel_fallback(self, err: Exception, n: int,
+                         lost: bool) -> List[Result]:
+        """The one step down: a decode kernel dispatch failed, so this
+        engine decodes with the plain version from now on. Counted in
+        `stats["kernel_fallbacks"]`, recorded as `pallas_fallback`, warned
+        once. The captured graphs are dropped (their keys do not hold the
+        impl, so a replay would keep the kernel); the device counters stay.
+
+        lost=False: the raise came before the block wrote anything (the
+        injected failure raises at the first layer's wrapper entry, in a
+        key's eager first use), so the block is run again on the plain
+        version. lost=True: the block had written the caches (the JAX
+        engine's consumed donation): each live request is readmitted if it
+        has retries left (`Request.max_retries`) or finalized "failed", the
+        paged manager is reset and the caches re-initialised in place."""
+        self.stats["kernel_fallbacks"] += 1
+        TEV.record_event("pallas_fallback", error=str(err))
+        if not self._fallback_warned:
+            self._fallback_warned = True
+            warnings.warn("decode kernel (decode_impl='pallas') dispatch "
+                          "failed; this engine now decodes with the plain "
+                          f"version ({err})", RuntimeWarning, stacklevel=3)
+        self.decode_impl, self._impl = "ref", "ref"
+        self._compiled = _Compiled(self._compiled.enabled, self.generator)
+        if not lost:
+            return self._decode_block(n)
+        done = []
+        for s in range(self.slots):
+            req = self.slot_req[s]
+            if req is None:
+                continue
+            used = self._retry_counts.get(req.rid, 0)
+            if used < req.max_retries:
+                # a retry restarts from the prompt through the queue
+                self._retry_counts[req.rid] = used + 1
+                self.stats["readmitted"] += 1
+                TEV.record_event("request_readmitted", rid=req.rid,
+                                 retry=used + 1)
+                self._readmit.append(req)
+            else:
+                done.append(self._finish(
+                    req.rid, self.slot_out[s], "failed",
+                    "kernel dispatch failed after cache donation"))
+            self._free_slot(s)
+        if self._paged is not None:
+            self._paged.reset()
+        fresh = Mod.init_caches(self.cfg, self.slots, self.max_len,
+                                lookahead=self.lookahead,
+                                paged=self._paged is not None,
+                                device=self.device)
+        for blk, new in zip(self.caches, fresh):
+            for name, layer in blk.items():
+                for leaf, t in layer.items():
+                    t.copy_(new[name][leaf])
+        self._stale = True
+        return done
+
     def _decode_block(self, n: int) -> List[Result]:
         """Run n decode steps on the device (one host sync), then retire
         finished and quarantined slots; a speculative engine runs up to n
         verify steps instead, each emitting 1..speculative+1 tokens a slot.
-        The block runs inside a profiler range named "engine.decode_block"
-        ("engine.prefill" for admission): free when no profiler is
-        active."""
+        A `KernelDispatchError` out of the block steps the engine down
+        (`_kernel_fallback`); nothing else is caught. The block runs inside
+        a profiler range named "engine.decode_block" ("engine.prefill" for
+        admission): free when no profiler is active."""
         if not 1 <= n <= self.scan_steps:
             raise ValueError(f"a block runs 1..scan_steps={self.scan_steps} "
                              f"steps, not {n}")
         live = [s for s in range(self.slots) if not self.slot_free[s]]
         if not live:
             return []
+        self._apply_cache_poisons()
         use_spec, probe = self._spec_mode()
         if use_spec and self._hist_stale:
             self._reseed_history(live)
         if self._paged is not None:
             self._paged_sync(n)
-        with torch.profiler.record_function("engine.decode_block"):
-            if use_spec:
-                return self._verify_steps(n, live, probe)
-            if self.speculative:
-                self._hist_stale = True     # drafter history lags output
-            return self._decode_steps(n, live)
+        mark = self._cache_versions()
+        try:
+            with torch.profiler.record_function("engine.decode_block"):
+                if use_spec:
+                    return self._verify_steps(n, live, probe)
+                if self.speculative:
+                    self._hist_stale = True     # drafter history lags output
+                return self._decode_steps(n, live)
+        except F.KernelDispatchError as err:
+            return self._kernel_fallback(
+                err, n, lost=self._cache_versions() != mark)
 
     def _stage(self) -> None:
         """Copy the host mirrors into the static per-slot decode vectors
@@ -870,6 +1062,11 @@ class ServingEngine:
                            ("temps", self.slot_temp)):
             d[name].copy_(torch.from_numpy(host))
         d["poisoned"].zero_()
+        if "fin" in d:
+            done = [len(self.slot_out[s]) if not self.slot_free[s] else 0
+                    for s in range(self.slots)]
+            d["fin"].copy_(torch.from_numpy(self.faults.logit_countdown(
+                self.slots, done, fired=self._faults_fired)))
         self._anyt = bool(np.any((self.slot_temp > 0) & active))
         self._stale = False
 
@@ -892,12 +1089,18 @@ class ServingEngine:
         d = self._dev
         tok, active, budget, poisoned = (d["tok"], d["active"], d["budget"],
                                          d["poisoned"])
+        fin = d.get("fin")
         for i in range(n):
             logits, _ = Mod.decode_step(self.params, self.cfg,
                                         {"tokens": tok[:, None]},
                                         self.caches, impl=self._impl,
                                         lookahead=self.lookahead)
             lg = logits[:, 0]
+            if fin is not None:
+                # chaos countdown: at a slot's trigger step its whole
+                # logits row becomes NaN / +Inf, no other row touched
+                lg = torch.where((active & (fin == 0))[:, None],
+                                 self._bad_val[:, None], lg)
             nxt = sampling.sample(self.generator, lg, d["temps"], self.top_k,
                                   any_sampling=not greedy)
             # numerical guard: a non-finite row is QUARANTINED — not
@@ -908,6 +1111,8 @@ class ServingEngine:
             budget = budget - ok.to(torch.int32)
             poisoned = poisoned | bad
             active = ok & (budget > 0)
+            if fin is not None:
+                fin = fin - ok.to(torch.int32)
             if self._mx is not None:
                 MX.seq_update_(self._mx, ok, bad, self.ring_mod)
             self._toks[i, :, 0].copy_(nxt)
@@ -916,6 +1121,8 @@ class ServingEngine:
         for name, val in (("tok", tok), ("active", active),
                           ("budget", budget), ("poisoned", poisoned)):
             d[name].copy_(val)
+        if fin is not None:
+            d["fin"].copy_(fin)
 
     @torch.no_grad()
     def _verify_steps(self, n: int, live: List[int],
@@ -981,13 +1188,26 @@ class ServingEngine:
         tok, active, budget, poisoned = (d["tok"], d["active"], d["budget"],
                                          d["poisoned"])
         hist, hcnt = self.slot_hist, self.slot_hcnt
-        drafts = self.drafter.sanitize(
-            self.drafter.propose(hist, hcnt, k), self.cfg.vocab_size)
+        fin = d.get("fin")
+        drafts = self.drafter.propose(hist, hcnt, k)
+        if self._draft_mask is not None:
+            # chaos: out-of-vocab proposals, which sanitize must clip
+            drafts = torch.where(self._draft_mask, self._draft_bad, drafts)
+        drafts = self.drafter.sanitize(drafts, self.cfg.vocab_size)
         x = torch.cat([tok[:, None], drafts], dim=1)
         logits, _ = Mod.decode_step(self.params, self.cfg,
                                     {"tokens": x}, self.caches,
                                     impl=self._impl,
                                     lookahead=self.lookahead)
+        if fin is not None:
+            # poison the one window position the countdown lands on, so a
+            # poisoned request keeps exactly its trigger index of tokens,
+            # as in the sequential body
+            win = torch.arange(t, device=x.device)
+            hitpos = ((active & (fin >= 0) & (fin < t))[:, None]
+                      & (win[None, :] == fin[:, None]))
+            logits = torch.where(hitpos[:, :, None],
+                                 self._bad_val[:, None, None], logits)
         # every verify position in one sampling call
         ver = sampling.sample(
             self.generator, logits.reshape(self.slots * t, -1),
@@ -1026,6 +1246,8 @@ class ServingEngine:
             d[name].copy_(val)
         hist.copy_(new_hist)
         hcnt.copy_(new_hcnt)
+        if fin is not None:
+            d["fin"].copy_(fin - e)
 
     def _read_block(self, live: List[int], steps: int, toks: torch.Tensor,
                     emit: torch.Tensor, t0: float
@@ -1061,6 +1283,9 @@ class ServingEngine:
             self.slot_out[s].extend(
                 int(x) for x in toks_np[:, s][emit_np[:, s]])
             if poisoned_np[s]:
+                # a fault entry targets one occupant, not the slot's later
+                # tenants
+                self._faults_fired.add(s)
                 done.append(self._finish(
                     self.slot_req[s].rid, self.slot_out[s], "poisoned",
                     "non-finite logits; slot quarantined"))
@@ -1094,19 +1319,58 @@ class ServingEngine:
     def run(self, requests: List[Request]) -> List[Result]:
         """Serve a batch to completion; one Result per request, rid order.
         Finished requests land in `self._completed` as they finalize, so
-        after an exception `take_completed()` recovers them."""
+        after an exception `take_completed()` recovers them.
+
+        Beyond `max_pending` queued requests the tail is rejected up front
+        ("queue overflow"); `Request.deadline`s count from here and are
+        enforced at block boundaries; readmitted requests rejoin the tail
+        of the queue."""
+        self._run_t0 = time.monotonic()
+        pending: Deque[Request] = collections.deque()
         for r in requests:
             self.tracer.on_submit(r.rid)
-        pending: Deque[Request] = collections.deque(requests)
+            if self.max_pending is not None and \
+                    len(pending) >= self.max_pending:
+                self._finish(r.rid, [], "rejected",
+                             f"queue overflow (max_pending="
+                             f"{self.max_pending})")
+            else:
+                pending.append(r)
         try:
-            while pending or not all(self.slot_free):
+            while pending or self._readmit or not all(self.slot_free):
+                if self._readmit:
+                    pending.extend(self._readmit)
+                    self._readmit = []
+                self._expire_deadlines(pending)
                 self._admit(pending)
                 n = self._block_len()
                 if n:
                     self._decode_block(n)
         finally:
             self._drain_rejections()
+            self._run_t0 = None
         return self.take_completed()
+
+
+def _poison_slot_k(caches, slot: int) -> None:
+    """NaN over one slot's K caches in every layer and super-block, in
+    place (the storage the captured graphs read)."""
+    for blk in caches:
+        for layer in blk.values():
+            if "k" in layer:
+                layer["k"][slot] = float("nan")
+
+
+def _poison_slot_k_paged(caches, tables: Dict[int, np.ndarray],
+                         slot: int) -> None:
+    """Paged twin of `_poison_slot_k`: NaN over the K pool blocks of the
+    slot's host table row (`tables`, the PagedManager's mirror, which the
+    caller made private to the slot and pushed)."""
+    for i, host in tables.items():
+        ids = torch.as_tensor(host[slot], dtype=torch.long,
+                              device=caches[0][f"l{i}"]["pk"].device)
+        for blk in caches:
+            blk[f"l{i}"]["pk"].index_fill_(0, ids, float("nan"))
 
 
 def ring_cache_bytes(cfg: ModelConfig, batch: int, context: int) -> int:

@@ -8,8 +8,12 @@
   * `consume_events()` drains the queue; `peek_events()` reads it.
 
 Events are plain dicts with a "kind" key. The engine records
-`slot_quarantined` and `request_rejected` as it finalizes requests, and
-`spec_autodisable` / `spec_resume` as the acceptance ladder moves.
+`slot_quarantined`, `request_rejected`, `deadline_expired` and
+`request_failed` as it finalizes requests, `request_readmitted` for a
+retry, `cache_poisoned` for an injected cache fault, `pallas_fallback`
+when it steps down to the plain decode version, and `spec_autodisable` /
+`spec_resume` as the acceptance ladder moves. `serving.faults` re-exports
+the three functions below.
 """
 from __future__ import annotations
 
@@ -54,7 +58,8 @@ BUS = EventBus()
 
 def record_event(kind: str, **details) -> None:
     """Record one structured degradation event (quarantine, rejection,
-    speculation disabled or resumed) on the global bus."""
+    deadline, failure, retry, injected fault, step down, speculation
+    disabled or resumed) on the global bus."""
     BUS.record(kind, **details)
 
 

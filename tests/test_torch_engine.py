@@ -16,6 +16,7 @@ from repro_torch import interop
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.configs import with_swat as t_swat
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.faults import FaultPlan
 
 torch.set_num_threads(1)
 
@@ -107,9 +108,32 @@ def test_non_finite_rows_are_quarantined(setup):
 
 @pytest.mark.parametrize("option", [dict(max_pending=4),
                                     dict(mesh="4x1"),
-                                    dict(faults=object())],
+                                    dict(faults=FaultPlan(
+                                        poison_logits=((1, 3, "nan"),)))],
                          ids=lambda o: next(iter(o)))
 def test_unported_options_raise(setup, option):
-    _, tcfg, _, tp, _ = setup
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tcfg, tp, batch_slots=2, max_len=256, **option)
+    """Only the mesh (ROADMAP item 13) is still refused; max_pending and
+    faults, ported with resilience, serve: 6 requests on max_pending=4
+    shed the last 2 as queue overflow, and NaN on slot 1 at token 3
+    quarantines that request with its 3 clean tokens."""
+    _, tcfg, _, tp, prompts = setup
+    if "mesh" in option:
+        with pytest.raises(NotImplementedError):
+            ServingEngine(tcfg, tp, batch_slots=2, max_len=256, **option)
+        return
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+            for i, p in enumerate((prompts + prompts)[:6])]
+    eng = ServingEngine(tcfg, tp, batch_slots=2, max_len=256, **option)
+    res = eng.run(reqs)
+    clean = ServingEngine(tcfg, tp, batch_slots=2, max_len=256).run(
+        reqs[:4])
+    if "max_pending" in option:
+        assert [r.status for r in res] == ["ok"] * 4 + ["rejected"] * 2
+        assert all("queue overflow" in r.reason for r in res[4:])
+        assert [r.tokens for r in res[:4]] == [r.tokens for r in clean]
+        assert eng.stats["rejected"] == 2
+    else:
+        assert res[1].status == "poisoned"
+        assert res[1].tokens == clean[1].tokens[:3]
+        assert all(r.status == "ok" for i, r in enumerate(res) if i != 1)
+        assert eng.stats["quarantined"] == 1

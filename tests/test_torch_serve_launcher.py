@@ -2,7 +2,8 @@
 JAX launcher runs its default behavior runs, `--decode-impl` maps to the
 engine's `decode_impl` (the kernel route refuses the CPU), and the paged
 layout with prefix sharing serves the JAX launcher's shared-prefix demo
-workload. Each case is one launcher process on a smoke config."""
+workload, and the resilience flags report what they did. Each case is one
+launcher process on a smoke config."""
 import os
 import pathlib
 import subprocess
@@ -63,3 +64,26 @@ def test_paged_share_prefix_runs():
     pool = [l for l in out.stdout.splitlines() if "paged pool:" in l]
     assert len(pool) == 1, out.stdout
     assert "prefixes shared=1, prefill tokens computed=96" in pool[0], pool
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--max-pending", "2"], "rejected=1"),
+    (["--deadline", "0.000001"], "deadline=3"),
+    (["--chaos-poison-slot", "0"], "poisoned=1")],
+    ids=["max-pending", "deadline", "chaos-poison-slot"])
+def test_resilience_flags_run(flags, want):
+    """`--max-pending 2` sheds the third request (queue overflow), a
+    deadline of a microsecond expires every request in the queue, and
+    `--chaos-poison-slot 0` quarantines slot 0's request at token 3: each
+    run exits 0 and prints its statuses, its degradation events and every
+    request that did not end ok."""
+    out = _serve(*flags)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    (status,) = [l for l in lines if l.startswith("[serve] statuses: ")]
+    assert want in status, status
+    events = [l for l in lines if l.startswith("[serve] degradation event")]
+    kind = {"max-pending": "request_rejected", "deadline": "deadline_expired",
+            "chaos-poison-slot": "slot_quarantined"}[flags[0][2:]]
+    assert any(kind in l for l in events), events
+    assert any(l.startswith("[serve]   rid ") for l in lines), lines
