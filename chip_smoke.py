@@ -36,8 +36,10 @@ each of which raises on failure:
                beside the least time the card could take.
   6. trace   - torch.profiler over a short serve run: the device's busy
                share of the wall time and device time by kernel category;
-               one fused decode kernel per layer and decode step, and no
-               other decode kernel (the cluster merge launches nothing).
+               one fused decode launch per layer and decode step and no
+               plain one (the wrappers' launch counters: the profiler may
+               drop records), and no profiler record of another decode
+               kernel (the cluster merge launches nothing).
  17. chunk   - (run after phase 6) kernel #2 as a prefill chunk launches
                it, against banded_plain with the same arguments: pass A
                (the gathered ring tail and the chunk, q_offset / kv_offset
@@ -131,9 +133,29 @@ each of which raises on failure:
                costs in turns, capture after the step down and the
                degraded run's TTFT / TPOT. Every healthy serve engine of
                every phase is checked for zero steps down.
+ 24. moe     - (run after phase 19) granite-moe-1b-a400m + SWAT (window
+               256, 4 globals) at full width and depth, bf16, random
+               weights from seed 0: kernels #1 (T=1 and T=5) and #2 (the
+               L=512 band, a chunk at pos0 448) at its group-2 heads
+               against their plain versions; the port's moe_ffn on the
+               card against the CPU and the dense oracle (serving shape
+               "dense", training shape "sort"); phase 3's cell and phase
+               21's chunked and speculative cells, graph tokens bitwise
+               eager's with #1 once per layer and step and #2 as phase 3
+               counts; in fp32 the kernel engine's greedy tokens equal to
+               the plain path's and phase 4's kernel-vs-plain bounds; two
+               AdamW steps (B=4, L=2048, launches as phase 8 counts), then
+               the kernel path's loss against the plain path's (bf16, full
+               depth) and every gradient leaf (fp32, 4 layers, as phase
+               9); the bf16 dQ and dK/dV kernels at its group-2 heads are
+               held in phase 7; decode,
+               prefill and train times, a traced decode step with the MoE
+               FFN's device time named, and #1, #2, #4 and #5 timed at its
+               shapes.
   7. backward - the dQ and dK/dV kernels against their plain version at the
                training shapes (B=4, Hq=32, Hkv=8, L=2048, D=64, window
-               256, 4 globals, causal; plus group 1 and 8, softcap 30 and
+               256, 4 globals, causal; plus group 1, 2 (granite-moe's
+               16 q over 8 kv heads) and 8, softcap 30 and
                50, random blocks, the longformer-paper bidirectional spec,
                the global-row pass, head dim 128 and 256, whisper's ragged
                1500-row encoder band and its cross shape, 448 queries
@@ -194,9 +216,11 @@ each of which raises on failure:
                count on the SIMT route.
  16. whisper times - encoder, prefill and decode step times, tokens/s,
                peak memory, a traced decode block split by kernel (one
-               decode_plain_kernel a plain decode call and no other decode
-               kernel but the fused one), and the plain decode kernel, its
-               plain version and SDPA at the cross shape.
+               plain decode launch a cross-attention call and one fused
+               launch a self-attention call, from the launch counters; no
+               profiler record of another decode kernel; the plain decode
+               records seen beside the launches), and the plain decode
+               kernel, its plain version and SDPA at the cross shape.
 
 The serving engine replays its decode blocks, verify steps and prefill
 chunks as CUDA graphs on the card (its default); phases 3, 6 and 18-20 run
@@ -249,6 +273,13 @@ GRAD_TOL = {"bfloat16": dict(atol=6e-2, rtol=3e-2),
             "float32": dict(atol=5e-5, rtol=1e-3)}
 TRAIN_LOSS_BOUND = 0.02     # |loss kernel - loss plain|, bf16, 4 layers
 TRAIN_GRAD_BOUND = 0.05     # max over leaves of |g_k - g_p| / |g_p|
+# moe_ffn at granite-moe's own experts (outputs up to |y| ~ 70, RMS ~ 25,
+# one bf16 ulp 0.25-0.5), bf16, the card against the CPU: max |error| over
+# the output's RMS. A sound run differs by a rounding or two at the largest
+# outputs; phase 24 also reads the card's output cut to one mantissa bit
+# fewer (reported) and a run with one expert fewer a token, which must
+# read above the limit.
+MOE_RMS_LIMIT = 3e-2
 
 # whisper-tiny + SWAT at full width (4+4 layers, d_model 384, 6 heads, head
 # dim 64, vocab 51865): 8 clips of ENCODER_FRAMES, a 16-token prompt, 200
@@ -633,7 +664,8 @@ def end_to_end(torch, cfg, params, tokens):
            "logit_bound": LOGIT_BOUND, "agreement_bound": AGREE_BOUND,
            "serve_first_tokens_match": all(
                tokens[i][0] == first[i] for i in range(4))}
-    log("e2e kernel vs plain: " + json.dumps(out))
+    log(f"e2e kernel vs plain ({cfg.name}, {cfg.dtype}): "
+        + json.dumps(out))
     if not all(np.isfinite(diffs)):
         raise AssertionError("non-finite logits")
     if not (out["max_abs_logit_diff"] <= LOGIT_BOUND
@@ -666,11 +698,12 @@ def time_ms(torch, fn, iters=30):
     return total / iters
 
 
-def time_decode(torch, spec, t=1):
+def time_decode(torch, spec, t=1, shape=MAIN):
     """The fused decode at T rows a slot (T=1: a decode step; T=5: a
-    speculative verify step at k=4) on a ring with T-1 lookahead rows."""
+    speculative verify step at k=4) on a ring with T-1 lookahead rows, at
+    `shape`'s slots and heads (llama's serve shape by default)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    b, hq, hkv, d = MAIN["b"], MAIN["hq"], MAIN["hkv"], MAIN["d"]
+    b, hq, hkv, d = shape["b"], shape["hq"], shape["hkv"], shape["d"]
     lens = [600, 575, 530, 700]             # mid-serve ring depths
     q, kc, vc, nk, nv, pos, nn, cap = _ring_inputs(
         torch, gen, torch.bfloat16, b, hq // hkv, hkv, t, d, lens)
@@ -713,13 +746,13 @@ def _time_fused(torch, spec, q, kc, vc, nk, nv, pos, nn, cap):
     return k_ms, p_ms, l_ms, bytes_, ops_
 
 
-def time_banded(torch, spec):
+def time_banded(torch, spec, shape=MAIN):
     import torch.nn.functional as F
     from repro_torch.core import patterns
     from repro_torch.kernels import ops
     from repro_torch.kernels import swat_attention as SA
     gen = torch.Generator(device="cuda").manual_seed(4)
-    b, hq, hkv, d, l = MAIN["b"], MAIN["hq"], MAIN["hkv"], MAIN["d"], \
+    b, hq, hkv, d, l = shape["b"], shape["hq"], shape["hkv"], shape["d"], \
         MAIN["prompt"]
     mk = lambda *s: torch.randn(*s, generator=gen,
                                 device="cuda").to(torch.bfloat16)
@@ -774,10 +807,14 @@ def trace_decode(torch, cfg, params, span="engine.decode_block",
     device's busy share of the wall time and of the host time of the
     `span` ranges ("engine.decode_block": the decode or verify blocks;
     "engine.prefill": the admission), and device time by kernel category
-    inside them. Decode blocks must hold one fused decode kernel per layer
-    and step and no other decode kernel."""
+    inside them. Decode blocks must launch one fused decode kernel per
+    layer and step and no plain one (the wrappers' launch counters, which
+    see every launch) and hold no profiler record of another decode
+    kernel; the fused records the profiler saw are reported beside the
+    launches counted, since it may drop records."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import swat_decode as SD
     from repro_torch.serving.engine import Request, ServingEngine
     if prompts is None:
         rng = np.random.RandomState(1)
@@ -797,14 +834,26 @@ def trace_decode(torch, cfg, params, span="engine.decode_block",
     stats0 = dict(eng.stats)
     captured0 = len(eng._compiled.captured)
     torch.cuda.synchronize()
+    launches0 = (SD.LAUNCHES.n, SD.PLAIN_LAUNCHES.n)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run(reqs())
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # launches from the wrappers' counters (a replay adds back what its
+    # capture counted); the profiler may drop kernel records
+    fused_n = SD.LAUNCHES.n - launches0[0]
+    plain_n = SD.PLAIN_LAUNCHES.n - launches0[1]
     no_step_down(eng, f"trace {span}")
     st = {k: v - stats0[k] for k, v in eng.stats.items()}
+    if span == "engine.decode_block" and (
+            fused_n != cfg.num_layers * st["decode_steps"] or plain_n):
+        raise AssertionError(
+            f"trace: {fused_n} fused decode launches in "
+            f"{st['decode_steps']} decode steps of {cfg.num_layers} layers "
+            f"and {plain_n} plain decode launches, expected one fused "
+            "launch a layer and step and no plain one")
     events = prof.events()
     dt = torch.autograd.DeviceType
     kernels = [e for e in events if e.device_type == dt.CUDA
@@ -840,18 +889,18 @@ def trace_decode(torch, cfg, params, span="engine.decode_block",
         by_cat[cat] = by_cat.get(cat, 0.0) + e.time_range.elapsed_us() / 1e3
     if span == "engine.decode_block":
         per = max(1, st["decode_steps"])
-        # the fused decode is one kernel per layer and step: its cluster
-        # merge launches nothing else
+        # the fused decode is one kernel per layer and step (counted
+        # above): its cluster merge launches nothing else
         fused = sum("decode_fused_kernel" in e.name for e in dec)
         stray = sorted({e.name[:60] for e in dec
                         if "decode" in e.name.lower()
                         and "decode_fused_kernel" not in e.name})
-        if fused != cfg.num_layers * st["decode_steps"] or stray:
-            raise AssertionError(
-                f"trace: {fused} fused decode kernels in "
-                f"{st['decode_steps']} decode steps of "
-                f"{cfg.num_layers} layers; other decode kernels: {stray}")
-        out["fused_decode_kernels_per_step"] = fused / per
+        if stray:
+            raise AssertionError(f"trace: other decode kernels in the "
+                                 f"decode blocks: {stray}")
+        out.update(fused_decode_kernels_per_step=fused_n / per,
+                   fused_decode_launches_counted=fused_n,
+                   fused_decode_records_seen=fused)
         unit = "step"
     else:
         per = max(1, st["prefill_batches"])
@@ -904,6 +953,9 @@ def check_backward(torch, spec):
     cases = [("causal+globals group 4", spec, b, 32, 8, l, l, d),
              ("group 1", spec, b, 8, 8, l, l, d),
              ("group 8", spec, b, 32, 4, l, l, d),
+             # granite-moe-1b's heads: the shape its training step gives
+             # the tensor-core dQ and dK/dV kernels
+             ("group 2 (granite-moe)", spec, b, 16, 8, l, l, d),
              ("softcap 30", dataclasses.replace(spec, softcap=30.0), b, 32,
               8, l, l, d),
              ("softcap 50", dataclasses.replace(spec, softcap=50.0), b, 32,
@@ -1023,10 +1075,12 @@ def _train_batches(torch, cfg, n):
              for k, v in data.global_batch(s).items()} for s in range(n)]
 
 
-def train(torch, cfg):
-    """6 AdamW steps at full width; launch counts zeroed just before and
-    read just after. Returns (summary, launches, (params, opt, step_fn,
-    batch)) for the profiled step of phase 11."""
+def train(torch, cfg, n=TRAIN["steps"]):
+    """n AdamW steps at full width (phase 8: 6 of llama; phase 24: 2 of
+    granite-moe); launch counts zeroed just before and read just after,
+    every launch on the tensor-core route, losses (and MoE aux losses)
+    finite. Returns (summary, launches, (params, opt, step_fn, batch)) for
+    the profiled step of phase 11 and phase 24's gradient check."""
     import math
     from repro_torch import tree
     from repro_torch.core import model as Mod
@@ -1034,7 +1088,6 @@ def train(torch, cfg):
     from repro_torch.kernels import swat_backward as SB
     from repro_torch.launch import steps as St
     from repro_torch.optim import adamw
-    n = TRAIN["steps"]
     params = Mod.init_model(cfg, seed=0, device="cuda")
     n_params = sum(p.numel() for p in tree.leaves(params))
     opt = adamw.init_opt_state(params)
@@ -1047,16 +1100,18 @@ def train(torch, cfg):
     for c in (SA.LAUNCHES, SB.DQ_LAUNCHES, SB.DKV_LAUNCHES):
         c.reset()
     before = route_counts()
-    losses, gnorms, times = [], [], []
+    losses, auxes, gnorms, times = [], [], [], []
     for s in range(n):
         t0 = time.perf_counter()
         params, opt, m = step_fn(params, opt, batches[s])
-        loss, gn = torch.stack([m["loss"], m["grad_norm"]]).tolist()
+        loss, aux, gn = torch.stack([m["loss"], m["aux_loss"],
+                                     m["grad_norm"]]).tolist()
         times.append(time.perf_counter() - t0)
         losses.append(loss)
+        auxes.append(aux)
         gnorms.append(gn)
-        log(f"train step {s}: loss {loss:.4f} grad_norm {gn:.4f} "
-            f"{times[-1] * 1e3:.1f} ms")
+        log(f"train step {s} ({cfg.name}): loss {loss:.4f} aux_loss "
+            f"{aux:.4f} grad_norm {gn:.4f} {times[-1] * 1e3:.1f} ms")
     launches = {"swat_attention_fwd": SA.LAUNCHES.n,
                 "swat_attention_dq": SB.DQ_LAUNCHES.n,
                 "swat_attention_dkv": SB.DKV_LAUNCHES.n}
@@ -1067,20 +1122,25 @@ def train(torch, cfg):
     launches["swat_attention_dkv_combine"] = combines
     tokens = TRAIN["b"] * TRAIN["seq"]
     steady = sum(times[1:]) / (n - 1)
-    summary = {"losses": losses, "grad_norms": gnorms,
+    # params a token runs through: an MoE layer's top-k of E experts
+    experts = sum(p.numel() for blk in params["blocks"]
+                  for layer in blk.values() if "moe" in layer
+                  for k, p in layer["moe"].items() if k != "router")
+    active = n_params - experts * (1 - cfg.moe.top_k
+                                   / max(1, cfg.moe.num_experts))
+    summary = {"losses": losses, "aux_losses": auxes, "grad_norms": gnorms,
                "step_ms": [t * 1e3 for t in times],
-               "tokens_per_s_steps_2_6": tokens * (n - 1) / sum(times[1:]),
+               "tokens_per_s_after_step_1": tokens * (n - 1)
+               / sum(times[1:]),
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "params": n_params,
-               "model_tflop_per_step": 6 * n_params * tokens / 1e12,
-               "model_flop_share": 6 * n_params * tokens / steady
+               "params": n_params, "active_params": active,
+               "model_tflop_per_step": 6 * active * tokens / 1e12,
+               "model_flop_share": 6 * active * tokens / steady
                / PEAK_OPS["bfloat16"],
                "launches": launches}
-    log("train: " + json.dumps(summary))
-    if not all(math.isfinite(x) for x in losses + gnorms):
+    log(f"train ({cfg.name}): " + json.dumps(summary))
+    if not all(math.isfinite(x) for x in losses + auxes + gnorms):
         raise AssertionError(f"non-finite training metrics: {summary}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
     layers = cfg.num_layers
     need = {"swat_attention_fwd": 2 * layers * 2 * n,   # 2 passes, remat
             "swat_attention_dq": 2 * layers * n,
@@ -1096,32 +1156,52 @@ def train(torch, cfg):
 
 # ------------------------------------------------------------- phase 9 ---
 
+def _loss_grads(torch, params, cfg, batch, impl):
+    """(loss, aux_loss, gradient of the total per leaf) through `impl`."""
+    from repro_torch import tree
+    from repro_torch.core import model as Mod
+    leaves = tree.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        total, m = Mod.loss_fn(params, cfg, batch, impl=impl)
+        grads = torch.autograd.grad(total, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return float(m["loss"].detach()), float(m["aux_loss"].detach()), grads
+
+
+def _grad_gap(params, a, b):
+    """|dloss|, |daux| and the largest relative gradient error over the
+    leaves (over the MoE leaves apart) of `a` against `b`, each
+    (loss, aux, grads)."""
+    from repro_torch import tree
+    paths = [p for p, _ in tree.flatten_with_paths(params)]
+    rel = [float((x.float() - y.float()).norm()
+                 / y.float().norm().clamp(min=1e-30))
+           for x, y in zip(a[2], b[2])]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    return {"loss": a[0], "loss_diff": abs(a[0] - b[0]),
+            "aux_loss": a[1], "aux_diff": abs(a[1] - b[1]),
+            "max_leaf_rel_grad_err": rel[worst], "worst_leaf": paths[worst],
+            "max_moe_leaf_rel_grad_err": max(
+                (r for r, p in zip(rel, paths) if "/moe/" in p),
+                default=None)}
+
+
 def train_end_to_end(torch, cfg):
     """One loss and gradient at full width, depth cut to 4 layers so the
     plain path fits the time: kernel path against the plain path."""
     import dataclasses
-    from repro_torch import tree
     from repro_torch.core import model as Mod
     cfg4 = dataclasses.replace(cfg, num_layers=TRAIN["e2e_layers"])
     params = Mod.init_model(cfg4, seed=0, device="cuda")
-    leaves = tree.leaves(params)
     batch = _train_batches(torch, cfg4, 1)[0]
-    res = {}
-    for impl in ("kernel", "banded"):
-        for p in leaves:
-            p.requires_grad_(True)
-        total, _ = Mod.loss_fn(params, cfg4, batch, impl=impl)
-        res[impl] = (total.item(), torch.autograd.grad(total, leaves))
-    lk, gk = res["kernel"]
-    lp, gp = res["banded"]
-    rel = [float((a.float() - b.float()).norm() / b.float().norm().clamp(
-        min=1e-30)) for a, b in zip(gk, gp)]
-    worst = max(range(len(rel)), key=rel.__getitem__)
-    paths = [p for p, _ in tree.flatten_with_paths(params)]
-    out = {"layers": cfg4.num_layers, "loss_kernel": lk, "loss_plain": lp,
-           "loss_diff": abs(lk - lp), "loss_bound": TRAIN_LOSS_BOUND,
-           "max_leaf_rel_grad_err": rel[worst], "worst_leaf": paths[worst],
-           "grad_bound": TRAIN_GRAD_BOUND}
+    out = {"layers": cfg4.num_layers, **_grad_gap(
+        params, *(_loss_grads(torch, params, cfg4, batch, impl)
+                  for impl in ("kernel", "banded"))),
+        "loss_bound": TRAIN_LOSS_BOUND, "grad_bound": TRAIN_GRAD_BOUND}
     log("train e2e kernel vs plain: " + json.dumps(out))
     if not (out["loss_diff"] <= TRAIN_LOSS_BOUND
             and out["max_leaf_rel_grad_err"] <= TRAIN_GRAD_BOUND):
@@ -1183,16 +1263,17 @@ def resume_drill(torch):
 
 # ------------------------------------------------------------ phase 11 ---
 
-def time_backward(torch, spec):
-    """dQ and dK/dV at the training shapes, their plain version (which
-    computes all three gradients) and SDPA's backward (forward+backward
-    minus forward) on head-expanded K/V with the same boolean mask."""
+def time_backward(torch, spec, shape=MAIN):
+    """dQ and dK/dV at the training shapes (`shape`'s heads; llama's by
+    default), their plain version (which computes all three gradients) and
+    SDPA's backward (forward+backward minus forward) on head-expanded K/V
+    with the same boolean mask."""
     import torch.nn.functional as F
     from repro_torch.core import patterns
     from repro_torch.kernels import ops
     from repro_torch.kernels import swat_backward as SB
     gen = torch.Generator(device="cuda").manual_seed(6)
-    b, hq, hkv, d, l = MAIN["b"], MAIN["hq"], MAIN["hkv"], MAIN["d"], \
+    b, hq, hkv, d, l = shape["b"], shape["hq"], shape["hkv"], shape["d"], \
         TRAIN["seq"]
     pat = ops.get_pattern(spec, l, l, 128, 128)
     q, k, v, o, lse, do = _bwd_inputs(torch, gen, torch.bfloat16, b, hq, hkv,
@@ -1243,7 +1324,8 @@ def time_backward(torch, spec):
            "dkv": (tc_ms, p_ms, l_ms, dkv_bytes, 8 * d * n_vis),
            "combine": (c_ms, cp_ms, None, c_bytes, part_k.numel() * 2),
            "dkv_total_ms": dkv_ms}
-    log(f"backward times: dq {dq_ms:.4f} ms, dkv {dkv_ms:.4f} ms (the "
+    log(f"backward times ({hq} q over {hkv} kv heads): dq {dq_ms:.4f} ms, "
+        f"dkv {dkv_ms:.4f} ms (the "
         f"tensor-core launch {tc_ms:.4f} ms + combine {c_ms:.4f} ms; the "
         f"combine's plain version {cp_ms:.4f} ms), plain {p_ms:.4f} ms, "
         f"SDPA backward {l_ms:.4f} ms (forward {f_ms:.4f}); {n_vis} visible "
@@ -1876,9 +1958,11 @@ def whisper(torch):
 
 def whisper_times(torch, cfg, params, batch):
     """Encoder and prefill device times (CUDA events, mean of 5), and a
-    profiled decode block of 8 steps split by kernel category."""
+    profiled decode block of 8 steps split by kernel category, its decode
+    launches counted by the wrappers."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import model as Mod
+    from repro_torch.kernels import swat_decode as SD
 
     def timed(fn, n=5):
         fn()
@@ -1899,6 +1983,7 @@ def whisper_times(torch, cfg, params, batch):
     tok = logits[:, 0].argmax(-1)
     n = 8
     torch.cuda.synchronize()
+    launches0 = (SD.LAUNCHES.n, SD.PLAIN_LAUNCHES.n)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1908,8 +1993,21 @@ def whisper_times(torch, cfg, params, batch):
             tok = logits[:, 0].argmax(-1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # launches from the wrappers' counters, which see every launch (the
+    # profiler may drop kernel records): each plain decode call (the cross
+    # attention) is one decode_plain_kernel, merge included, and the
+    # decoder's self-attention one decode_fused_kernel a layer and step
+    calls = n * cfg.num_layers
+    fused_n = SD.LAUNCHES.n - launches0[0]
+    plain_n = SD.PLAIN_LAUNCHES.n - launches0[1]
+    if plain_n != calls or fused_n != calls:
+        raise AssertionError(f"whisper trace: {plain_n} plain and {fused_n} "
+                             f"fused decode launches in {n} steps of "
+                             f"{cfg.num_layers} layers, expected {calls} "
+                             "each")
     out = {"encoder_ms": enc_ms, "prefill_ms": pre_ms, "trace_steps": n,
-           "trace_wall_ms": wall_ms}
+           "trace_wall_ms": wall_ms, "plain_decode_launches": plain_n,
+           "fused_decode_launches": fused_n}
     dt = torch.autograd.DeviceType
     kernels = [e for e in prof.events() if e.device_type == dt.CUDA]
     if not kernels:
@@ -1922,20 +2020,20 @@ def whisper_times(torch, cfg, params, batch):
                     if any(k_ in name for k_ in keys)), "other")
         by_cat[cat] = by_cat.get(cat, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = _union_ms([e.time_range for e in kernels])
-    calls = n * cfg.num_layers
-    # each plain decode call is one decode_plain_kernel, merge included
     plain = [e for e in kernels if "decode_plain_kernel" in e.name]
     stray = sorted({e.name[:60] for e in kernels if "decode" in e.name.lower()
                     and "decode_plain_kernel" not in e.name
                     and "decode_fused_kernel" not in e.name})
-    if len(plain) != calls or stray:
-        raise AssertionError(f"whisper trace: {len(plain)} plain decode "
-                             f"kernels for {calls} calls; other decode "
-                             f"kernels: {stray}")
+    if stray:
+        raise AssertionError(f"whisper trace: other decode kernels: {stray}")
+    if len(plain) != calls:
+        log(f"whisper trace: the profiler saw {len(plain)} plain decode "
+            f"records for {plain_n} launches counted (a short trace)")
     out.update(device_kernels_per_step=len(kernels) / n,
-               plain_decode_kernels_per_step=len(plain) / n,
-               plain_decode_us_per_call=sum(
-                   e.time_range.elapsed_us() for e in plain) / calls,
+               plain_decode_records_seen=len(plain),
+               plain_decode_us_per_call=(sum(
+                   e.time_range.elapsed_us() for e in plain) / len(plain)
+                   if plain else "not measured (no record traced)"),
                device_ms_per_step_by_category={
                    k: v / n for k, v in sorted(by_cat.items())},
                device_busy_ms_per_step=busy / n,
@@ -2005,6 +2103,74 @@ def chunk_cases(spec):
          GEMMA["hkv"], GEMMA["d"], CHUNK, 4480, GEMMA["window"] + 1, 4160)]
 
 
+def _check_chunk_case(torch, gen, dtype, case):
+    """One case of `check_chunk` (a `chunk_cases` row) in `dtype`: pass A,
+    pass B and the whole chunk route, each launch on its route. Returns
+    the largest error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.core.types import AttentionSpec
+    name, sp, b, hq, hkv, d, t, pos0, cap, w = case
+    dn = str(dtype).split(".")[-1]
+    q, kn, vn, kc, vc, lens = _chunk_case(torch, gen, dtype, b, hq, hkv, d,
+                                          t, pos0, w)
+    g = sp.num_global if sp.is_sparse else 0
+    ring = cap - g
+    lo = max(g, pos0 - ring) if pos0 >= g else pos0
+    slots = g + torch.remainder(
+        torch.arange(lo, pos0, device="cuda") - g, ring)
+    kb = torch.cat([kc.index_select(2, slots), kn], dim=2)
+    vb = torch.cat([vc.index_select(2, slots), vn], dim=2)
+    pat = ops.get_pattern(sp, t, kb.shape[2], 128, 128,
+                          q_shift=pos0 - lo)
+    off = dict(q_offset=pos0, kv_offset=lo, seq_kv_bound=pos0 + t)
+    want, wl = SA.banded_plain(q, kb, vb, sp, pat, d ** -0.5,
+                               return_lse=True, **off)
+    before = route_counts()
+    got, gl = SA.swat_attention_fwd(q, kb, vb, sp, pattern=pat,
+                                    return_lse=True, **off)
+    torch.cuda.synchronize()
+    tag = f"chunk {dn} {name}"
+    check_route(tag, before, "fwd", expected_route(dtype, d, "fwd"))
+    err = check_close(tag + " pass A", got, want, dn)
+    check_close(tag + " pass A lse", gl, wl, dn, atol=1e-3,
+                rtol=1e-4)
+    ng = min(pos0, g)
+    if ng:
+        pinned = AttentionSpec(kind="dense", causal=False,
+                               softcap=sp.softcap)
+        kp = kc[:, :, :ng].contiguous()
+        vp = vc[:, :, :ng].contiguous()
+        ppat = ops.get_pattern(pinned, t, ng, 128, 128)
+        want, wl = SA.banded_plain(q, kp, vp, pinned, ppat,
+                                   d ** -0.5, return_lse=True)
+        before = route_counts()
+        got, gl = SA.swat_attention_fwd(q, kp, vp, pinned,
+                                        pattern=ppat,
+                                        return_lse=True)
+        torch.cuda.synchronize()
+        check_route(tag + " pass B", before, "fwd",
+                    expected_route(dtype, d, "fwd"))
+        err = max(err, check_close(tag + " pass B", got, want, dn))
+        check_close(tag + " pass B lse", gl, wl, dn, atol=1e-3,
+                    rtol=1e-4)
+    before = route_counts()
+    got = ops.prefill_chunk_attention(q, kn, vn, kc, vc, sp, pos0,
+                                      lens, ring_cap=cap,
+                                      impl="kernel")
+    want = ops.prefill_chunk_attention(q, kn, vn, kc, vc, sp, pos0,
+                                       lens, ring_cap=cap,
+                                       impl="banded")
+    torch.cuda.synchronize()
+    check_route(tag + " route", before, "fwd",
+                expected_route(dtype, d, "fwd"), n=2 if ng else 1)
+    real = (pos0 + torch.arange(t, device="cuda"))[None] < lens[:, None]
+    sel = real[:, None, :, None].expand_as(got)
+    err = max(err, check_close(tag + " route vs plain", got[sel],
+                               want[sel], dn))
+    return err
+
+
 def check_chunk(torch, spec):
     """Kernel #2 as a prefill chunk launches it: pass A (the gathered ring
     tail and the chunk, q_offset = pos0, kv_offset = lo, seq_kv_bound =
@@ -2014,73 +2180,14 @@ def check_chunk(torch, spec):
     (`ops.prefill_chunk_attention`, impl "kernel") against the plain chunk
     attention on the card at every real position. bf16 and fp32. Returns
     the largest error of each dtype."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import swat_attention as SA
-    from repro_torch.core.types import AttentionSpec
     gen = torch.Generator(device="cuda").manual_seed(17)
     worst, n = {}, 0
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
-        for (name, sp, b, hq, hkv, d, t, pos0, cap, w) in chunk_cases(spec):
-            q, kn, vn, kc, vc, lens = _chunk_case(torch, gen, dtype, b, hq,
-                                                  hkv, d, t, pos0, w)
-            g = sp.num_global if sp.is_sparse else 0
-            ring = cap - g
-            lo = max(g, pos0 - ring) if pos0 >= g else pos0
-            slots = g + torch.remainder(
-                torch.arange(lo, pos0, device="cuda") - g, ring)
-            kb = torch.cat([kc.index_select(2, slots), kn], dim=2)
-            vb = torch.cat([vc.index_select(2, slots), vn], dim=2)
-            pat = ops.get_pattern(sp, t, kb.shape[2], 128, 128,
-                                  q_shift=pos0 - lo)
-            off = dict(q_offset=pos0, kv_offset=lo, seq_kv_bound=pos0 + t)
-            want, wl = SA.banded_plain(q, kb, vb, sp, pat, d ** -0.5,
-                                       return_lse=True, **off)
-            before = route_counts()
-            got, gl = SA.swat_attention_fwd(q, kb, vb, sp, pattern=pat,
-                                            return_lse=True, **off)
-            torch.cuda.synchronize()
-            tag = f"chunk {dn} {name}"
-            check_route(tag, before, "fwd", expected_route(dtype, d, "fwd"))
-            err = check_close(tag + " pass A", got, want, dn)
-            check_close(tag + " pass A lse", gl, wl, dn, atol=1e-3,
-                        rtol=1e-4)
-            ng = min(pos0, g)
-            if ng:
-                pinned = AttentionSpec(kind="dense", causal=False,
-                                       softcap=sp.softcap)
-                kp = kc[:, :, :ng].contiguous()
-                vp = vc[:, :, :ng].contiguous()
-                ppat = ops.get_pattern(pinned, t, ng, 128, 128)
-                want, wl = SA.banded_plain(q, kp, vp, pinned, ppat,
-                                           d ** -0.5, return_lse=True)
-                before = route_counts()
-                got, gl = SA.swat_attention_fwd(q, kp, vp, pinned,
-                                                pattern=ppat,
-                                                return_lse=True)
-                torch.cuda.synchronize()
-                check_route(tag + " pass B", before, "fwd",
-                            expected_route(dtype, d, "fwd"))
-                err = max(err, check_close(tag + " pass B", got, want, dn))
-                check_close(tag + " pass B lse", gl, wl, dn, atol=1e-3,
-                            rtol=1e-4)
-            before = route_counts()
-            got = ops.prefill_chunk_attention(q, kn, vn, kc, vc, sp, pos0,
-                                              lens, ring_cap=cap,
-                                              impl="kernel")
-            want = ops.prefill_chunk_attention(q, kn, vn, kc, vc, sp, pos0,
-                                               lens, ring_cap=cap,
-                                               impl="banded")
-            torch.cuda.synchronize()
-            check_route(tag + " route", before, "fwd",
-                        expected_route(dtype, d, "fwd"), n=2 if ng else 1)
-            real = (pos0 + torch.arange(t, device="cuda"))[None] < lens[:, None]
-            sel = real[:, None, :, None].expand_as(got)
-            err = max(err, check_close(tag + " route vs plain", got[sel],
-                                       want[sel], dn))
-            worst[dn] = max(worst.get(dn, 0.0), err)
+        for case in chunk_cases(spec):
+            worst[dn] = max(worst.get(dn, 0.0),
+                            _check_chunk_case(torch, gen, dtype, case))
             n += 1
-            del q, kn, vn, kc, vc, kb, vb, got, want
     log(f"chunk: {n} cases (llama's chunk at pos0 0/64/448, its dense "
         "layer, gemma2's D=256 local layer, x bf16/fp32): pass A with "
         "offsets and pass B within tolerance, LSE within 1e-3, each launch "
@@ -3185,6 +3292,568 @@ def resilience(torch, cfg, params, engines, card):
     return out
 
 
+# ------------------------------------------------------------ phase 24 ---
+
+# granite-moe-1b-a400m + SWAT at full width and depth (24 layers, d_model
+# 1024, 16 q over 8 kv heads: group 2, head dim 64, 32 experts top-8 of
+# width 512, tied 49155-row vocab), phase 3's window and globals; its
+# kernel shapes at phase 3's 4 slots
+GRANITE = dict(b=MAIN["b"], hq=16, hkv=8, d=64)
+MOE_CELLS = ("default", "chunked", "speculative")
+
+
+def granite_cfg(dtype_name="bfloat16"):
+    import dataclasses
+    from repro_torch.configs import get_config, with_swat
+    cfg = with_swat(get_config("granite-moe-1b-a400m"),
+                    window=MAIN["window"], num_global=MAIN["num_global"])
+    return dataclasses.replace(cfg, dtype=dtype_name)
+
+
+def moe_kernels(torch, spec):
+    """Kernels #1 and #2 at granite-moe's shape (4 slots, 16 q over 8 kv
+    heads, D=64), bf16 and fp32: the fused decode at T=1 and at T=5 on a
+    lookahead ring (wrapped), caches bitwise its plain version's and
+    outputs within TOL, one launch a call; the banded forward on the L=512
+    band (O within TOL, LSE within 1e-3, on its route; both passes composed
+    by ops.swat_attention against the plain path) and on a prefill chunk
+    at pos0 448 (`_check_chunk_case`). Returns the largest error of each
+    check."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_decode as SD
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    b, hq, hkv, d = (GRANITE[k] for k in ("b", "hq", "hkv", "d"))
+    l, errs = MAIN["prompt"], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        for t in (1, SPEC_K + 1):
+            q, kc, vc, nk, nv, pos, nn, cap = _ring_inputs(
+                torch, gen, dtype, b, hq // hkv, hkv, t, d,
+                [600, 261, 1037, 5000])
+            want, kw, vw = SD.swat_decode_fused_plain(
+                q, kc, vc, nk, nv, pos, nn, spec, ring_cap=cap)
+            n0 = SD.LAUNCHES.n
+            got = SD.swat_decode_fused(q, kc, vc, nk, nv, pos, nn, spec,
+                                       ring_cap=cap)
+            torch.cuda.synchronize()
+            name = f"granite swat_decode {dn} T={t} group {hq // hkv}"
+            if SD.LAUNCHES.n - n0 != 1:
+                raise AssertionError(f"{name}: {SD.LAUNCHES.n - n0} launches")
+            if not (torch.equal(kc, kw) and torch.equal(vc, vw)):
+                raise AssertionError(f"{name}: caches not bitwise equal to "
+                                     "the plain version")
+            errs[f"decode {dn} T={t}"] = max(
+                check_close(name, got[i, :, :int(nn[i])],
+                            want[i, :, :int(nn[i])], dn) for i in range(b))
+        mk = lambda *s: torch.randn(*s, generator=gen,
+                                    device="cuda").to(dtype)
+        q, k, v = mk(b, hq, l, d), mk(b, hkv, l, d), mk(b, hkv, l, d)
+        pat = ops.get_pattern(spec, l, l, 128, 128)
+        want, wl = SA.banded_plain(q, k, v, spec, pat, d ** -0.5,
+                                   return_lse=True)
+        before = route_counts()
+        got, gl = SA.swat_attention_fwd(q, k, v, spec, pattern=pat,
+                                        return_lse=True)
+        torch.cuda.synchronize()
+        name = f"granite swat_attention_fwd {dn} L={l}"
+        check_route(name, before, "fwd", expected_route(dtype, d, "fwd"))
+        err = check_close(name, got, want, dn)
+        check_close(name + " lse", gl, wl, dn, atol=1e-3, rtol=1e-4)
+        got = ops.swat_attention(q, k, v, spec, impl="kernel")
+        want = ops.swat_attention(q, k, v, spec, impl="banded")
+        torch.cuda.synchronize()
+        errs[f"band {dn}"] = max(err, check_close(
+            name + " both passes", got, want, dn))
+        cap = MAIN["window"] + 1 + MAIN["num_global"]
+        errs[f"chunk {dn}"] = _check_chunk_case(
+            torch, gen, dtype, ("granite pos0=448", spec, b, hq, hkv, d,
+                                CHUNK, 448, cap, 320))
+    log("granite kernels (#1 at group 2, T=1 and T=5; #2 on the L=512 band "
+        "and a chunk at pos0 448; bf16 and fp32): caches bitwise, within "
+        f"tolerance, each launch counted on its route: {json.dumps(errs)}")
+    return errs
+
+
+def _kept_tokens(torch, ids, e, cap):
+    """(T,) bool: tokens none of whose k routed slots the sort dispatch
+    drops (rank within the expert, in the stable sort's order, below
+    cap)."""
+    import torch.nn.functional as F
+    flat = ids.reshape(-1)
+    rank = (F.one_hot(flat, e).cumsum(0) - 1).gather(1, flat[:, None])[:, 0]
+    return (rank < cap).reshape(ids.shape).all(-1)
+
+
+def moe_layer(torch, cfg, params):
+    """The port's moe_ffn on the card against the same function on the CPU
+    and against moe_ffn_dense_ref on the card (tokens the sort dispatch
+    keeps whole): the serving shape ("dense", 4 slots, T=1 and T=512) and
+    the training shape ("sort" with its aux loss, B=4, L=2048), bf16 and
+    fp32, layer 0's router with experts drawn at the fan-in of their
+    contraction (outputs O(1), where the reference's elementwise
+    tolerances apply); then layer 0's own experts (the JAX package's
+    draw, fan-in E: outputs of |y| ~ 20-70, where one bf16 ulp is up to
+    0.5) at the serving shapes, the error measured against the output's
+    RMS (MOE_RMS_LIMIT). Inputs are unit-RMS rows, as the layer's norm
+    gives it."""
+    import dataclasses
+    from repro_torch.core import moe as M
+    spec, d, f, e = cfg.moe, cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    own = params["blocks"][0]["l0"]["moe"]
+    unit = {"router": own["router"],
+            "w1": torch.randn(e, d, f, generator=gen, device="cuda")
+            * d ** -0.5,
+            "w3": torch.randn(e, d, f, generator=gen, device="cuda")
+            * d ** -0.5,
+            "w2": torch.randn(e, f, d, generator=gen, device="cuda")
+            * f ** -0.5}
+    shapes = (("decode", "dense", GRANITE["b"], 1),
+              ("prefill", "dense", GRANITE["b"], MAIN["prompt"]),
+              ("train", "sort", TRAIN["b"], TRAIN["seq"]))
+    out = {}
+    for wname, weights, dtypes, cases in (
+            ("fan-in experts", unit, (torch.bfloat16, torch.float32),
+             shapes),
+            ("layer 0's experts", own, (torch.bfloat16,), shapes[:2])):
+        for dtype in dtypes:
+            dn = str(dtype).split(".")[-1]
+            w = {k: v if k == "router" else v.to(dtype)
+                 for k, v in weights.items()}
+            wc = {k: v.cpu() for k, v in w.items()}
+            for tag, disp, bb, ll in cases:
+                x = torch.randn(bb, ll, d, generator=gen, device="cuda")
+                x = (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True))
+                     ).to(dtype)
+                aux = disp == "sort"
+                got, ga = M.moe_ffn(w, x, spec, dispatch=disp,
+                                    return_aux=aux)
+                want, wa = M.moe_ffn(wc, x.cpu(), spec, dispatch=disp,
+                                     return_aux=aux)
+                name = f"moe_ffn {wname} {dn} {tag} ({disp})"
+                row = {}
+                if wname == "layer 0's experts":
+                    rms = float(want.float().pow(2).mean().sqrt())
+                    row["cpu_max_abs_err"] = max_err(got.cpu(), want)
+                    row["out_rms"] = rms
+                    row["cpu_err_over_rms"] = row["cpu_max_abs_err"] / rms
+                    # the controls: 7 significant bits instead of bf16's
+                    # 8, and top-(k-1) routing
+                    m, ex = torch.frexp(got.float())
+                    short = torch.ldexp(torch.round(m * 128) / 128, ex)
+                    row["one_bit_short_over_rms"] = max_err(
+                        short.cpu(), want) / rms
+                    fewer, _ = M.moe_ffn(w, x, dataclasses.replace(
+                        spec, top_k=spec.top_k - 1), dispatch=disp,
+                        return_aux=False)
+                    row["top_k_minus_1_over_rms"] = max_err(
+                        fewer.cpu(), want) / rms
+                    row["limit"] = MOE_RMS_LIMIT
+                    if not (row["cpu_err_over_rms"] <= MOE_RMS_LIMIT
+                            < row["top_k_minus_1_over_rms"]):
+                        raise AssertionError(f"{name}: {row}")
+                    out[name] = row
+                    continue
+                row["cpu"] = check_close(name + " vs CPU", got.cpu(), want,
+                                         dn)
+                if aux:
+                    row["aux"] = float(ga)
+                    check_close(name + " aux vs CPU", ga.cpu(), wa,
+                                "float32")
+                xf = x.reshape(-1, d)
+                _, _, ids = M._route(w, xf, spec.top_k)
+                t = xf.shape[0]
+                cap = int(max(spec.top_k, min(t, round(
+                    t * spec.top_k * 1.25 / e)))) if aux else t
+                kept = _kept_tokens(torch, ids, e, cap)
+                ref = M.moe_ffn_dense_ref(w, x, spec).reshape(-1, d)
+                row["tokens_kept"] = int(kept.sum())
+                row["tokens"] = t
+                row["ref"] = check_close(name + " vs dense ref",
+                                         got.reshape(-1, d)[kept],
+                                         ref[kept], dn)
+                out[name] = row
+            del wc
+    torch.cuda.synchronize()
+    log("granite moe_ffn on the card: " + json.dumps(out))
+    return out
+
+
+def _moe_counter_index():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_decode as SD
+    return {k: _build._COUNTERS.index(c) for k, c in (
+        ("swat_decode", SD.LAUNCHES), ("swat_decode_plain",
+                                       SD.PLAIN_LAUNCHES),
+        ("swat_attention_fwd", SA.LAUNCHES),
+        ("fwd_tc", SA.ROUTE_LAUNCHES["tc"]),
+        ("fwd_simt", SA.ROUTE_LAUNCHES["simt"]))}
+
+
+def moe_serve(torch, cfg, params):
+    """Phase 3's cell and phase 21's chunked (64) and speculative (k=4)
+    cells on granite-moe + SWAT, bf16: an eager engine (graphs=False)
+    serves the 8 requests once and a graph engine twice (its first run
+    captures, its second only replays). Each graph run's tokens bitwise
+    the eager run's, every launch counter and step count equal; on the
+    replay run #1 launches once per layer and decode or verify step and
+    #2 as phase 3's formula gives (`_fwd_launches_per_batch`), every
+    forward launch on the tensor-core route and no plain decode launch;
+    every engine takes no step down. Then the warm graph engine of each
+    cell serves the first 4 requests three times (decode or verify ms a
+    step, prefill ms a batch). Returns {cell: summary}."""
+    import numpy as np
+    from repro_torch.serving.engine import ServingEngine
+    idx = _moe_counter_index()
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (MAIN["prompt"],))
+               .astype(np.int32) for _ in range(8)]
+    keys = ("decode_steps", "spec_steps", "prefill_batches", "tokens_emitted")
+    layers, g = cfg.num_layers, cfg.attention.num_global
+    out = {}
+    for cell in MOE_CELLS:
+        make = lambda graphs: ServingEngine(
+            cfg, params, batch_slots=4, max_len=MAIN["max_len"],
+            scan_steps=8, graphs=graphs, **_cell_kw(cell))
+        eager, graph = make(False), make(True)
+        want, w_counts, w_st, w_wall = _serve_on(torch, eager, prompts,
+                                                 MAIN["new_tokens"])
+        if any(len(t) != MAIN["new_tokens"] for t in want):
+            raise AssertionError(f"granite {cell}: token counts "
+                                 f"{[len(t) for t in want]}")
+        runs = []
+        for run in ("capture", "replay"):
+            captured0 = len(graph._compiled.captured)
+            got, counts, st, wall = _serve_on(torch, graph, prompts,
+                                              MAIN["new_tokens"])
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            if bad:
+                raise AssertionError(f"granite {cell} ({run}): graph tokens "
+                                     f"differ from eager on requests {bad}")
+            if counts != w_counts or any(st[k] != w_st[k] for k in keys):
+                raise AssertionError(f"granite {cell} ({run}): launches "
+                                     f"{counts} / eager {w_counts}, stats "
+                                     f"{st} / eager {w_st}")
+            runs.append((len(graph._compiled.captured) - captured0, st,
+                         wall))
+        if runs[1][0]:
+            raise AssertionError(f"granite {cell}: {runs[1][0]} captures in "
+                                 "the replay run")
+        st = runs[1][1]
+        launches = {k: w_counts[idx[k]] for k in ("swat_decode",
+                                                  "swat_attention_fwd")}
+        expected = {"swat_decode": layers * st["decode_steps"],
+                    "swat_attention_fwd": layers * _fwd_launches_per_batch(
+                        graph, MAIN["prompt"], g) * st["prefill_batches"]}
+        if (launches != expected or w_counts[idx["swat_decode_plain"]]
+                or w_counts[idx["fwd_simt"]]
+                or w_counts[idx["fwd_tc"]] != launches["swat_attention_fwd"]):
+            raise AssertionError(
+                f"granite {cell}: launches {launches}, expected {expected} "
+                f"(plain decode {w_counts[idx['swat_decode_plain']]}, "
+                f"SIMT forward {w_counts[idx['fwd_simt']]})")
+        latency = _latency_ms(list(graph.tracer.records)[-len(prompts):])
+        warm = [_serve_on(torch, graph, prompts[:4], MAIN["new_tokens"])[2]
+                for _ in range(3)]
+        n_tok = sum(len(t) for t in want)
+        out[cell] = {
+            "tokens_bitwise_eager": True, "launches": launches,
+            "graphs_captured": len(graph._compiled.captured),
+            "eager_decode_ms_per_step": w_st["decode_s"] * 1e3
+            / w_st["decode_steps"],
+            "replay_run_decode_ms_per_step": st["decode_s"] * 1e3
+            / st["decode_steps"],
+            "replay_run_prefill_ms_per_batch": st["prefill_s"] * 1e3
+            / st["prefill_batches"],
+            "replay_run_tok_per_s": n_tok / runs[1][2],
+            "warm_decode_ms_per_step": [s_["decode_s"] * 1e3
+                                        / s_["decode_steps"] for s_ in warm],
+            "warm_prefill_ms_per_batch": [s_["prefill_s"] * 1e3
+                                          / s_["prefill_batches"]
+                                          for s_ in warm],
+            "tokens_per_step_per_slot": st["tokens_emitted"]
+            / (st["decode_steps"] * 4),
+            "spec_steps": st["spec_steps"],
+            "draft_proposed": st["draft_proposed"],
+            "draft_accepted": st["draft_accepted"],
+            "latency_ms_replay_run": latency}
+        log(f"granite serve {cell} (bf16): " + json.dumps(out[cell]))
+    return out
+
+
+def _moe_trace(torch, cfg, params):
+    """An eager decode block (graphs=False: a replayed graph links no
+    kernel to the op that launched it) traced with the port's moe_ffn
+    inside a profiler range: the device time a decode step by kernel
+    category, and the time of the kernels that the ops inside the range
+    launched (the router, top-k, gates and the experts' products), against
+    all kernels linked to an op in the decode blocks. One fused decode
+    launch a layer and step and no plain one (the wrappers' counters)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core import moe as M
+    from repro_torch.kernels import swat_decode as SD
+    from repro_torch.serving.engine import Request, ServingEngine
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab_size, (MAIN["prompt"],))
+               for _ in range(4)]
+    eng = ServingEngine(cfg, params, batch_slots=4, max_len=MAIN["max_len"],
+                        scan_steps=8, graphs=False)
+    reqs = lambda: [Request(rid=i, prompt=p, max_new_tokens=9)
+                    for i, p in enumerate(prompts)]
+    eng.run(reqs())
+    ffn = M.moe_ffn
+
+    def named(*a, **kw):
+        with record_function("moe_ffn"):
+            return ffn(*a, **kw)
+
+    steps0 = eng.stats["decode_steps"]
+    launches0 = (SD.LAUNCHES.n, SD.PLAIN_LAUNCHES.n)
+    torch.cuda.synchronize()
+    M.moe_ffn = named
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.run(reqs())
+            torch.cuda.synchronize()
+    finally:
+        M.moe_ffn = ffn
+    no_step_down(eng, "granite trace")
+    steps = eng.stats["decode_steps"] - steps0
+    fused_n = SD.LAUNCHES.n - launches0[0]
+    if fused_n != cfg.num_layers * steps or SD.PLAIN_LAUNCHES.n != \
+            launches0[1]:
+        raise AssertionError(f"granite trace: {fused_n} fused decode "
+                             f"launches in {steps} steps of "
+                             f"{cfg.num_layers} layers")
+    dt = torch.autograd.DeviceType
+    ev = prof.events()
+    blocks = [e.time_range for e in ev if e.name == "engine.decode_block"
+              and e.device_type == dt.CPU]
+    inside = lambda r: any(b.start <= r.start <= b.end for b in blocks)
+    # the profiler ranges appear on the device too: they are not kernels
+    kernels = [e for e in ev if e.device_type == dt.CUDA
+               and e.name != "moe_ffn" and not e.name.startswith("engine.")
+               and inside(e.time_range)]
+    ranges = [e for e in ev if e.name == "moe_ffn"
+              and e.device_type == dt.CPU and inside(e.time_range)]
+    ops = [e for e in ev if e.device_type == dt.CPU and e.name != "moe_ffn"
+           and inside(e.time_range)]
+    moe_us = sum(k.duration for e in ops
+                 if any(r.thread == e.thread
+                        and r.time_range.start <= e.time_range.start
+                        and e.time_range.end <= r.time_range.end
+                        for r in ranges)
+                 for k in e.kernels)
+    linked_us = sum(k.duration for e in ops for k in e.kernels)
+    per = max(1, steps)
+    out = {"eager_decode_steps": steps, "fused_decode_launches": fused_n,
+           "moe_ranges": len(ranges)}
+    if not kernels or not linked_us:
+        out["device_time"] = "not measured (no kernel traced in the blocks)"
+        return out
+    by_cat = {}
+    for e in kernels:
+        name = e.name.lower()
+        cat = next((c for c, keys in _CATEGORIES
+                    if any(k in name for k in keys)), "other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + e.time_range.elapsed_us() / 1e3
+    out.update({
+        "kernels_per_step": len(kernels) / per,
+        "device_ms_per_step_by_category": {
+            k: v / per for k, v in sorted(by_cat.items())},
+        "moe_ffn_device_ms_per_step": moe_us / 1e3 / per,
+        "op_linked_device_ms_per_step": linked_us / 1e3 / per,
+        "moe_share_of_linked": moe_us / linked_us})
+    return out
+
+
+def moe_fp32(torch):
+    """fp32 at full width and depth: the kernel engine (graphs) serves
+    phase 3's cell, and the plain path (model.prefill and
+    model.decode_step, impl "banded") runs the same two admission waves of
+    4 greedily; every request's 64 tokens must be equal. Then phase 4's
+    kernel-vs-plain gate (`end_to_end`) on the same model."""
+    import numpy as np
+    from repro_torch.core import model as Mod
+    from repro_torch.serving.engine import ServingEngine
+    cfg = granite_cfg("float32")
+    params = Mod.init_model(cfg, seed=0, device="cuda")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (MAIN["prompt"],))
+               .astype(np.int32) for _ in range(8)]
+    eng = ServingEngine(cfg, params, batch_slots=4, max_len=MAIN["max_len"],
+                        scan_steps=8)
+    got = _serve_on(torch, eng, prompts, MAIN["new_tokens"])[0]
+    want = []
+    for w in range(2):
+        tok = torch.as_tensor(np.stack(prompts[4 * w:4 * w + 4]),
+                              device="cuda")
+        logits, caches = Mod.prefill(params, cfg, {"tokens": tok},
+                                     MAIN["max_len"], impl="banded")
+        nxt = logits[:, 0].argmax(-1)
+        toks = [nxt]
+        for _ in range(MAIN["new_tokens"] - 1):
+            logits, caches = Mod.decode_step(params, cfg,
+                                             {"tokens": nxt[:, None]},
+                                             caches, impl="banded")
+            nxt = logits[:, 0].argmax(-1)
+            toks.append(nxt)
+        want += torch.stack(toks, 1).tolist()
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    out = {"layers": cfg.num_layers, "requests": len(prompts),
+           "tokens_equal": not bad, "requests_differing": bad}
+    log("granite fp32 kernel engine vs plain path: " + json.dumps(out))
+    if bad:
+        first = [next(j for j, (a, b) in enumerate(zip(got[i], want[i]))
+                      if a != b) for i in bad]
+        raise AssertionError(f"granite fp32: kernel engine tokens differ "
+                             f"from the plain path's on requests {bad} "
+                             f"from steps {first}")
+    # phase 4's gate at full depth in fp32
+    out["e2e"] = end_to_end(torch, cfg, params, got)
+    del params, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train(torch, cfg):
+    """Two AdamW steps of granite-moe + SWAT at full width and depth
+    (`train`: B=4, L=2048, sort dispatch with the aux loss, remat "nothing"
+    as in phase 8, launches as phase 8 counts them). Then the kernel path
+    against the plain path: on the trained bf16 params at full depth the
+    loss, |dloss| <= TRAIN_LOSS_BOUND; in fp32 at full width and 4 layers
+    (as phase 9) |dloss| <= TRAIN_LOSS_BOUND and every leaf's relative
+    gradient error, experts and routers included, <= TRAIN_GRAD_BOUND.
+    (bf16 gradients are not compared here: the random experts' gain makes
+    two plain versions' bf16 gradients differ as much as the kernel
+    path's; the bf16 dQ and dK/dV kernels at granite's heads are held
+    against their plain version in phase 7.) Returns (summary, launches,
+    the two comparisons)."""
+    import dataclasses
+    from repro_torch.core import model as Mod
+    summary, launches, (params, opt, _, batch) = train(torch, cfg, n=2)
+    del opt
+    with torch.no_grad():
+        bf = [float(Mod.loss_fn(params, cfg, batch, impl=impl)[1]["loss"])
+              for impl in ("kernel", "banded")]
+    e2e = {"bf16 loss kernel/banded": {"loss": bf[0],
+                                       "loss_diff": abs(bf[0] - bf[1])}}
+    del params
+    torch.cuda.empty_cache()
+    cfg4 = dataclasses.replace(cfg, dtype="float32", num_layers=4)
+    p4 = Mod.init_model(cfg4, seed=0, device="cuda")
+    b4 = _train_batches(torch, cfg4, 1)[0]
+    e2e["fp32 4 layers kernel/banded"] = f4 = _grad_gap(
+        p4, *(_loss_grads(torch, p4, cfg4, b4, impl)
+              for impl in ("kernel", "banded")))
+    del p4
+    torch.cuda.empty_cache()
+    log("granite train kernel vs plain: " + json.dumps(e2e))
+    if not (e2e["bf16 loss kernel/banded"]["loss_diff"] <= TRAIN_LOSS_BOUND
+            and f4["loss_diff"] <= TRAIN_LOSS_BOUND
+            and f4["max_leaf_rel_grad_err"] <= TRAIN_GRAD_BOUND):
+        raise AssertionError(f"granite train kernel vs plain: {e2e}")
+    return summary, launches, e2e
+
+
+def moe(torch, card, llama_turns):
+    """Phase 24: granite-moe-1b-a400m + SWAT on the card (see the module
+    docstring). Returns a summary with each path's launch counts."""
+    from repro_torch import tree
+    from repro_torch.core import model as Mod
+    from repro_torch.core import moe as M
+    t_phase = time.perf_counter()
+    split = {}
+
+    def lap(name):
+        split[name] = time.perf_counter() - t_phase - sum(split.values())
+
+    cfg = granite_cfg()
+    spec = cfg.attention
+    kerr = moe_kernels(torch, spec)
+    lap("kernels")
+    params = Mod.init_model(cfg, seed=0, device="cuda")
+    layer = moe_layer(torch, cfg, params)
+    lap("moe_ffn")
+    cells = moe_serve(torch, cfg, params)
+    lap("serve cells")
+    trace = _moe_trace(torch, cfg, params)
+    lap("trace")
+    # the decode step's byte bound: every weight read once (the dense
+    # dispatch reads all experts), the rings' K and V rows, the logits out
+    cap = MAIN["window"] + 1 + MAIN["num_global"]
+    w_bytes = sum(p.numel() * p.element_size() for p in tree.leaves(params))
+    kv_bytes = (cfg.num_layers * GRANITE["b"] * GRANITE["hkv"] * cap
+                * GRANITE["d"] * 2 * 2)
+    step_bound_ms = (w_bytes + kv_bytes + GRANITE["b"] * cfg.vocab_size * 4
+                     ) / HBM_BYTES_PER_S * 1e3
+    own = params["blocks"][0]["l0"]["moe"]
+    xd = torch.randn(GRANITE["b"], 1, cfg.d_model, device="cuda").to(
+        torch.bfloat16)
+    moe_ms = time_ms(torch, lambda: M.moe_ffn(own, xd, cfg.moe,
+                                              dispatch="dense",
+                                              return_aux=False))
+    moe_bound = bound(sum(own[k].numel() * own[k].element_size()
+                          for k in own), 0)
+    times = {"decode": time_decode(torch, spec, shape=GRANITE),
+             "verify": time_decode(torch, spec, t=SPEC_K + 1,
+                                   shape=GRANITE),
+             "band": time_banded(torch, spec, shape=GRANITE)}
+    del params
+    torch.cuda.empty_cache()
+    lap("times")
+    fp32 = moe_fp32(torch)
+    lap("fp32")
+    tr, _, tr_e2e = moe_train(torch, cfg)
+    lap("train")
+    times["backward"] = time_backward(torch, spec, shape=GRANITE)
+    lap("backward times")
+    graph_ms = cells["default"]["warm_decode_ms_per_step"]
+    llama_ms = llama_turns["default ms a step"]["graphs"]
+    out = {"kernel_errors": kerr, "moe_layer": layer, "cells": cells,
+           "trace": trace, "fp32": fp32, "train": tr,
+           "train_e2e": tr_e2e,
+           "times": times, "step_bound_ms": step_bound_ms,
+           "phase_s": time.perf_counter() - t_phase, "phase_split_s": split}
+    lat = cells["default"]["latency_ms_replay_run"]
+    log(f"granite decode ms a step with graphs (warm, 4 slots; {card}): "
+        f"{graph_ms}, byte bound {step_bound_ms:.4f} ms ({w_bytes / 1e9:.3f}"
+        f" GB of weights, {kv_bytes / 1e6:.1f} MB of rings); llama phase 21 "
+        f"graphs {llama_ms}")
+    log(f"granite traced eager decode step, MoE named ({card}): "
+        + json.dumps(trace))
+    log(f"granite moe_ffn at the decode shape (dense, 4 x 1 tokens, bf16; "
+        f"{card}): {moe_ms:.5f} ms a layer, bound {moe_bound[0]:.5f} ms "
+        f"({moe_bound[1]})")
+    log(f"granite prefill ms a batch (graphs, warm; {card}): "
+        f"{cells['default']['warm_prefill_ms_per_batch']}; TTFT p50 "
+        f"{lat['ttft']['p50']:.3f} p95 {lat['ttft']['p95']:.3f} ms, TPOT "
+        f"p50 {lat['tpot']['p50']:.3f} p95 {lat['tpot']['p95']:.3f} ms")
+    log(f"granite train step ms ({card}): {tr['step_ms']}, "
+        f"{tr['tokens_per_s_after_step_1']:.1f} tok/s at step 2, "
+        f"{tr['model_flop_share']:.4f} of the bf16 peak on active params")
+    for name, (k_ms, p_ms, l_ms, b_, o_) in (
+            ("#1 fused decode T=1", times["decode"]),
+            ("#1 fused decode T=5", times["verify"]),
+            ("#2 forward L=512 band", times["band"])):
+        b_ms, b_by = bound(b_, o_)
+        log(f"granite {name} ({card}): kernel {k_ms:.5f} ms, plain "
+            f"{p_ms:.4f}, SDPA {l_ms:.4f}, bound {b_ms:.6f} ({b_by})")
+    bt = times["backward"]
+    for key in ("dq", "dkv", "combine"):
+        k_ms, p_ms, l_ms, b_, o_ = bt[key]
+        b_ms, b_by = bound(b_, o_)
+        log(f"granite {key} L=2048 ({card}): kernel {k_ms:.5f} ms, plain "
+            f"{p_ms:.4f}, library {l_ms}, bound {b_ms:.6f} ({b_by})")
+    log(f"granite phase: {out['phase_s']:.1f}s, split "
+        f"{json.dumps(split)}")
+    return out
+
+
 def ptxas_report(out):
     """(kernel, registers, spill-store bytes) for every entry function in
     the `nvcc -Xptxas -v` output of one source; kernel reads like
@@ -3323,9 +3992,14 @@ def main():
     del gengines
     del params
     cells32 = serve_slice_fp32(torch, cfg)
+    # phase 24: granite-moe-1b-a400m + SWAT, served and trained
+    moe24 = moe(torch, card, gturns)
+    moe_launch = {k: v["launches"] for k, v in moe24["cells"].items()}
 
     dq_err, dkv_err, combine_err = check_backward(torch, spec)
     tr, tr_launches, tr_state = train(torch, cfg)
+    if not tr["losses"][-1] < tr["losses"][0]:
+        raise AssertionError(f"train: loss did not fall: {tr['losses']}")
     bt = time_backward(torch, spec)
     ft = time_forward_train(torch, spec)
     ttrace = trace_train_step(torch, tr_state)
@@ -3343,13 +4017,15 @@ def main():
         {"name": "swat_decode_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/swat_decode.cu",
          "replaces": "src/repro/kernels/swat_decode.py:116",
-         "launches": summary["launches"]["swat_decode"],
+         "launches": summary["launches"]["swat_decode"]
+         + moe_launch["default"]["swat_decode"],
          "max_abs_err": dec_err[1], "ms": dk, "plain_ms": dp,
          "bound_ms": db_ms, "bound_by": db_by, "library_ms": dl},
         {"name": "swat_attention_fwd_tc", "route": "cuda",
          "source": "src/repro_torch/csrc/swat_attention_fwd.cu",
          "replaces": "src/repro/kernels/swat_attention.py:64",
-         "launches": summary["launches"]["swat_attention_fwd"],
+         "launches": summary["launches"]["swat_attention_fwd"]
+         + moe_launch["default"]["swat_attention_fwd"],
          "max_abs_err": fwd_err, "ms": fk, "plain_ms": fp,
          "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": fl},
         {"name": "swat_decode_plain", "route": "cuda",
@@ -3367,13 +4043,14 @@ def main():
         {"name": "swat_decode_fused (verify step, T=5)", "route": "cuda",
          "source": "src/repro_torch/csrc/swat_decode.cu",
          "replaces": "src/repro/kernels/swat_decode.py:116",
-         "launches": cells["speculative"]["launches"]["swat_decode"],
+         "launches": cells["speculative"]["launches"]["swat_decode"]
+         + moe_launch["speculative"]["swat_decode"],
          "max_abs_err": dec_err[SPEC_K + 1], "ms": vk[0], "plain_ms": vk[1],
          "bound_ms": vb_ms, "bound_by": vb_by, "library_ms": vk[2]})
     for name, times, launches, dn in (
             ("swat_attention_fwd_tc (prefill chunk, offsets)", ck,
-             cells["chunked"]["launches"]["swat_attention_fwd"],
-             "bfloat16"),
+             cells["chunked"]["launches"]["swat_attention_fwd"]
+             + moe_launch["chunked"]["swat_attention_fwd"], "bfloat16"),
             ("swat_attention_fwd (SIMT, fp32 prefill chunk, offsets)", ck32,
              cells32["chunked"]["launches"]["swat_attention_fwd"],
              "float32")):
@@ -3399,7 +4076,9 @@ def main():
              "replaces": ("src/repro/kernels/swat_backward.py:51"
                           if key == "dq" else
                           "src/repro/kernels/swat_backward.py:93"),
-             "launches": tr_launches[counted], "max_abs_err": err, "ms": ms,
+             "launches": tr_launches[counted]
+             + moe24["train"]["launches"][counted], "max_abs_err": err,
+             "ms": ms,
              "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": l_ms})
     pb_ms_, pb_by_ = bound(pg_times[3], pg_times[4])
@@ -3479,6 +4158,7 @@ def main():
         f" ms ({tel_prof['bound_by']}), {tel_prof['bound_share'] * 100:.2f}% "
         f"of the bound; phase 5 (L2 flushed) {dk:.5f} ms")
     log(f"resilience (bf16; {card}): {json.dumps(res23)}")
+    log(f"granite-moe (phase 24; {card}): {json.dumps(moe24)}")
     log(f"e2e: {json.dumps(e2e)}")
     log(f"trace: {json.dumps(trace)}")
     log(f"unembed: {json.dumps(unembed)}")

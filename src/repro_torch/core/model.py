@@ -1,6 +1,6 @@
-"""Attention decoder LMs and the whisper encoder-decoder (the port of the
-JAX package's `core/model.py` for the layer kinds "attn", "local_attn" and
-"xattn").
+"""Attention decoder LMs, their MoE variant and the whisper encoder-decoder
+(the port of the JAX package's `core/model.py` for the layer kinds "attn",
+"attn_moe", "local_attn" and "xattn").
 
 Params are a plain dict with the JAX package's leaf layouts, except that
 the stacked super-blocks (`blocks/l{i}/...` and `enc_blocks/l0/...`, each
@@ -15,9 +15,16 @@ updates caches IN PLACE.
 default is the CUDA kernels for CUDA tensors and the plain versions for CPU
 tensors. Training differentiates `loss_fn` with autograd, recomputing each
 super-block in the backward pass under `REMAT_POLICIES`; `prefill`,
-`prefill_chunk` and `decode_step` run without autograd. The layer kinds
-"mamba*" and "*_moe" raise NotImplementedError: they belong to later
-slices.
+`prefill_chunk` and `decode_step` run without autograd.
+
+An "attn_moe" layer replaces the dense MLP with `core/moe.py`'s expert FFN
+(`d_ff` is then each expert's width). Training and `forward_logits` run
+the spec's dispatch ("sort") and `loss_fn` adds the summed Switch aux loss
+at `aux_weight`; the serving sites (`prefill`, `prefill_chunk`,
+`decode_step`) run the "dense" dispatch without the aux loss, as the JAX
+package does (there it is computed and discarded). The layer kinds
+"mamba" and "mamba_moe" raise NotImplementedError: they belong to a later
+slice.
 """
 from __future__ import annotations
 
@@ -29,11 +36,12 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import layers as L
+from repro_torch.core import moe as M
 from repro_torch.core.types import AttentionSpec, ModelConfig
 
 Params = Dict[str, Any]
 Caches = List[Dict[str, Dict[str, torch.Tensor]]]
-_KINDS = ("attn", "local_attn", "xattn")
+_KINDS = ("attn", "attn_moe", "local_attn", "xattn")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -93,7 +101,11 @@ def _init_super_block(gen: torch.Generator, cfg: ModelConfig, dt,
             p["norm_x"] = L.init_rmsnorm(cfg.d_model, device)
             p["cross"] = L.init_attention(
                 gen, attn_cfg(cfg, kind, cross=True), dt, device)
-        if cfg.d_ff > 0:
+        if kind.endswith("_moe"):
+            p["norm2"] = L.init_rmsnorm(cfg.d_model, device)
+            p["moe"] = M.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.moe, dt,
+                                  device)
+        elif cfg.d_ff > 0:
             p["norm2"] = L.init_rmsnorm(cfg.d_model, device)
             p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)
         blk[f"l{i}"] = p
@@ -177,10 +189,34 @@ def _unembed(params: Params, cfg: ModelConfig, x) -> torch.Tensor:
 
 
 def _ffn(p: Params, cfg: ModelConfig, x):
-    if "mlp" in p:
+    """The serving sites' FFN: the dense MLP, or the experts under the
+    "dense" dispatch with no aux loss (padding-invariant, no host sync)."""
+    if "moe" in p:
+        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        y, _ = M.moe_ffn(p["moe"], h, cfg.moe, dispatch="dense",
+                         return_aux=False)
+        x = x + y
+    elif "mlp" in p:
         h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
         x = x + L.mlp(p["mlp"], h)
     return x
+
+
+def _train_ffn(p: Params, cfg: ModelConfig, x):
+    """The training and `forward_logits` FFN: the experts under the spec's
+    dispatch with the aux loss (None for a dense MLP)."""
+    if "moe" in p:
+        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
+        y, aux = M.moe_ffn(p["moe"], h, cfg.moe)
+        return x + y, aux
+    return _ffn(p, cfg, x), None
+
+
+def _add_aux(aux, a):
+    """aux + a, where None stands for no MoE layer yet."""
+    if a is None:
+        return aux
+    return a if aux is None else aux + a
 
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -212,10 +248,13 @@ def _stack_forward(blocks, cfg: ModelConfig, x, *, impl: Optional[str],
     layers attend). With `remat` (and autograd recording), each
     super-block is a `torch.utils.checkpoint` region under
     REMAT_POLICIES[remat_policy]: its activations are recomputed in the
-    backward pass (the JAX package's jax.checkpoint around the scan body)."""
+    backward pass (the JAX package's jax.checkpoint around the scan body).
+    Returns (x, aux): aux is the MoE layers' aux loss summed over every
+    layer of every super-block, an fp32 scalar (zero without MoE)."""
     policy = REMAT_POLICIES[remat_policy]
 
     def block_fn(x, blk):
+        aux = None
         for i, kind in enumerate(cfg.layer_pattern):
             p = blk[f"l{i}"]
             h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
@@ -227,19 +266,25 @@ def _stack_forward(blocks, cfg: ModelConfig, x, *, impl: Optional[str],
                 x = x + L.attention_layer(p["cross"],
                                           attn_cfg(cfg, kind, cross=True), h,
                                           kv_x=enc_out, impl=impl)
-            x = _ffn(p, cfg, x)
-        return x
+            x, a = _train_ffn(p, cfg, x)
+            aux = _add_aux(aux, a)
+        return x, aux
 
     kw = {}
     if policy is not None:
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, policy)
+    aux = None
     for blk in blocks:
         if remat and torch.is_grad_enabled():
-            x = ckpt.checkpoint(block_fn, x, blk, use_reentrant=False, **kw)
+            x, a = ckpt.checkpoint(block_fn, x, blk, use_reentrant=False,
+                                   **kw)
         else:
-            x = block_fn(x, blk)
-    return x
+            x, a = block_fn(x, blk)
+        aux = _add_aux(aux, a)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def encode(params: Params, cfg: ModelConfig, batch, *,
@@ -251,34 +296,43 @@ def encode(params: Params, cfg: ModelConfig, batch, *,
     x = batch["enc_embeddings"].to(_dtype(cfg))
     x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
                                    x.device).to(x.dtype)[None]
-    x = _stack_forward(params["enc_blocks"], cfg_encoder(cfg), x, impl=impl,
-                       remat=False)
+    x, _ = _stack_forward(params["enc_blocks"], cfg_encoder(cfg), x,
+                          impl=impl, remat=False)
     return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _forward(params: Params, cfg: ModelConfig, batch, *,
+             impl: Optional[str], remat: bool, remat_policy: str):
+    """(full-sequence fp32 logits, summed MoE aux loss)."""
+    _check_supported(cfg)
+    enc_out = (encode(params, cfg, batch, impl=impl)
+               if cfg.encoder_decoder else None)
+    x = embed_tokens(params, cfg, batch)
+    x, aux = _stack_forward(params["blocks"], cfg, x, impl=impl, remat=remat,
+                            remat_policy=remat_policy, enc_out=enc_out)
+    return _unembed(params, cfg, x), aux
 
 
 def forward_logits(params: Params, cfg: ModelConfig, batch, *,
                    impl: Optional[str] = None, remat: bool = False,
                    remat_policy: str = "nothing") -> torch.Tensor:
-    """Full-sequence logits (B, L, V), fp32. `remat` recomputes each
-    super-block in the backward pass (training); serving leaves it off."""
-    _check_supported(cfg)
-    enc_out = (encode(params, cfg, batch, impl=impl)
-               if cfg.encoder_decoder else None)
-    x = embed_tokens(params, cfg, batch)
-    x = _stack_forward(params["blocks"], cfg, x, impl=impl, remat=remat,
-                       remat_policy=remat_policy, enc_out=enc_out)
-    return _unembed(params, cfg, x)
+    """Full-sequence logits (B, L, V), fp32 (MoE layers run the spec's
+    dispatch, as in training). `remat` recomputes each super-block in the
+    backward pass (training); serving leaves it off."""
+    return _forward(params, cfg, batch, impl=impl, remat=remat,
+                    remat_policy=remat_policy)[0]
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch, *,
             impl: Optional[str] = None, remat: bool = True,
             aux_weight: float = 0.01, remat_policy: str = "nothing"):
-    """Next-token cross entropy in fp32. batch["labels"]: (B, L) int;
-    positions with label < 0 are masked out. Returns (total, {"loss",
-    "aux_loss", "tokens"}) as 0-dim tensors; aux is zero for the ported
-    layer kinds (no MoE)."""
-    logits = forward_logits(params, cfg, batch, impl=impl, remat=remat,
-                            remat_policy=remat_policy)
+    """Next-token cross entropy in fp32 plus `aux_weight` times the MoE
+    layers' load-balance loss summed over layers. batch["labels"]: (B, L)
+    int; positions with label < 0 are masked out. Returns (total, {"loss",
+    "aux_loss", "tokens"}) as 0-dim tensors; aux_loss is zero without MoE
+    layers."""
+    logits, aux = _forward(params, cfg, batch, impl=impl, remat=remat,
+                           remat_policy=remat_policy)
     labels = batch["labels"].long()
     logits = logits[:, :-1].float()
     targets = labels[:, 1:]
@@ -289,7 +343,6 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, *,
     nll = torch.where(valid, lse - picked, 0.0)
     denom = torch.clamp(valid.sum(), min=1)
     loss = nll.sum() / denom
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux_loss": aux,
                    "tokens": denom.to(torch.float32)}

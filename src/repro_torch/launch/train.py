@@ -6,7 +6,9 @@ on synthetic data with auto-resume, on the card by default.
 
 Params start from the port's own `init_model` with seed 0; a SWAT model
 trains through its config (longformer-paper, bigbird-paper). Checkpoints
-go to --ckpt-dir, and a rerun resumes from the latest one. Without a CUDA
+go to --ckpt-dir, and a rerun resumes from the latest one. An MoE config
+(granite-moe-1b-a400m, moonshot-v1-16b-a3b) also prints its load-balance
+loss (`aux_loss`). Without a CUDA
 device the launcher exits non-zero; `--device cpu` runs the plain versions
 of the kernels instead (small configs: `--smoke`). The mesh flags of the
 JAX launcher are not ported.
@@ -72,7 +74,9 @@ def main(argv=None) -> int:
         last = hist[-1]
         where = (torch.cuda.get_device_name(trainer.device)
                  if trainer.device.type == "cuda" else "cpu")
-        print(f"[train] step {last['step']} loss={last['loss']:.4f} "
+        aux = (f"aux_loss={last['aux_loss']:.4f} " if cfg.moe.enabled
+               else "")
+        print(f"[train] step {last['step']} loss={last['loss']:.4f} {aux}"
               f"gnorm={last['grad_norm']:.3f} "
               f"{last['step_time_s'] * 1e3:.1f}ms/step ({where})")
     print("[train] done")
