@@ -152,6 +152,31 @@ each of which raises on failure:
                prefill and train times, a traced decode step with the MoE
                FFN's device time named, and #1, #2, #4 and #5 timed at its
                shapes.
+ 25. mamba   - (run after phase 24) the Mamba2 layer kinds: ssd_chunked
+               against ssd_scan_ref at the published shape (B=2, L=2048,
+               64 heads of 64, state 128, chunk 256, fp32): outputs within
+               atol 2e-4 / rtol 1e-3, gradients finite and within
+               SSD_GRAD_REL of the recurrence's; mamba2-1.3b at full width
+               and depth in fp32, prefill (a right-padded row) and 8
+               teacher-forced decode steps against forward_logits within
+               MAMBA_RECUR_BOUND, a state left running past `lengths`
+               above it; mamba2 bf16 on phase 3's cell: graph and paged
+               tokens bitwise eager's, no SWAT kernel launched or traced
+               (decode_impl "pallas" included), zero steps down; a traced
+               eager decode step with the SSM update named; two AdamW
+               steps (B=4, L=2048), loss, gradient norm and params
+               finite. jamba-1.5-large + SWAT at its published widths cut
+               to one super-block and 2 experts: #1 and #2 at its shape
+               (64 q over 8 kv heads, D=128) against their plain
+               versions; phase 3's cell, graph tokens bitwise eager's, #1
+               once per decode step, #2 twice per prefill batch on the
+               tensor-core route, zero steps down; fail_pallas_dispatch:
+               every request ok, one fallback, none readmitted or failed;
+               fp32 kernel path against the plain path, greedy tokens
+               equal within JAMBA_FP32_LOGIT_BOUND. Decode ms a step
+               beside its byte bound and llama's, prefill ms, TTFT /
+               TPOT, peak memory, train step ms, and #1 / #2 timed at
+               jamba's shape.
   7. backward - the dQ and dK/dV kernels against their plain version at the
                training shapes (B=4, Hq=32, Hkv=8, L=2048, D=64, window
                256, 4 globals, causal; plus group 1, 2 (granite-moe's
@@ -1077,7 +1102,8 @@ def _train_batches(torch, cfg, n):
 
 def train(torch, cfg, n=TRAIN["steps"]):
     """n AdamW steps at full width (phase 8: 6 of llama; phase 24: 2 of
-    granite-moe); launch counts zeroed just before and read just after,
+    granite-moe; phase 25: 2 of mamba2, which launches no attention
+    kernel); launch counts zeroed just before and read just after,
     every launch on the tensor-core route, losses (and MoE aux losses)
     finite. Returns (summary, launches, (params, opt, step_fn, batch)) for
     the profiled step of phase 11 and phase 24's gradient check."""
@@ -1141,7 +1167,7 @@ def train(torch, cfg, n=TRAIN["steps"]):
     log(f"train ({cfg.name}): " + json.dumps(summary))
     if not all(math.isfinite(x) for x in losses + auxes + gnorms):
         raise AssertionError(f"non-finite training metrics: {summary}")
-    layers = cfg.num_layers
+    layers = attn_layers(cfg)
     need = {"swat_attention_fwd": 2 * layers * 2 * n,   # 2 passes, remat
             "swat_attention_dq": 2 * layers * n,
             "swat_attention_dkv": 2 * layers * n,
@@ -3310,20 +3336,22 @@ def granite_cfg(dtype_name="bfloat16"):
     return dataclasses.replace(cfg, dtype=dtype_name)
 
 
-def moe_kernels(torch, spec):
-    """Kernels #1 and #2 at granite-moe's shape (4 slots, 16 q over 8 kv
-    heads, D=64), bf16 and fp32: the fused decode at T=1 and at T=5 on a
-    lookahead ring (wrapped), caches bitwise its plain version's and
-    outputs within TOL, one launch a call; the banded forward on the L=512
-    band (O within TOL, LSE within 1e-3, on its route; both passes composed
-    by ops.swat_attention against the plain path) and on a prefill chunk
-    at pos0 448 (`_check_chunk_case`). Returns the largest error of each
+def moe_kernels(torch, spec, shape=GRANITE, tag="granite", chunk=True):
+    """Kernels #1 and #2 at a model's attention shape (granite-moe's by
+    default: 4 slots, 16 q over 8 kv heads, D=64; phase 25: jamba's 64 q
+    over 8 kv heads, D=128), bf16 and fp32: the fused decode at T=1 and
+    at T=5 on a lookahead ring (wrapped), caches bitwise its plain
+    version's and outputs within TOL, one launch a call; the banded
+    forward on the L=512 band (O within TOL, LSE within 1e-3, on its
+    route; both passes composed by ops.swat_attention against the plain
+    path) and, with `chunk` (a chunkable model), on a prefill chunk at
+    pos0 448 (`_check_chunk_case`). Returns the largest error of each
     check."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import swat_attention as SA
     from repro_torch.kernels import swat_decode as SD
     gen = torch.Generator(device="cuda").manual_seed(24)
-    b, hq, hkv, d = (GRANITE[k] for k in ("b", "hq", "hkv", "d"))
+    b, hq, hkv, d = (shape[k] for k in ("b", "hq", "hkv", "d"))
     l, errs = MAIN["prompt"], {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
@@ -3337,7 +3365,7 @@ def moe_kernels(torch, spec):
             got = SD.swat_decode_fused(q, kc, vc, nk, nv, pos, nn, spec,
                                        ring_cap=cap)
             torch.cuda.synchronize()
-            name = f"granite swat_decode {dn} T={t} group {hq // hkv}"
+            name = f"{tag} swat_decode {dn} T={t} group {hq // hkv}"
             if SD.LAUNCHES.n - n0 != 1:
                 raise AssertionError(f"{name}: {SD.LAUNCHES.n - n0} launches")
             if not (torch.equal(kc, kw) and torch.equal(vc, vw)):
@@ -3356,7 +3384,7 @@ def moe_kernels(torch, spec):
         got, gl = SA.swat_attention_fwd(q, k, v, spec, pattern=pat,
                                         return_lse=True)
         torch.cuda.synchronize()
-        name = f"granite swat_attention_fwd {dn} L={l}"
+        name = f"{tag} swat_attention_fwd {dn} L={l}"
         check_route(name, before, "fwd", expected_route(dtype, d, "fwd"))
         err = check_close(name, got, want, dn)
         check_close(name + " lse", gl, wl, dn, atol=1e-3, rtol=1e-4)
@@ -3365,13 +3393,15 @@ def moe_kernels(torch, spec):
         torch.cuda.synchronize()
         errs[f"band {dn}"] = max(err, check_close(
             name + " both passes", got, want, dn))
-        cap = MAIN["window"] + 1 + MAIN["num_global"]
-        errs[f"chunk {dn}"] = _check_chunk_case(
-            torch, gen, dtype, ("granite pos0=448", spec, b, hq, hkv, d,
-                                CHUNK, 448, cap, 320))
-    log("granite kernels (#1 at group 2, T=1 and T=5; #2 on the L=512 band "
-        "and a chunk at pos0 448; bf16 and fp32): caches bitwise, within "
-        f"tolerance, each launch counted on its route: {json.dumps(errs)}")
+        if chunk:
+            cap = MAIN["window"] + 1 + MAIN["num_global"]
+            errs[f"chunk {dn}"] = _check_chunk_case(
+                torch, gen, dtype, (f"{tag} pos0=448", spec, b, hq, hkv, d,
+                                    CHUNK, 448, cap, 320))
+    log(f"{tag} kernels (#1 at group {hq // hkv}, D={d}, T=1 and T=5; #2 on "
+        "the L=512 band" + (" and a chunk at pos0 448" if chunk else "")
+        + "; bf16 and fp32): caches bitwise, within tolerance, each launch "
+        f"counted on its route: {json.dumps(errs)}")
     return errs
 
 
@@ -3854,6 +3884,550 @@ def moe(torch, card, llama_turns):
     return out
 
 
+# ------------------------------------------------------------ phase 25 ---
+
+# mamba2-1.3b at full width and depth (48 layers, d_model 2048, d_inner
+# 4096, 64 SSM heads of 64, state 128, conv 4, chunk 256, tied vocab
+# 50280), and jamba-1.5-large + SWAT (phase 3's window and globals) at its
+# published widths (d_model 8192, 64 q over 8 kv heads of 128, d_ff 24576,
+# d_inner 16384, 256 SSM heads, untied vocab 65536) cut to one super-block
+# (8 of 72 layers: 7 mamba, 1 attention) and 2 of 16 experts (top-2 kept);
+# jamba's kernel shapes at phase 3's 4 slots
+JAMBA = dict(b=MAIN["b"], hq=64, hkv=8, d=128)
+JAMBA_CUT = dict(num_layers=8, num_experts=2)
+# the SSD gate at the published shape, fp32: outputs within
+# tests/test_ssm.py's tolerance
+SSD = dict(b=2, l=2048, h=64, p=64, s=128, chunk=256)
+SSD_TOL = dict(atol=2e-4, rtol=1e-3)
+# ssd_chunked's gradients against autograd through ssd_scan_ref, fp32:
+# max |error| of each input's gradient over that gradient's largest
+# magnitude. The H100 read 1.3e-6..3.1e-6 (fp32 summation order over 2048
+# steps); the limit is ~30x that
+SSD_GRAD_REL = 1e-4
+# mamba2, fp32, full depth: prefill + 8 teacher-forced decode steps (the
+# recurrence) against forward_logits (the chunked SSD) at the same
+# positions, max |dlogit| (logit spread ~0.9). The H100 read 5.8e-5; a
+# state left running past `lengths` read 5.94, and must read above it
+MAMBA_RECUR_BOUND = 1e-3
+# jamba fp32, kernel path against the plain path, max |dlogit| (logit
+# spread ~1.8): both accumulate in fp32 and differ in summation order in
+# the one attention layer; the H100 read 4.3e-6, the limit is ~25x that
+JAMBA_FP32_LOGIT_BOUND = 1e-4
+
+
+def mamba2_cfg(dtype_name="bfloat16"):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("mamba2-1.3b"), dtype=dtype_name)
+
+
+def jamba_cfg(dtype_name="bfloat16"):
+    import dataclasses
+    from repro_torch.configs import get_config, with_swat
+    cfg = with_swat(get_config("jamba-1.5-large"), window=MAIN["window"],
+                    num_global=MAIN["num_global"])
+    return dataclasses.replace(
+        cfg, dtype=dtype_name, num_layers=JAMBA_CUT["num_layers"],
+        moe=dataclasses.replace(cfg.moe,
+                                num_experts=JAMBA_CUT["num_experts"]))
+
+
+def attn_layers(cfg):
+    """Attention layers in the stack (each launches #1 a decode step)."""
+    return cfg.num_super_blocks * sum(
+        not k.startswith("mamba") for k in cfg.layer_pattern)
+
+
+def ssd_gate(torch):
+    """ssd_chunked against ssd_scan_ref at the published shape (B=2,
+    L=2048, 64 heads of 64, state 128, one group, chunk 256), fp32, dt from
+    init_mamba's range (log-uniform in [1e-3, 0.1]) and a = -exp(a_log) of
+    init_mamba (-1 .. -16): outputs within SSD_TOL; the gradients of
+    <y, r> (r a random cotangent) in x, dt, B and C finite and within
+    SSD_GRAD_REL of autograd through the recurrence (each input's max
+    |error| over its gradient's largest magnitude). Also reads the
+    largest above-diagonal decay sum of a chunk (exp overflows above 88:
+    the JAX formulation's backward then gives NaN)."""
+    import math
+    from repro_torch.core import ssm as S
+    gen = torch.Generator(device="cuda").manual_seed(251)
+    b, l, h, p, s = (SSD[k] for k in ("b", "l", "h", "p", "s"))
+    mk = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")
+    x, bm, cm = mk(b, l, h, p), mk(b, l, 1, s), mk(b, l, 1, s)
+    lo, hi = math.log(1e-3), math.log(0.1)
+    dt = torch.exp(torch.rand(b, l, h, generator=gen, device="cuda")
+                   * (hi - lo) + lo)
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    d = torch.ones(h, device="cuda")
+    r = mk(b, l, h, p)
+    out = {}
+    grads = []
+    for name, fn in (("chunked", lambda *t: S.ssd_chunked(
+            *t, chunk=SSD["chunk"])), ("scan", S.ssd_scan_ref)):
+        ins = [t.clone().requires_grad_(True) for t in (x, dt, bm, cm)]
+        y = fn(ins[0], ins[1], a, ins[2], ins[3], d)
+        (y * r).sum().backward()
+        grads.append((y.detach(), [t.grad for t in ins]))
+        del y, ins
+    (yc, gc), (ys, gs) = grads
+    torch.cuda.synchronize()
+    out["max_abs_err"] = max_err(yc, ys)
+    if not torch.allclose(yc, ys, **SSD_TOL):
+        raise AssertionError(f"ssd_chunked vs ssd_scan_ref: max abs err "
+                             f"{out['max_abs_err']} outside {SSD_TOL}")
+    rel = {}
+    for name, g1, g2 in zip(("x", "dt", "b", "c"), gc, gs):
+        if not bool(torch.isfinite(g1).all()):
+            raise AssertionError(f"ssd_chunked: non-finite d{name}")
+        rel[name] = max_err(g1, g2) / float(g2.abs().max())
+    out["grad_rel_err"] = rel
+    out["grad_rel_bound"] = SSD_GRAD_REL
+    cum = torch.cumsum((dt * a).reshape(b, l // SSD["chunk"], SSD["chunk"],
+                                        h), dim=2)
+    out["max_chunk_decay_sum"] = float(-(cum[:, :, -1] - cum[:, :, 0]).min())
+    log("phase 25 SSD at the published shape (fp32): " + json.dumps(out))
+    if max(rel.values()) > SSD_GRAD_REL:
+        raise AssertionError(f"ssd_chunked gradients vs the recurrence: "
+                             f"{rel} above {SSD_GRAD_REL}")
+    del grads, gc, gs, yc, ys
+    torch.cuda.empty_cache()
+    return out
+
+
+def mamba_recurrence(torch):
+    """mamba2-1.3b, fp32, full depth: a 2-row batch of 512-token prompts,
+    row 1 right-padded (its real length 389), prefilled with `lengths`,
+    then 8 teacher-forced decode steps (the recurrent path), against
+    forward_logits over each row's real prompt plus those 8 tokens (the
+    chunked SSD) at the same 9 positions: max |dlogit| <= MAMBA_RECUR_BOUND.
+    The control: the same batch prefilled without `lengths`, so row 1's
+    state runs on over its 123 pad positions, whose 8 decode steps must
+    read above the bound."""
+    import numpy as np
+    from repro_torch.core import model as Mod
+    cfg = mamba2_cfg("float32")
+    params = Mod.init_model(cfg, seed=0, device="cuda")
+    rng = np.random.RandomState(25)
+    lens = [MAIN["prompt"], 389]
+    prompt = torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                         (2, MAIN["prompt"])), device="cuda")
+    forced = torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 8)),
+                             device="cuda")
+
+    def recurrent(lengths):
+        logits, caches = Mod.prefill(params, cfg, {"tokens": prompt},
+                                     MAIN["max_len"], lengths=lengths)
+        out = [logits[:, 0]]
+        for j in range(8):
+            lg, caches = Mod.decode_step(params, cfg,
+                                         {"tokens": forced[:, j:j + 1]},
+                                         caches)
+            out.append(lg[:, 0])
+        return torch.stack(out, 1)                       # (2, 9, V)
+
+    rec = recurrent(torch.tensor(lens, dtype=torch.int32, device="cuda"))
+    par = []
+    for row, n in enumerate(lens):
+        seq = torch.cat([prompt[row, :n], forced[row]])[None]
+        par.append(Mod.forward_logits(params, cfg, {"tokens": seq})[0,
+                                                                     n - 1:])
+    par = torch.stack(par)
+    broken = recurrent(None)
+    torch.cuda.synchronize()
+    out = {"max_abs_logit_diff": max_err(rec, par),
+           "per_row": [max_err(rec[i], par[i]) for i in range(2)],
+           "logit_spread": float(par.std()),
+           "greedy_equal": bool((rec.argmax(-1) == par.argmax(-1)).all()),
+           "unfrozen_state_control": max_err(broken[1, 1:], par[1, 1:]),
+           "bound": MAMBA_RECUR_BOUND}
+    log("phase 25 mamba2 recurrent vs parallel (fp32, 48 layers): "
+        + json.dumps(out))
+    del params
+    torch.cuda.empty_cache()
+    if not (out["max_abs_logit_diff"] <= MAMBA_RECUR_BOUND
+            < out["unfrozen_state_control"]):
+        raise AssertionError(f"mamba2 recurrent vs parallel: {out}")
+    return out
+
+
+def _counters():
+    from repro_torch.kernels import _build
+    return _build.launch_counts()
+
+
+def mamba_serve(torch, cfg, params, tag):
+    """Phase 3's cell (8 requests, 4 slots, prompt 512, 64 new tokens,
+    max_len 1024, scan_steps 8, greedy), bf16: an eager engine
+    (graphs=False) once, a graph engine twice (capture, then replay) and,
+    for an attention-free model, a paged graph engine: graph and paged
+    tokens bitwise the eager run's, every launch counter and step count
+    equal, no capture on the replay run, zero steps down. Then
+    the warm graph engine serves the first 4 requests three times (decode
+    ms a step, prefill ms a batch). Returns a summary."""
+    import numpy as np
+    from repro_torch.serving.engine import ServingEngine
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (MAIN["prompt"],))
+               .astype(np.int32) for _ in range(8)]
+    keys = ("decode_steps", "prefill_batches", "tokens_emitted")
+    make = lambda **kw: ServingEngine(cfg, params, batch_slots=4,
+                                      max_len=MAIN["max_len"], scan_steps=8,
+                                      **kw)
+    eager = make(graphs=False)
+    want, w_counts, w_st, _ = _serve_on(torch, eager, prompts,
+                                        MAIN["new_tokens"])
+    if any(len(t) != MAIN["new_tokens"] for t in want):
+        raise AssertionError(f"{tag}: token counts {[len(t) for t in want]}")
+    graph = make(graphs=True)
+    runs = []
+    for run in ("capture", "replay"):
+        captured0 = len(graph._compiled.captured)
+        torch.cuda.reset_peak_memory_stats()
+        got, counts, st, wall = _serve_on(torch, graph, prompts,
+                                          MAIN["new_tokens"])
+        if got != want or counts != w_counts or any(
+                st[k] != w_st[k] for k in keys):
+            raise AssertionError(f"{tag} ({run}): graph run differs from "
+                                 f"eager (tokens equal {got == want}, "
+                                 f"launches {counts} / {w_counts})")
+        runs.append((len(graph._compiled.captured) - captured0, st, wall,
+                     torch.cuda.max_memory_allocated() / 1e9))
+    if runs[1][0]:
+        raise AssertionError(f"{tag}: {runs[1][0]} captures in the replay "
+                             "run")
+    out = {"tokens_bitwise_eager": True, "launches": w_counts,
+           "graphs_captured": len(graph._compiled.captured),
+           "eager_decode_ms_per_step": w_st["decode_s"] * 1e3
+           / w_st["decode_steps"],
+           "replay_run_decode_ms_per_step": runs[1][1]["decode_s"] * 1e3
+           / runs[1][1]["decode_steps"],
+           "replay_run_prefill_ms_per_batch": runs[1][1]["prefill_s"] * 1e3
+           / runs[1][1]["prefill_batches"],
+           "replay_run_tok_per_s": sum(map(len, want)) / runs[1][2],
+           "decode_steps": runs[1][1]["decode_steps"],
+           "prefill_batches": runs[1][1]["prefill_batches"],
+           "peak_mem_gb": runs[1][3],
+           "latency_ms_replay_run": _latency_ms(
+               list(graph.tracer.records)[-len(prompts):])}
+    if attn_layers(cfg) == 0:
+        paged = make(kv_layout="paged")
+        got = _serve_on(torch, paged, prompts, MAIN["new_tokens"])[0]
+        if got != want:
+            raise AssertionError(f"{tag}: paged tokens differ from the "
+                                 "contiguous engine's")
+        out["paged_tokens_bitwise"] = True
+        out["paged_layout_positions"] = len(paged._paged.layout)
+        del paged
+    warm = [_serve_on(torch, graph, prompts[:4], MAIN["new_tokens"])[2]
+            for _ in range(3)]
+    out["warm_decode_ms_per_step"] = [w["decode_s"] * 1e3
+                                      / w["decode_steps"] for w in warm]
+    out["warm_prefill_ms_per_batch"] = [w["prefill_s"] * 1e3
+                                        / w["prefill_batches"] for w in warm]
+    log(f"phase 25 {tag} serve (bf16): " + json.dumps(out))
+    return out, want
+
+
+def mamba_trace(torch, cfg, params):
+    """An eager mamba2 decode block (graphs=False, decode_impl="pallas":
+    the kernel impl, which an attention-free model never reaches) traced
+    with `ssm.ssm_update` (the recurrence's state update) and
+    `ssm.mamba_decode` in named profiler ranges: device time a step by
+    kernel category, the time of the kernels the ops inside each range
+    launched, and no SWAT kernel launched (the wrappers' counters) or
+    traced."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core import ssm as S
+    from repro_torch.serving.engine import Request, ServingEngine
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab_size, (MAIN["prompt"],))
+               for _ in range(4)]
+    eng = ServingEngine(cfg, params, batch_slots=4, max_len=MAIN["max_len"],
+                        scan_steps=8, graphs=False, decode_impl="pallas")
+    reqs = lambda: [Request(rid=i, prompt=p, max_new_tokens=9)
+                    for i, p in enumerate(prompts)]
+    eng.run(reqs())
+    names = ("ssm_update", "mamba_decode")
+    orig = {n: getattr(S, n) for n in names}
+
+    def named(n):
+        def fn(*a, **kw):
+            with record_function(n):
+                return orig[n](*a, **kw)
+        return fn
+
+    steps0 = eng.stats["decode_steps"]
+    counts0 = _counters()
+    torch.cuda.synchronize()
+    for n in names:
+        setattr(S, n, named(n))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.run(reqs())
+            torch.cuda.synchronize()
+    finally:
+        for n in names:
+            setattr(S, n, orig[n])
+    no_step_down(eng, "mamba2 trace", impl="pallas")
+    launched = [a - b for a, b in zip(_counters(), counts0)]
+    steps = eng.stats["decode_steps"] - steps0
+    dt = torch.autograd.DeviceType
+    ev = prof.events()
+    blocks = [e.time_range for e in ev if e.name == "engine.decode_block"
+              and e.device_type == dt.CPU]
+    inside = lambda r: any(b.start <= r.start <= b.end for b in blocks)
+    kernels = [e for e in ev if e.device_type == dt.CUDA
+               and e.name not in names and not e.name.startswith("engine.")
+               and inside(e.time_range)]
+    swat = sorted({e.name[:60] for e in kernels
+                   if any(k in e.name for _, ks in _CATEGORIES[:6]
+                          for k in ks)})
+    if any(launched) or swat:
+        raise AssertionError(f"mamba2 trace: SWAT kernels launched "
+                             f"{launched} / traced {swat}")
+    ops = [e for e in ev if e.device_type == dt.CPU and e.name not in names
+           and inside(e.time_range)]
+
+    def range_us(name):
+        rs = [e for e in ev if e.name == name and e.device_type == dt.CPU
+              and inside(e.time_range)]
+        return sum(k.duration for e in ops
+                   if any(r.thread == e.thread
+                          and r.time_range.start <= e.time_range.start
+                          and e.time_range.end <= r.time_range.end
+                          for r in rs) for k in e.kernels), len(rs)
+
+    per = max(1, steps)
+    out = {"eager_decode_steps": steps, "swat_launches": sum(launched)}
+    linked = sum(k.duration for e in ops for k in e.kernels)
+    if not kernels or not linked:
+        out["device_time"] = "not measured (no kernel traced in the blocks)"
+        return out
+    by_cat = {}
+    for e in kernels:
+        name = e.name.lower()
+        cat = next((c for c, keys in _CATEGORIES
+                    if any(k in name for k in keys)), "other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + e.time_range.elapsed_us() / 1e3
+    upd_us, n_upd = range_us("ssm_update")
+    mix_us, n_mix = range_us("mamba_decode")
+    out.update({
+        "kernels_per_step": len(kernels) / per,
+        "device_ms_per_step_by_category": {
+            k: v / per for k, v in sorted(by_cat.items())},
+        "ssm_update_device_ms_per_step": upd_us / 1e3 / per,
+        "ssm_update_calls_per_step": n_upd / per,
+        "mamba_decode_device_ms_per_step": mix_us / 1e3 / per,
+        "op_linked_device_ms_per_step": linked / 1e3 / per,
+        "ssm_update_share_of_linked": upd_us / linked})
+    return out
+
+
+def jamba_serve_checks(torch, cfg, params, summary):
+    """jamba's launch counts from `mamba_serve`'s runs (#1 once per
+    attention layer and decode step, #2 twice per attention layer and
+    single-shot prefill batch as in phase 3: the band pass and the
+    global-row pass, every forward launch on the tensor-core route, no
+    plain decode launch), then one engine under fail_pallas_dispatch:
+    every request ok with 64 tokens, kernel_fallbacks 1, readmitted 0,
+    failed 0 (the armed failure raises at decode_step's entry, before the
+    mamba layers l0-l3 write their state)."""
+    import numpy as np
+    from repro_torch.serving import faults as F
+    from repro_torch.serving.engine import Request, ServingEngine
+    idx = _moe_counter_index()
+    counts, layers = summary["launches"], attn_layers(cfg)
+    launches = {k: counts[idx[k]] for k in ("swat_decode",
+                                            "swat_attention_fwd")}
+    passes = 2 if cfg.attention.num_global else 1   # band + global rows
+    expected = {"swat_decode": layers * summary["decode_steps"],
+                "swat_attention_fwd": layers * passes
+                * summary["prefill_batches"]}
+    if (launches != expected or counts[idx["swat_decode_plain"]]
+            or counts[idx["fwd_simt"]]
+            or counts[idx["fwd_tc"]] != launches["swat_attention_fwd"]):
+        raise AssertionError(f"jamba launches {launches}, expected "
+                             f"{expected} (plain decode "
+                             f"{counts[idx['swat_decode_plain']]}, SIMT "
+                             f"forward {counts[idx['fwd_simt']]})")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (MAIN["prompt"],))
+               .astype(np.int32) for _ in range(8)]
+    F.consume_events()
+    eng = ServingEngine(cfg, params, batch_slots=4, max_len=MAIN["max_len"],
+                        scan_steps=8,
+                        faults=F.FaultPlan(fail_pallas_dispatch=True))
+    try:
+        res = eng.run([Request(rid=i, prompt=p,
+                               max_new_tokens=MAIN["new_tokens"])
+                       for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+    finally:
+        F.clear_kernel_failure()
+        events = [e["kind"] for e in F.consume_events()]
+    fault = {"statuses": sorted({r.status for r in res}),
+             "tokens": sorted({len(r.tokens) for r in res}),
+             **{k: eng.stats[k] for k in ("kernel_fallbacks", "readmitted",
+                                          "failed")},
+             "decode_impl_after": eng.decode_impl, "events": events}
+    log("phase 25 jamba fail_pallas_dispatch: " + json.dumps(fault))
+    if (fault["statuses"] != ["ok"] or fault["tokens"] != [MAIN["new_tokens"]]
+            or fault["kernel_fallbacks"] != 1 or fault["readmitted"]
+            or fault["failed"] or events.count("pallas_fallback") != 1):
+        raise AssertionError(f"jamba under fail_pallas_dispatch: {fault}")
+    del eng
+    return launches, fault
+
+
+def jamba_fp32(torch):
+    """jamba (the phase's cut) in fp32, the kernel path against the plain
+    path (impl "banded"): phase 3's first four prompts prefilled, then 8
+    decode steps teacher-forced on the kernel path's greedy tokens; greedy
+    tokens equal at all 9 positions, max |dlogit| <=
+    JAMBA_FP32_LOGIT_BOUND."""
+    import numpy as np
+    from repro_torch.core import model as Mod
+    cfg = jamba_cfg("float32")
+    params = Mod.init_model(cfg, seed=0, device="cuda")
+    rng = np.random.RandomState(0)
+    tok = torch.as_tensor(np.stack([rng.randint(0, cfg.vocab_size,
+                                                (MAIN["prompt"],))
+                                    for _ in range(4)]), device="cuda")
+    lk, ck = Mod.prefill(params, cfg, {"tokens": tok}, MAIN["max_len"],
+                         impl="kernel")
+    lp, cp = Mod.prefill(params, cfg, {"tokens": tok}, MAIN["max_len"],
+                         impl="banded")
+    diffs, equal = [max_err(lk, lp)], [bool((lk.argmax(-1)
+                                             == lp.argmax(-1)).all())]
+    nxt = lk[:, 0].argmax(-1)
+    for _ in range(8):
+        batch = {"tokens": nxt[:, None]}
+        lk, _ = Mod.decode_step(params, cfg, batch, ck, impl="kernel")
+        lp, _ = Mod.decode_step(params, cfg, batch, cp, impl="banded")
+        diffs.append(max_err(lk, lp))
+        equal.append(bool((lk.argmax(-1) == lp.argmax(-1)).all()))
+        nxt = lk[:, 0].argmax(-1)
+    torch.cuda.synchronize()
+    out = {"max_abs_logit_diff": max(diffs), "per_position": diffs,
+           "greedy_equal": all(equal), "logit_spread": float(lk.std()),
+           "bound": JAMBA_FP32_LOGIT_BOUND}
+    log("phase 25 jamba fp32 kernel vs plain path: " + json.dumps(out))
+    del params, ck, cp
+    torch.cuda.empty_cache()
+    if not (out["greedy_equal"]
+            and out["max_abs_logit_diff"] <= JAMBA_FP32_LOGIT_BOUND):
+        raise AssertionError(f"jamba fp32 kernel vs plain path: {out}")
+    return out
+
+
+def _step_bound_ms(cfg, params, slots=MAIN["b"]):
+    """A decode step's byte bound: every weight read once but the embedding
+    table (its rows only, unless tied to the head), each mamba layer's
+    state read and written, each attention layer's K and V ring rows read,
+    the fp32 logits written. Returns (ms, weight bytes, state bytes)."""
+    from repro_torch import tree
+    w = sum(p.numel() * p.element_size() for p in tree.leaves(params))
+    if not cfg.tie_embeddings:
+        w -= params["embed"].numel() * params["embed"].element_size()
+    spec = cfg.ssm
+    mamba = cfg.num_layers - attn_layers(cfg)
+    state = 2 * mamba * slots * (
+        spec.num_heads(cfg.d_model) * spec.head_dim * spec.state_dim * 4
+        + (spec.conv_width - 1) * (spec.d_inner(cfg.d_model)
+                                   + 2 * spec.num_groups * spec.state_dim)
+        * 2)
+    cap = MAIN["window"] + 1 + MAIN["num_global"]
+    rings = (attn_layers(cfg) * slots * cfg.num_kv_heads * cap
+             * cfg.resolved_head_dim * 2 * 2)
+    total = w + state + rings + slots * cfg.vocab_size * 4
+    return total / HBM_BYTES_PER_S * 1e3, w, state
+
+
+def mamba(torch, card, llama_turns):
+    """Phase 25: mamba2-1.3b and jamba-1.5-large + SWAT on the card (see
+    the module docstring). Returns a summary with jamba's launch counts."""
+    from repro_torch import tree
+    from repro_torch.core import model as Mod
+    t_phase = time.perf_counter()
+    split = {}
+
+    def lap(name):
+        split[name] = time.perf_counter() - t_phase - sum(split.values())
+
+    ssd = ssd_gate(torch)
+    lap("ssd")
+    recur = mamba_recurrence(torch)
+    lap("recurrence")
+    cfg = mamba2_cfg()
+    params = Mod.init_model(cfg, seed=0, device="cuda")
+    m_serve, _ = mamba_serve(torch, cfg, params, "mamba2")
+    m_trace = mamba_trace(torch, cfg, params)
+    m_bound = _step_bound_ms(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    lap("mamba2 serve")
+    tr, _, (params, opt, _, _) = train(torch, cfg, n=2)
+    if not all(bool(torch.isfinite(p).all()) for p in tree.leaves(params)):
+        raise AssertionError("mamba2 train: non-finite params after two "
+                             "steps")
+    del params, opt
+    torch.cuda.empty_cache()
+    lap("mamba2 train")
+    jcfg = jamba_cfg()
+    spec = jcfg.attention
+    kerr = moe_kernels(torch, spec, shape=JAMBA, tag="jamba", chunk=False)
+    times = {"decode": time_decode(torch, spec, shape=JAMBA),
+             "band": time_banded(torch, spec, shape=JAMBA)}
+    lap("jamba kernels")
+    params = Mod.init_model(jcfg, seed=0, device="cuda")
+    j_serve, _ = mamba_serve(torch, jcfg, params, "jamba")
+    j_launch, j_fault = jamba_serve_checks(torch, jcfg, params, j_serve)
+    j_bound = _step_bound_ms(jcfg, params)
+    del params
+    torch.cuda.empty_cache()
+    lap("jamba serve")
+    j32 = jamba_fp32(torch)
+    lap("jamba fp32")
+    llama_ms = llama_turns["default ms a step"]["graphs"]
+    out = {"ssd": ssd, "recurrence": recur, "mamba2_serve": m_serve,
+           "mamba2_trace": m_trace, "mamba2_train": tr,
+           "jamba_kernel_errors": kerr, "jamba_serve": j_serve,
+           "jamba_launches": j_launch, "jamba_fault": j_fault,
+           "jamba_fp32": j32, "times": times,
+           "mamba2_step_bound_ms": m_bound[0], "jamba_step_bound_ms":
+           j_bound[0], "phase_s": time.perf_counter() - t_phase,
+           "phase_split_s": split}
+    for tag, s_, (b_ms, w_b, st_b) in (("mamba2", m_serve, m_bound),
+                                       ("jamba", j_serve, j_bound)):
+        lat = s_["latency_ms_replay_run"]
+        log(f"phase 25 {tag} decode ms a step with graphs (warm, 4 slots; "
+            f"{card}): {s_['warm_decode_ms_per_step']}, byte bound "
+            f"{b_ms:.4f} ms ({w_b / 1e9:.3f} GB of weights, {st_b / 1e9:.3f}"
+            f" GB of state read and written); llama phase 21 graphs "
+            f"{llama_ms}")
+        log(f"phase 25 {tag} prefill ms a batch (graphs, warm; {card}): "
+            f"{s_['warm_prefill_ms_per_batch']}; TTFT p50 "
+            f"{lat['ttft']['p50']:.3f} p95 {lat['ttft']['p95']:.3f} ms, TPOT"
+            f" p50 {lat['tpot']['p50']:.3f} p95 {lat['tpot']['p95']:.3f} ms;"
+            f" peak {s_['peak_mem_gb']:.2f} GB")
+    log(f"phase 25 mamba2 traced eager decode step, SSM update named "
+        f"({card}): " + json.dumps(m_trace))
+    log(f"phase 25 mamba2 train step ms ({card}): {tr['step_ms']}, "
+        f"{tr['tokens_per_s_after_step_1']:.1f} tok/s at step 2, "
+        f"{tr['model_flop_share']:.4f} of the bf16 peak, peak "
+        f"{tr['peak_mem_gb']:.2f} GB")
+    for name, (k_ms, p_ms, l_ms, b_, o_) in (
+            ("#1 fused decode T=1", times["decode"]),
+            ("#2 forward L=512 band", times["band"])):
+        b_ms, b_by = bound(b_, o_)
+        log(f"phase 25 jamba {name} ({card}): kernel {k_ms:.5f} ms, plain "
+            f"{p_ms:.4f}, SDPA {l_ms:.4f}, bound {b_ms:.6f} ({b_by})")
+    log(f"phase 25: {out['phase_s']:.1f}s, split {json.dumps(split)}")
+    return out
+
+
 def ptxas_report(out):
     """(kernel, registers, spill-store bytes) for every entry function in
     the `nvcc -Xptxas -v` output of one source; kernel reads like
@@ -3995,6 +4569,9 @@ def main():
     # phase 24: granite-moe-1b-a400m + SWAT, served and trained
     moe24 = moe(torch, card, gturns)
     moe_launch = {k: v["launches"] for k, v in moe24["cells"].items()}
+    # phase 25: mamba2-1.3b and jamba-1.5-large + SWAT, served and trained
+    mamba25 = mamba(torch, card, gturns)
+    jamba_launch = mamba25["jamba_launches"]
 
     dq_err, dkv_err, combine_err = check_backward(torch, spec)
     tr, tr_launches, tr_state = train(torch, cfg)
@@ -4018,14 +4595,16 @@ def main():
          "source": "src/repro_torch/csrc/swat_decode.cu",
          "replaces": "src/repro/kernels/swat_decode.py:116",
          "launches": summary["launches"]["swat_decode"]
-         + moe_launch["default"]["swat_decode"],
+         + moe_launch["default"]["swat_decode"]
+         + jamba_launch["swat_decode"],
          "max_abs_err": dec_err[1], "ms": dk, "plain_ms": dp,
          "bound_ms": db_ms, "bound_by": db_by, "library_ms": dl},
         {"name": "swat_attention_fwd_tc", "route": "cuda",
          "source": "src/repro_torch/csrc/swat_attention_fwd.cu",
          "replaces": "src/repro/kernels/swat_attention.py:64",
          "launches": summary["launches"]["swat_attention_fwd"]
-         + moe_launch["default"]["swat_attention_fwd"],
+         + moe_launch["default"]["swat_attention_fwd"]
+         + jamba_launch["swat_attention_fwd"],
          "max_abs_err": fwd_err, "ms": fk, "plain_ms": fp,
          "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": fl},
         {"name": "swat_decode_plain", "route": "cuda",
@@ -4159,6 +4738,7 @@ def main():
         f"of the bound; phase 5 (L2 flushed) {dk:.5f} ms")
     log(f"resilience (bf16; {card}): {json.dumps(res23)}")
     log(f"granite-moe (phase 24; {card}): {json.dumps(moe24)}")
+    log(f"mamba2 and jamba (phase 25; {card}): {json.dumps(mamba25)}")
     log(f"e2e: {json.dumps(e2e)}")
     log(f"trace: {json.dumps(trace)}")
     log(f"unembed: {json.dumps(unembed)}")

@@ -28,9 +28,11 @@ from repro_torch.kernels import ops as kops
 Params = Dict[str, Any]
 
 
-def _dense_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
-    """Truncated normal on [-2, 2] times sqrt(1/fan_in), by inverse CDF."""
-    scale = (1.0 / shape[0]) ** 0.5
+def _dense_init(gen: torch.Generator, shape, dtype, device,
+                scale: Optional[float] = None) -> torch.Tensor:
+    """Truncated normal on [-2, 2] times `scale` (default sqrt(1/fan_in)),
+    by inverse CDF."""
+    scale = (1.0 / shape[0]) ** 0.5 if scale is None else scale
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
     u = lo + (1.0 - 2.0 * lo) * u

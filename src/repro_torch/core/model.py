@@ -1,6 +1,6 @@
-"""Attention decoder LMs, their MoE variant and the whisper encoder-decoder
-(the port of the JAX package's `core/model.py` for the layer kinds "attn",
-"attn_moe", "local_attn" and "xattn").
+"""Decoder LMs (attention, MoE, Mamba2 and hybrid stacks) and the whisper
+encoder-decoder (the port of the JAX package's `core/model.py`, every layer
+kind: "attn", "attn_moe", "local_attn", "mamba", "mamba_moe", "xattn").
 
 Params are a plain dict with the JAX package's leaf layouts, except that
 the stacked super-blocks (`blocks/l{i}/...` and `enc_blocks/l0/...`, each
@@ -22,9 +22,15 @@ An "attn_moe" layer replaces the dense MLP with `core/moe.py`'s expert FFN
 the spec's dispatch ("sort") and `loss_fn` adds the summed Switch aux loss
 at `aux_weight`; the serving sites (`prefill`, `prefill_chunk`,
 `decode_step`) run the "dense" dispatch without the aux loss, as the JAX
-package does (there it is computed and discarded). The layer kinds
-"mamba" and "mamba_moe" raise NotImplementedError: they belong to a later
-slice.
+package does (there it is computed and discarded).
+
+A "mamba" or "mamba_moe" layer's mixer is `core/ssm.py`'s Mamba2 block
+(with a dense MLP or the experts after it, by the same rule as attention
+layers). Its decode state is the fixed conv window and SSM state of
+`ssm.init_mamba_cache` in both cache layouts (never paged); `prefill`
+stops each row's state at its own length, and `decode_step` advances it
+one token at a time (T > 1 raises on a config with a mamba layer). Such
+configs are neither chunkable nor speculative.
 """
 from __future__ import annotations
 
@@ -37,15 +43,22 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import layers as L
 from repro_torch.core import moe as M
+from repro_torch.core import ssm as S
 from repro_torch.core.types import AttentionSpec, ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import swat_decode
 
 Params = Dict[str, Any]
 Caches = List[Dict[str, Dict[str, torch.Tensor]]]
-_KINDS = ("attn", "attn_moe", "local_attn", "xattn")
+_KINDS = ("attn", "attn_moe", "local_attn", "mamba", "mamba_moe", "xattn")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _is_mamba(kind: str) -> bool:
+    return kind.startswith("mamba")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -95,8 +108,11 @@ def _init_super_block(gen: torch.Generator, cfg: ModelConfig, dt,
     blk = {}
     for i, kind in enumerate(cfg.layer_pattern):
         p: Params = {"norm1": L.init_rmsnorm(cfg.d_model, device)}
-        p["mixer"] = L.init_attention(gen, attn_cfg(cfg, kind, index=i), dt,
-                                      device)
+        if _is_mamba(kind):
+            p["mixer"] = S.init_mamba(gen, cfg.d_model, cfg.ssm, dt, device)
+        else:
+            p["mixer"] = L.init_attention(gen, attn_cfg(cfg, kind, index=i),
+                                          dt, device)
         if kind == "xattn":
             p["norm_x"] = L.init_rmsnorm(cfg.d_model, device)
             p["cross"] = L.init_attention(
@@ -258,9 +274,13 @@ def _stack_forward(blocks, cfg: ModelConfig, x, *, impl: Optional[str],
         for i, kind in enumerate(cfg.layer_pattern):
             p = blk[f"l{i}"]
             h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-            x = x + L.attention_layer(p["mixer"],
-                                      attn_cfg(cfg, kind, index=i), h,
-                                      impl=impl)
+            if _is_mamba(kind):
+                x = x + S.mamba_block(p["mixer"], h, cfg.ssm,
+                                      chunk=cfg.ssm.chunk_size)
+            else:
+                x = x + L.attention_layer(p["mixer"],
+                                          attn_cfg(cfg, kind, index=i), h,
+                                          impl=impl)
             if kind == "xattn":
                 h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
                 x = x + L.attention_layer(p["cross"],
@@ -360,13 +380,17 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     position's `table` is ONE tensor shared by reference by all
     super-blocks (the JAX package broadcasts one table over the stacked
     axis), so a host push updates it once. Identity tables make a fresh
-    paged cache gather-equal to a fresh contiguous one."""
+    paged cache gather-equal to a fresh contiguous one. A mamba layer holds
+    `ssm.init_mamba_cache`'s zeroed conv window and SSM state in both
+    layouts."""
     _check_supported(cfg)
     dt = _dtype(cfg)
     init = L.init_paged_kv_cache if paged else L.init_kv_cache
     tables: Dict[int, torch.Tensor] = {}
 
     def layer(i, kind):
+        if _is_mamba(kind):
+            return S.init_mamba_cache(cfg.d_model, cfg.ssm, batch, dt, device)
         cache = init(attn_cfg(cfg, kind, index=i), batch, max_len, dtype=dt,
                      lookahead=lookahead, device=device)
         if paged:
@@ -396,7 +420,7 @@ def paged_layout(cfg: ModelConfig, max_len: int,
     count g and ring modulus."""
     out: Dict[int, Dict[str, int]] = {}
     for i, kind in enumerate(cfg.layer_pattern):
-        if kind.startswith("mamba"):
+        if _is_mamba(kind):
             continue
         acfg = attn_cfg(cfg, kind, index=i)
         cap = L.cache_capacity(acfg, max_len, lookahead)
@@ -413,35 +437,53 @@ def decode_step(params: Params, cfg: ModelConfig, batch, caches: Caches, *,
     """T tokens for every sequence (usually T=1). batch: {"tokens": (B, T)}
     (or {"embeddings": (B, T, Dm)}). Per-slot cache steps: rows may sit at
     different positions. T > 1 needs caches allocated with lookahead >=
-    T-1. "xattn" layers attend the cross K/V that prefill stored. Caches
-    update IN PLACE, steps included: every cache tensor keeps its storage.
-    Runs without autograd. Returns (logits (B, T, V)
+    T-1; a config with a mamba layer decodes T=1 only. "xattn" layers
+    attend the cross K/V that prefill stored. Caches update IN PLACE, steps
+    and mamba states included: every cache tensor keeps its storage. Runs
+    without autograd.
+
+    With the decode kernel as the attention impl (`impl` "kernel", or None
+    on CUDA tensors) and an attention layer in the config, an armed
+    injected dispatch failure (`swat_decode.set_force_fail`) raises here,
+    before any layer writes its cache: in a hybrid stack mamba layers run
+    before the first attention layer, and the step must fail as a whole,
+    as the JAX engine's does at trace time. Returns (logits (B, T, V)
     fp32, caches)."""
     _check_supported(cfg)
     x = embed_tokens(params, cfg, batch)
     b, t = x.shape[:2]
-    # every layer's cache advances together, so the rope tables at
-    # step + arange(T), the per-slot row count and the encoder length are
-    # the same for all layers: build them once per step (each is several
-    # launches)
-    first = caches[0]["l0"]
-    step = first["step"]
+    attn = [i for i, k in enumerate(cfg.layer_pattern) if not _is_mamba(k)]
+    if t > 1 and len(attn) < len(cfg.layer_pattern):
+        raise ValueError(f"{cfg.name}: a {t}-token decode step; mamba layers "
+                         "update their state one token at a time")
+    if attn and (impl or kops.default_impl(x)) == "kernel":
+        swat_decode.check_force_fail()
+    # every attention layer's cache advances together, so the rope tables
+    # at step + arange(T), the per-slot row count and the encoder length
+    # are the same for all layers: build them once per step (each is
+    # several launches) from the first attention layer's cache
+    first = caches[0][f"l{attn[0]}"] if attn else {}
     rope = None
-    if cfg.use_rope:
+    if cfg.use_rope and attn:
+        step = first["step"]
         pos = step.long()[:, None, None] + torch.arange(t, device=step.device)
         rope = L.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
-    num_new = torch.full((b,), t, dtype=torch.int32, device=step.device)
+    num_new = torch.full((b,), t, dtype=torch.int32, device=x.device)
     enc_len = (torch.full((b,), first["xk"].shape[2], dtype=torch.int32,
-                          device=step.device) if "xk" in first else None)
+                          device=x.device) if "xk" in first else None)
     for blk, blk_cache in zip(params["blocks"], caches):
         for i, kind in enumerate(cfg.layer_pattern):
             p, cache = blk[f"l{i}"], blk_cache[f"l{i}"]
             h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-            y, _ = L.attention_decode(p["mixer"],
-                                      attn_cfg(cfg, kind, index=i), h,
-                                      cache, impl=impl, lookahead=lookahead,
-                                      rope=rope, num_new=num_new,
-                                      step_in_place=True)
+            if _is_mamba(kind):
+                y, _ = S.mamba_decode(p["mixer"], h, cache, cfg.ssm)
+            else:
+                y, _ = L.attention_decode(p["mixer"],
+                                          attn_cfg(cfg, kind, index=i), h,
+                                          cache, impl=impl,
+                                          lookahead=lookahead, rope=rope,
+                                          num_new=num_new,
+                                          step_in_place=True)
             x = x + y
             if kind == "xattn":
                 h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
@@ -511,8 +553,9 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
     real token. Causality makes the pad tail inert. Encoder-decoder
     configs run the encoder over batch["enc_embeddings"] first, and each
     "xattn" layer stores the encoder's cross K/V in its cache ("xk",
-    "xv"); they take no `lengths`, as in the JAX package. Runs without
-    autograd."""
+    "xv"); they take no `lengths`, as in the JAX package. A mamba layer
+    keeps its final conv window and SSM state (`_mamba_prefill_cache`).
+    Runs without autograd."""
     _check_supported(cfg)
     if lengths is not None and cfg.encoder_decoder:
         raise ValueError("padded prefill: decoder-only models")
@@ -525,12 +568,20 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
         new_caches = {}
         for i, kind in enumerate(cfg.layer_pattern):
             p = blk[f"l{i}"]
-            acfg = attn_cfg(cfg, kind, index=i)
             h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-            y, k, v = L.attention_layer(p["mixer"], acfg, h, impl=impl,
-                                        return_kv=True)
-            cache = L.prefill_kv_cache(acfg, k, v, max_len, lengths=lengths,
-                                       lookahead=lookahead)
+            if _is_mamba(kind):
+                m = S.mamba_inputs(p["mixer"], h, cfg.ssm)
+                y = S.mamba_block(p["mixer"], h, cfg.ssm,
+                                  chunk=cfg.ssm.chunk_size, inputs=m)
+                cache = _mamba_prefill_cache(p["mixer"], h, cfg,
+                                             lengths=lengths, inputs=m)
+            else:
+                acfg = attn_cfg(cfg, kind, index=i)
+                y, k, v = L.attention_layer(p["mixer"], acfg, h, impl=impl,
+                                            return_kv=True)
+                cache = L.prefill_kv_cache(acfg, k, v, max_len,
+                                           lengths=lengths,
+                                           lookahead=lookahead)
             x = x + y
             if kind == "xattn":
                 h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
@@ -547,3 +598,44 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
         idx = torch.clamp(lengths.to(x.device).long() - 1, 0, l - 1)
         last = x[torch.arange(b, device=x.device), idx][:, None]
     return _unembed(params, cfg, last), caches
+
+
+def _mamba_prefill_cache(p: Params, h, cfg: ModelConfig, lengths=None,
+                         inputs=None) -> Dict[str, torch.Tensor]:
+    """Final conv window and SSM state after a full-sequence mamba pass over
+    the normed input h (B, L, Dm); `inputs`: h's `ssm.mamba_inputs`, when
+    the caller has them. With `lengths`, each row's state stops at its own
+    last real token: a zeroed dt beyond the length makes the decay exp(0)
+    = 1 and the update 0, so the state freezes, and the conv window is
+    gathered per row, zero-filled where it precedes t = 0. The state is
+    one fp32 pass: sum_j exp(sum_{k>j} dt_k a) dt_j B_j x_j."""
+    spec = cfg.ssm
+    m = S.mamba_inputs(p, h, spec) if inputs is None else inputs
+    conv_in = m["conv_in"]
+    bsz, l, _ = h.shape
+    kw = spec.conv_width
+    if lengths is None:
+        conv_state = conv_in[:, -(kw - 1):, :]
+        if l < kw - 1:
+            conv_state = torch.nn.functional.pad(
+                conv_in, (0, 0, kw - 1 - l, 0))
+    else:
+        lens = lengths.to(h.device).long()
+        idx = lens[:, None] - (kw - 1) + torch.arange(kw - 1,
+                                                      device=h.device)
+        gathered = conv_in.gather(1, idx.clamp(min=0)[:, :, None].expand(
+            bsz, kw - 1, conv_in.shape[-1]))
+        conv_state = gathered.masked_fill((idx < 0)[:, :, None], 0)
+    nh = spec.num_heads(cfg.d_model)
+    dtv = m["dt"]
+    if lengths is not None:
+        tmask = (torch.arange(l, device=h.device)[None, :]
+                 < lengths.to(h.device)[:, None])
+        dtv = dtv * tmask[..., None]
+    a = -torch.exp(p["a_log"])
+    cum = torch.cumsum(dtv * a, dim=1)
+    w = torch.exp(cum[:, -1:, :] - cum)                      # (B,L,H)
+    bm = m["b"].repeat_interleave(nh // spec.num_groups, dim=2)
+    ssm = torch.einsum("blh,blhs,blhp->bhps", w * dtv, bm.float(),
+                       m["xh"].float())
+    return {"conv": conv_state.to(_dtype(cfg)), "ssm": ssm}

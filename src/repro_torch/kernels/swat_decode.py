@@ -27,8 +27,9 @@ plain version (`swat_decode_fused_plain`, `swat_decode_plain_ref`).
 
 `set_force_fail(True)` (the fault harness's `install_kernel_failure`) arms
 both wrappers to raise `KernelDispatchError` at entry, before any operand
-is read or written, on every device; the serving engine steps down to the
-plain version when it sees one.
+is read or written, on every device (`model.decode_step` checks it too,
+before its first layer); the serving engine steps down to the plain
+version when it sees one.
 """
 from __future__ import annotations
 
@@ -62,7 +63,9 @@ def set_force_fail(enabled: bool) -> None:
     _FORCE_FAIL = bool(enabled)
 
 
-def _check_force_fail() -> None:
+def check_force_fail() -> None:
+    """Raise `KernelDispatchError` if the injected failure is armed (each
+    wrapper's entry, and `model.decode_step`'s before its first layer)."""
     if _FORCE_FAIL:
         from repro_torch.serving.faults import KernelDispatchError
         raise KernelDispatchError(
@@ -166,7 +169,7 @@ def swat_decode_fused(q, k_cache, v_cache, new_k, new_v, pos, num_new,
     new_k/new_v: (B, Hkv, T, D) in the cache dtype; pos/num_new: int32
     (B,). Returns out (B, Hq, T, D). Rows j >= num_new are neither written
     nor attendable, and their outputs are garbage the caller discards."""
-    _check_force_fail()
+    check_force_fail()
     cap, g, window = _ring_geometry(spec, k_cache.shape[2], ring_cap)
     scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
     if q.device.type == "cpu":
@@ -303,7 +306,7 @@ def swat_decode_plain(q, k_cache, v_cache, pos, spec: AttentionSpec, *,
     (B, Hq, T, D). pack_gqa: one cluster per kv head holding its group*T
     query rows (True), or per q head with its T rows (False). Each cache
     is cut into `plain_splits` chunks."""
-    _check_force_fail()
+    check_force_fail()
     cap = _ring_geometry(spec, k_cache.shape[2], ring_cap)[0]
     scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
     if q.device.type == "cpu":

@@ -796,18 +796,25 @@ class ServingEngine:
     def _insert_paged(self, caches, slots: List[int], idx: torch.Tensor):
         """Paged admission (the JAX engine's `insert_paged`): write the n
         freshly prefilled contiguous rows through their slots' table rows
-        into the pools (`layers.paged_scatter`), set the rows' steps, and
-        push the host tables. Shared-prefix rows point at the same block
-        ids; those duplicate writes carry bitwise-equal content (the
-        shareable-block invariant of `PagedManager.admit`), so whichever
-        lands is exact."""
-        for i, host in self._paged.tables.items():
-            name = f"l{i}"
-            rows = torch.as_tensor(host[slots], device=self.device)
-            for full, one in zip(self.caches, caches):
-                fc, oc = full[name], one[name]
-                L.paged_scatter(fc["pk"], rows, oc["k"])
-                L.paged_scatter(fc["pv"], rows, oc["v"])
+        into the pools (`layers.paged_scatter`), set the rows' steps, copy
+        every unpaged layer's leaves (a mamba layer's conv window and SSM
+        state) into the slots' rows, and push the host tables.
+        Shared-prefix rows point at the same block ids; those duplicate
+        writes carry bitwise-equal content (the shareable-block invariant
+        of `PagedManager.admit`), so whichever lands is exact."""
+        tables = self._paged.tables
+        rows = {i: torch.as_tensor(host[slots], device=self.device)
+                for i, host in tables.items()}
+        for full, one in zip(self.caches, caches):
+            for name, fc in full.items():
+                oc = one[name]
+                i = int(name[1:])
+                if i not in tables:
+                    for leaf, t in fc.items():
+                        t.index_copy_(0, idx, oc[leaf].to(t.dtype))
+                    continue
+                L.paged_scatter(fc["pk"], rows[i], oc["k"])
+                L.paged_scatter(fc["pv"], rows[i], oc["v"])
                 fc["step"].index_copy_(0, idx, oc["step"])
         self._push_tables()
 
@@ -967,12 +974,13 @@ class ServingEngine:
         impl, so a replay would keep the kernel); the device counters stay.
 
         lost=False: the raise came before the block wrote anything (the
-        injected failure raises at the first layer's wrapper entry, in a
-        key's eager first use), so the block is run again on the plain
-        version. lost=True: the block had written the caches (the JAX
-        engine's consumed donation): each live request is readmitted if it
-        has retries left (`Request.max_retries`) or finalized "failed", the
-        paged manager is reset and the caches re-initialised in place."""
+        injected failure raises at `model.decode_step`'s entry, before its
+        first layer, in a key's eager first use), so the block is run
+        again on the plain version. lost=True: the block had written the
+        caches (the JAX engine's consumed donation): each live request is
+        readmitted if it has retries left (`Request.max_retries`) or
+        finalized "failed", the paged manager is reset and the caches
+        re-initialised in place."""
         self.stats["kernel_fallbacks"] += 1
         TEV.record_event("pallas_fallback", error=str(err))
         if not self._fallback_warned:
@@ -1374,12 +1382,25 @@ def _poison_slot_k_paged(caches, tables: Dict[int, np.ndarray],
 
 
 def ring_cache_bytes(cfg: ModelConfig, batch: int, context: int) -> int:
-    """Decode-cache bytes at the model dtype: PHYSICAL ring rows
-    (`cache_allocation`) for every attention layer."""
+    """Decode-cache bytes (the paper's Fig. 3 memory comparison): PHYSICAL
+    ring rows (`cache_allocation`) of K and V for every attention layer,
+    and for every mamba layer its fixed state, whatever the context: the
+    fp32 SSM state (H, P, S) and the K-1 conv inputs. Ring rows and conv
+    inputs count at the model dtype's itemsize (the JAX function counts 2
+    bytes for them at every dtype: equal on bf16 configs)."""
     from repro_torch.core.layers import cache_allocation
     itemsize = 2 if cfg.dtype == "bfloat16" else 4
     total = 0
     for i, kind in enumerate(cfg.layer_pattern):
+        if kind.startswith("mamba"):
+            spec = cfg.ssm
+            h = spec.num_heads(cfg.d_model)
+            total += batch * (h * spec.head_dim * spec.state_dim * 4
+                              + (spec.conv_width - 1)
+                              * (spec.d_inner(cfg.d_model)
+                                 + 2 * spec.num_groups * spec.state_dim)
+                              * itemsize)
+            continue
         acfg = Mod.attn_cfg(cfg, kind, index=i)
         cap = cache_allocation(acfg, context)
         total += 2 * batch * acfg.num_kv_heads * cap * acfg.head_dim * itemsize

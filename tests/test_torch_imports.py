@@ -15,7 +15,7 @@ PORT_MODULES = [
     "repro_torch", "repro_torch.interop", "repro_torch.configs",
     "repro_torch.core.types", "repro_torch.core.patterns",
     "repro_torch.core.layers", "repro_torch.core.moe",
-    "repro_torch.core.model",
+    "repro_torch.core.ssm", "repro_torch.core.model",
     "repro_torch.kernels.dots", "repro_torch.kernels.ref",
     "repro_torch.kernels._build", "repro_torch.kernels.swat_decode",
     "repro_torch.kernels.swat_attention", "repro_torch.kernels.ops",

@@ -249,10 +249,32 @@ def test_interop_round_trip_is_bitwise_with_an_fp32_router():
 
 
 def test_mamba_kinds_still_raise():
-    """The MoE slice leaves the mamba kinds refused (ROADMAP 12b-2)."""
+    """The mamba kinds no longer raise (the name is the MoE slice's, when
+    they did): both mamba configs initialise with the JAX package's leaf
+    paths, shapes and dtypes (bf16), jamba's plain mamba layers with a
+    dense MLP and its mamba_moe layers with the experts."""
     for arch in ("mamba2_1p3b", "jamba_1p5_large"):
-        with pytest.raises(NotImplementedError):
-            TM.init_model(t_smoke(arch), device="cpu")
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16")
+        tcfg = dataclasses.replace(t_smoke(arch), dtype="bfloat16")
+        want = dict(tree.flatten_with_paths(jax.tree.map(
+            np.asarray, JM.init_model(jax.random.PRNGKey(0), cfg))))
+        tp = TM.init_model(tcfg, seed=0, device="cpu")
+        shapes = dict(tree.flatten_with_paths(
+            interop.params_to_numpy(tp, tcfg)))
+        assert shapes.keys() == want.keys(), arch
+        # the port's "blocks/<super-block>/..." leaves by the JAX path
+        dtypes = {("blocks/" + p.split("/", 2)[2]
+                   if p.startswith("blocks/") else p):
+                  str(t.dtype).split(".")[-1]
+                  for p, t in tree.flatten_with_paths(tp)}
+        for path, w in want.items():
+            assert shapes[path].shape == w.shape, (arch, path)
+            assert dtypes[path] == w.dtype.name, (arch, path)
+        for i, kind in enumerate(tcfg.layer_pattern):
+            layer = tp["blocks"][0][f"l{i}"]
+            assert ("moe" in layer) == kind.endswith("_moe")
+            assert ("mlp" in layer) == (not kind.endswith("_moe")
+                                        and tcfg.d_ff > 0)
 
 
 # ---------------------------------------------------------- the engine ----
