@@ -177,6 +177,21 @@ each of which raises on failure:
                beside its byte bound and llama's, prefill ms, TTFT /
                TPOT, peak memory, train step ms, and #1 / #2 timed at
                jamba's shape.
+  26. swatlint - (run after phase 23, on phase 3's params) the port's
+               static analysis (`repro_torch.analysis`) on the card: the
+               smoke matrix of `launch/analyze.py` against the committed
+               ANALYSIS_torch.json (zero errors, no warning or lowering
+               count above the baseline's, every graph key captured and
+               replayed); llama3.2-1b + SWAT at full width (bf16, 4 slots,
+               decode_impl "pallas", prefill_chunk 64, graphs, metrics)
+               and its speculative twin (zero errors, host_sync and
+               telemetry clean on the captured entries, #1 layers x n
+               launches a scan[n] entry and no plain decode kernel, #2's
+               pass A and pass B a chunk on the tensor cores); a body with
+               .item() flagged and refused by the capture, a rebound carry
+               flagged, blocking uploads on the hot path flagged and the
+               engine's pinned non-blocking staging clean. Prints its wall
+               time beside the card.
   7. backward - the dQ and dK/dV kernels against their plain version at the
                training shapes (B=4, Hq=32, Hkv=8, L=2048, D=64, window
                256, 4 globals, causal; plus group 1, 2 (granite-moe's
@@ -4428,6 +4443,221 @@ def mamba(torch, card, llama_turns):
     return out
 
 
+# ------------------------------------------------------------ phase 26 ---
+
+# the .item() control runs in a process of its own: a refused capture may
+# leave the CUDA context unusable for the phases after this one
+ITEM_CONTROL = r"""
+import json, sys, torch
+from repro_torch.analysis import rules as R, tracer as T
+from repro_torch.serving.engine import capture_graph
+x = torch.arange(8.0, device="cuda")
+def body():
+    return x.sum().item()
+tr = T.trace(T.EntryPoint(name="item", family="item", body=body,
+                          tags=frozenset({"decode_hot_path"})))
+found = [(f.rule, f.severity, f.details["op"]) for f in R.check_host_sync(tr)]
+try:
+    capture_graph(body, {}, torch.Generator(device="cuda"))
+    refused = None
+except RuntimeError as e:
+    refused = str(e).strip().splitlines()[0][:200]
+print(json.dumps({"findings": found, "capture_error": refused}))
+"""
+
+
+def _warn_counts(report):
+    """{label: {rule: warnings}} of a swatlint report."""
+    out = {}
+    for label, eng in report["engines"].items():
+        c = out.setdefault(label, {})
+        for f in eng["findings"]:
+            if f["severity"] == "warn":
+                c[f["rule"]] = c.get(f["rule"], 0) + 1
+    return out
+
+
+def _captured_keys(eng, entries):
+    """Every graph-keyed entry of a report was captured and replayed by the
+    engine that served it."""
+    keyed = {n: e for n, e in entries.items()
+             if e["family"] in ("scan", "spec_scan", "prefill_chunk")}
+    bad = [n for n, e in keyed.items() if e["captured"] is not True]
+    if bad or not keyed or not eng._compiled.replays:
+        raise AssertionError(f"swatlint: keys not captured and replayed: "
+                             f"{bad} (replays {eng._compiled.replays})")
+    return len(keyed)
+
+
+def swatlint(torch, cfg, params, card):
+    """Phase 26 (after phase 3, on its params): the port's swatlint on the
+    card.
+
+      (a) the smoke matrix (`launch/analyze.py`'s six single-device
+          engines, decode_impl "pallas" on the fused #1 and the chunk
+          route's #2) against the committed ANALYSIS_torch.json: zero
+          errors, no warning or lowering count above the baseline's (the
+          per-engine warning counts printed beside the baseline's), every
+          graph key of the report captured and replayed by its engine;
+      (b) full width: llama3.2-1b + SWAT, bf16, 4 slots, decode_impl
+          "pallas", prefill_chunk 64, graphs, metrics=True, and its
+          speculative (k=4) twin: zero errors, host_sync and telemetry
+          clean on every scan, spec_scan and prefill_chunk entry; each
+          scan[n] entry launches #1 n x layers times and no plain decode
+          kernel, each spec_scan[n] entry layers times a verify step, each
+          prefill_chunk entry #2 for pass A and pass B a layer (the chunk
+          [64, 128): globals precede it), all on the tensor-core route; the
+          dtype_promotion findings printed with their call sites;
+      (c) negative controls: a body that calls .item() on a CUDA tensor
+          gives a host_sync ERROR, and capture_graph refuses it (in a
+          process of its own); a body that rebinds a carry gives a
+          donation ERROR; on the hot path, a tensor built from a list on
+          the card and a copy_ from pageable host memory each give a
+          host_sync ERROR, and the engine's staging (pinned memory,
+          non_blocking, `ServingEngine._upload`) gives none.
+
+    Writes the card's report to the kernels' build directory (outside the
+    tree git commits) and returns its summary; the phase's wall time is
+    printed beside the card."""
+    from repro_torch.analysis import baselines, report as Rep
+    from repro_torch.analysis import rules as R, tracer as T
+    from repro_torch.kernels import _build
+    from repro_torch.launch import analyze as A
+    from repro_torch.serving.drafter import NGramDrafter
+    from repro_torch.serving.engine import ServingEngine
+    t0 = time.perf_counter()
+
+    # (a) the smoke matrix against the committed baseline
+    base = baselines.load()
+    smoke, engines = A.analyze_matrix(A.MATRIX, "cuda", base, log=log)
+    violations = baselines.diff(smoke, base)
+    stale = baselines.is_stale(smoke, base)
+    card_w, base_w = _warn_counts(smoke), _warn_counts(base)
+    for label in A.MATRIX:
+        log(f"swatlint (a) {label}: card warnings {card_w[label]}, baseline "
+            f"{base_w.get(label, {})}; lowerings "
+            f"{smoke['engines'][label]['lowerings']}")
+    if violations or stale:
+        raise AssertionError(f"swatlint (a): {violations + stale}")
+    keyed = sum(_captured_keys(engines[label],
+                               smoke["engines"][label]["entries"])
+                for label in A.MATRIX)
+    del engines
+
+    # (b) full width, sequential and speculative
+    layers = cfg.num_layers
+    full = {}
+    for tag, kw in (("sequential", {}),
+                    ("speculative", {"speculative": SPEC_K,
+                                     "draft": NGramDrafter(**DRAFT)})):
+        eng = ServingEngine(cfg, params, batch_slots=4,
+                            max_len=MAIN["max_len"], scan_steps=8,
+                            decode_impl="pallas", prefill_chunk=CHUNK,
+                            metrics=True, **kw)
+        rep = Rep.analyze_engine(eng, label=f"full_{tag}", chunk_len=CHUNK,
+                                 prefill_len=CHUNK)
+        if eng.stats["kernel_fallbacks"] or eng.decode_impl != "pallas":
+            raise AssertionError(f"swatlint (b) {tag}: stepped down")
+        if rep["summary"]["errors"]:
+            raise AssertionError(f"swatlint (b) {tag}: errors "
+                                 f"{[f for f in rep['findings'] if f['severity'] == 'error']}")
+        for name, e in rep["entries"].items():
+            fam = e["family"]
+            if fam in ("scan", "spec_scan", "prefill_chunk"):
+                dirty = [f for f in rep["findings"] if f["entry"] == name
+                         and f["rule"] in ("host_sync", "telemetry")]
+                if dirty:
+                    raise AssertionError(f"swatlint (b) {name}: {dirty}")
+            got = e["launches"]
+            if fam in ("scan", "spec_scan"):
+                steps = int(name.split("n=")[1].split(",")[0])
+                want = {"swat_decode_fused": steps * layers}
+            elif fam == "prefill_chunk":
+                want = {"swat_attention_fwd": 2 * layers,
+                        "swat_attention_fwd.tc": 2 * layers}
+            else:
+                continue
+            if got != want:
+                raise AssertionError(f"swatlint (b) {name}: launches {got}, "
+                                     f"expected {want}")
+        _captured_keys(eng, rep["entries"])
+        dtype = [(f["entry"], f["details"]["site"], f["details"]["count"])
+                 for f in rep["findings"] if f["rule"] == "dtype_promotion"]
+        full[tag] = {"entries": rep["summary"]["entries"],
+                     "errors": rep["summary"]["errors"],
+                     "warnings": rep["summary"]["warnings"],
+                     "warnings_by_rule_and_site": sorted(
+                         {(f["rule"], f["details"].get("site"))
+                          for f in rep["findings"]
+                          if f["severity"] == "warn"}),
+                     "lowerings": rep["lowerings"],
+                     "dtype_promotion": dtype,
+                     "launches": {n: e["launches"]
+                                  for n, e in rep["entries"].items()},
+                     "uploads": {n: e["uploads"]
+                                 for n, e in rep["entries"].items()
+                                 if e["uploads"]}}
+        smoke["engines"][f"full_{tag}"] = rep
+        log(f"swatlint (b) {tag}: {json.dumps(full[tag])}")
+        log(f"swatlint (b) {tag} dtype_promotion findings: {dtype or 'none'}")
+        del eng
+
+    # (c) negative controls
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", ITEM_CONTROL], env=env,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode:
+        raise AssertionError(f"swatlint (c): the .item() control failed: "
+                             f"{out.stderr[-2000:]}")
+    item = json.loads(out.stdout.strip().splitlines()[-1])
+    if [f[:2] for f in item["findings"]] != [["host_sync", "error"]] or \
+            not item["capture_error"]:
+        raise AssertionError(f"swatlint (c): the rule and the card disagree "
+                             f"on .item(): {item}")
+    state = {"c": torch.zeros((512, 512), device="cuda")}
+
+    def rebind():
+        state["c"] = state["c"] + 1.0
+    tr = T.trace(T.EntryPoint(name="rebind", family="rebind", body=rebind,
+                              carries=lambda: {"c": state["c"]}))
+    rebound = [(f.rule, f.severity) for f in R.check_donation(tr)]
+    if rebound != [("donation", "error")]:
+        raise AssertionError(f"swatlint (c): rebound carry gave {rebound}")
+    host = torch.arange(4)
+    dst = torch.zeros(4, dtype=torch.long, device="cuda")
+
+    def blocking():
+        torch.as_tensor([1, 2, 3, 4], device="cuda")
+        dst.copy_(host)
+
+    def staged():
+        dst.copy_(host.pin_memory().to("cuda", non_blocking=True))
+    uploads = {}
+    for tag, body in (("blocking", blocking), ("staged", staged)):
+        tr = T.trace(T.EntryPoint(name=tag, family=tag, body=body,
+                                  tags=frozenset({"decode_hot_path"})))
+        uploads[tag] = sorted([f.severity, f.details["op"]]
+                              for f in R.check_host_sync(tr))
+    if uploads != {"blocking": [["error", "aten::copy_"],
+                                ["error", "aten::lift_fresh"]],
+                   "staged": []}:
+        raise AssertionError(f"swatlint (c): uploads gave {uploads}")
+
+    path = _build.BUILD_DIR / "ANALYSIS_torch.cuda.json"
+    baselines.save(smoke, str(path))
+    wall = time.perf_counter() - t0
+    summary = {"smoke": {"summary": smoke["summary"], "keys_captured": keyed,
+                         "warnings": card_w},
+               "full": full, "item_control": item,
+               "rebind_control": rebound, "upload_control": uploads,
+               "report": str(path),
+               "wall_s": wall}
+    log(f"swatlint (phase 26; {card}): wall {wall:.1f}s, smoke errors "
+        f"{smoke['summary']['errors']}, {keyed} graph keys captured and "
+        "replayed")
+    return summary
+
+
 def ptxas_report(out):
     """(kernel, registers, spill-store bytes) for every entry function in
     the `nvcc -Xptxas -v` output of one source; kernel reads like
@@ -4563,6 +4793,8 @@ def main():
     tel_trace = trace_decode(torch, cfg, params, metrics=True)
     # phase 23: resilience on phase 21's cell
     res23 = resilience(torch, cfg, params, gengines, card)
+    # phase 26: swatlint on the card, on phase 3's params
+    lint26 = swatlint(torch, cfg, params, card)
     del gengines
     del params
     cells32 = serve_slice_fp32(torch, cfg)
@@ -4737,6 +4969,7 @@ def main():
         f" ms ({tel_prof['bound_by']}), {tel_prof['bound_share'] * 100:.2f}% "
         f"of the bound; phase 5 (L2 flushed) {dk:.5f} ms")
     log(f"resilience (bf16; {card}): {json.dumps(res23)}")
+    log(f"swatlint (phase 26; {card}): {json.dumps(lint26)}")
     log(f"granite-moe (phase 24; {card}): {json.dumps(moe24)}")
     log(f"mamba2 and jamba (phase 25; {card}): {json.dumps(mamba25)}")
     log(f"e2e: {json.dumps(e2e)}")

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.types import AttentionSpec
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import swat_decode
 
 Params = Dict[str, Any]
 
@@ -273,9 +274,15 @@ def init_paged_kv_cache(cfg: AttentionLayerCfg, batch: int, max_len: int,
 def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Contiguous (B, H, nb*page, D) view of each slot's blocks: a new
     tensor (one row gather of whole blocks, then the head-major copy),
-    contiguous as the decode kernel requires."""
+    contiguous as the decode kernel requires. Records the gather-view
+    fallback for the static analyzer (`swat_decode.record_paged_fallback`,
+    host-only)."""
     b, nb = table.shape
     p, h, page, d = pool.shape
+    swat_decode.record_paged_fallback(
+        nb, page, "table resolved outside the kernel: materialized "
+        "gather-view decode (pool-sized copy per step) instead of in-kernel "
+        "gather")
     blocks = pool.view(p, -1).index_select(0, table.reshape(-1))
     return (blocks.view(b, nb, h, page, d).transpose(1, 2)
             .reshape(b, h, nb * page, d))

@@ -112,9 +112,12 @@ class LaunchCounter:
     replays the launch is the one exception: the serving engine takes back
     what the wrappers counted while it captured the graph (a capture
     records launches and runs nothing) and adds that count at every replay
-    (`launch_counts`, `set_launch_counts`, `add_launches`)."""
+    (`launch_counts`, `set_launch_counts`, `add_launches`). `name` keys the
+    counter in `launch_counts_by_name` (the static analyzer's per-entry
+    launch deltas)."""
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
         self.n = 0
         _COUNTERS.append(self)
 
@@ -125,6 +128,11 @@ class LaunchCounter:
 def launch_counts() -> List[int]:
     """Every LaunchCounter's count, in creation order."""
     return [c.n for c in _COUNTERS]
+
+
+def launch_counts_by_name() -> Dict[str, int]:
+    """Every LaunchCounter's count, by its name."""
+    return {c.name: c.n for c in _COUNTERS}
 
 
 def set_launch_counts(counts: List[int]) -> None:

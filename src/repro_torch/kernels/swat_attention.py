@@ -37,9 +37,9 @@ TC_HEAD_DIMS = (64, 128, 256)
 MAX_BLOCK_Q = 256   # one thread per query row (SIMT)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # launches of either route, and of each route alone
-LAUNCHES = _build.LaunchCounter()
-ROUTE_LAUNCHES = {"tc": _build.LaunchCounter(),
-                  "simt": _build.LaunchCounter()}
+LAUNCHES = _build.LaunchCounter("swat_attention_fwd")
+ROUTE_LAUNCHES = {r: _build.LaunchCounter(f"swat_attention_fwd.{r}")
+                  for r in ("tc", "simt")}
 _ENTRY = {"tc": "swat_attention_fwd_tc", "simt": "swat_attention_fwd"}
 
 

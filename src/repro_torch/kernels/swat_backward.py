@@ -41,13 +41,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import swat_attention as fwd_mod
 
 # dQ and dK/dV launches of either route, and of each route alone
-DQ_LAUNCHES = _build.LaunchCounter()
-DQ_ROUTE_LAUNCHES = {"tc": _build.LaunchCounter(),
-                     "simt": _build.LaunchCounter()}
-DKV_LAUNCHES = _build.LaunchCounter()
-DKV_ROUTE_LAUNCHES = {"tc": _build.LaunchCounter(),
-                      "simt": _build.LaunchCounter()}
-COMBINE_LAUNCHES = _build.LaunchCounter()   # the split rows' sum
+DQ_LAUNCHES = _build.LaunchCounter("swat_attention_dq")
+DQ_ROUTE_LAUNCHES = {r: _build.LaunchCounter(f"swat_attention_dq.{r}")
+                     for r in ("tc", "simt")}
+DKV_LAUNCHES = _build.LaunchCounter("swat_attention_dkv")
+DKV_ROUTE_LAUNCHES = {r: _build.LaunchCounter(f"swat_attention_dkv.{r}")
+                      for r in ("tc", "simt")}
+# the split rows' sum
+COMBINE_LAUNCHES = _build.LaunchCounter("swat_attention_dkv_combine")
 MAX_BLOCK_KV = 256   # one thread per kv row in dK/dV (SIMT)
 
 

@@ -44,13 +44,39 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_impl
 from repro_torch.telemetry import kernelprof as KP
 
-LAUNCHES = _build.LaunchCounter()         # fused kernel
-PLAIN_LAUNCHES = _build.LaunchCounter()   # plain kernel
+LAUNCHES = _build.LaunchCounter("swat_decode_fused")
+PLAIN_LAUNCHES = _build.LaunchCounter("swat_decode_plain")
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_ROWS = 128   # query rows per CTA (group*T packed, T unpacked)
 MAX_SPLITS = 8   # CTAs per fused ring: the portable thread-block cluster size
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FORCE_FAIL = False
+_PAD_EVENTS: list = []
+
+
+def consume_pad_events() -> list:
+    """Drain the structured fallback record (one dict per event since the
+    last drain), as the JAX package's `consume_pad_events`. The static
+    analyzer (`repro_torch.analysis`) drains it after tracing an engine, so
+    a fallback surfaces as a warn-level finding. Only paged-gather events
+    are recorded here: the JAX kernel pads and copies a cache whose
+    capacity no block size tiles, while #1 takes any capacity (it cuts the
+    ring into `fused_splits` chunks), so it records no pad event."""
+    out, _PAD_EVENTS[:] = list(_PAD_EVENTS), []
+    return out
+
+
+def record_paged_fallback(nb: int, page: int, reason: str) -> None:
+    """Record that a paged decode step resolved its block table outside
+    the kernel: `layers.paged_gather` copies the slots' pages into a
+    contiguous view, #1 runs on the view and the view is scattered back (a
+    pool-sized copy each way per step). Host-only bookkeeping, deduplicated
+    per (nb, page) per drain; a captured graph's replays do not record."""
+    if any(e.get("kind") == "paged_gather" and e.get("nb") == nb
+           and e.get("page") == page for e in _PAD_EVENTS):
+        return
+    _PAD_EVENTS.append({"kind": "paged_gather", "nb": nb, "page": page,
+                        "reason": reason})
 
 
 def set_force_fail(enabled: bool) -> None:

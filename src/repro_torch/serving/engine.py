@@ -762,10 +762,7 @@ class ServingEngine:
             self._paged.admit(slots, [l_pad] * n, prefix_len=prefix)
             self._insert_paged(caches, slots, idx)
         else:
-            for full, one in zip(self.caches, caches):
-                for name, layer in full.items():
-                    for leaf, t in layer.items():
-                        t.index_copy_(0, idx, one[name][leaf].to(t.dtype))
+            self._insert(caches, idx)
         first = first.cpu().numpy()            # the batch's host sync
         self.tracer.on_first_token([r.rid for r in plan.requests])
         self.stats["prefill_s"] += time.perf_counter() - t0
@@ -793,6 +790,15 @@ class ServingEngine:
                 self.slot_budget[s] = budget
         self._stale = True        # host mirrors changed; restage on device
 
+    def _insert(self, caches, idx: torch.Tensor):
+        """Contiguous admission (the JAX engine's `insert`): copy the n
+        freshly prefilled rows of every cache leaf into the slots `idx`, in
+        place."""
+        for full, one in zip(self.caches, caches):
+            for name, layer in full.items():
+                for leaf, t in layer.items():
+                    t.index_copy_(0, idx, one[name][leaf].to(t.dtype))
+
     def _insert_paged(self, caches, slots: List[int], idx: torch.Tensor):
         """Paged admission (the JAX engine's `insert_paged`): write the n
         freshly prefilled contiguous rows through their slots' table rows
@@ -803,8 +809,7 @@ class ServingEngine:
         writes carry bitwise-equal content (the shareable-block invariant
         of `PagedManager.admit`), so whichever lands is exact."""
         tables = self._paged.tables
-        rows = {i: torch.as_tensor(host[slots], device=self.device)
-                for i, host in tables.items()}
+        rows = {i: self._upload(host[slots]) for i, host in tables.items()}
         for full, one in zip(self.caches, caches):
             for name, fc in full.items():
                 oc = one[name]
@@ -818,12 +823,24 @@ class ServingEngine:
                 fc["step"].index_copy_(0, idx, oc["step"])
         self._push_tables()
 
+    def _upload(self, host, dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+        """A host array on the engine's device without a host wait. A
+        blocking host-to-device copy synchronizes the stream, so on the
+        card the array is staged in pinned memory and copied with
+        non_blocking; the caching host allocator keeps the pinned block
+        until the copy has run."""
+        t = torch.as_tensor(host, dtype=dtype)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _push_tables(self):
         """Copy the host table mirror into the one device table of each
         layer position (shared by every super-block)."""
         pm = self._paged
         for i, host in pm.tables.items():
-            self.caches[0][f"l{i}"]["table"].copy_(torch.as_tensor(host))
+            self.caches[0][f"l{i}"]["table"].copy_(self._upload(host))
         pm.dirty = False
 
     def _paged_sync(self, n: int):
@@ -848,9 +865,7 @@ class ServingEngine:
         for i, mv in moves.items():
             if not mv:
                 continue
-            src, dst = (torch.as_tensor(x, dtype=torch.long,
-                                        device=self.device)
-                        for x in zip(*mv))
+            src, dst = (self._upload(x, torch.long) for x in zip(*mv))
             # dst ids are freshly allocated: no move reads another's
             # destination
             for blk in self.caches:
@@ -1161,8 +1176,7 @@ class ServingEngine:
         t0, span0 = time.perf_counter(), self.tracer.clock()
         self._stage()
         greedy = not self._anyt
-        self._sidx.zero_()
-        self._active0.copy_(self._dev["active"])
+        self._verify_begin()
         body = functools.partial(self._verify_body, greedy)
         steps = 0
         while steps < n:
@@ -1184,6 +1198,13 @@ class ServingEngine:
         self._spec_ladder_update(prop, accepted, probe)
         self.tracer.on_block("spec", n, span0, int(emit_np.sum()))
         return self._retire(live, *read)
+
+    def _verify_begin(self) -> None:
+        """The verify block's set-up: rows of the block buffers from 0, and
+        the active flags the block starts from (`_flip` compares with
+        them)."""
+        self._sidx.zero_()
+        self._active0.copy_(self._dev["active"])
 
     def _verify_body(self, greedy: bool) -> None:
         """One verify step on the static vectors and the drafter history:

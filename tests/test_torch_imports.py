@@ -29,6 +29,10 @@ PORT_MODULES = [
     "repro_torch.telemetry.events", "repro_torch.telemetry.tracer",
     "repro_torch.telemetry.validate", "repro_torch.telemetry.metrics",
     "repro_torch.telemetry.kernelprof", "repro_torch.launch.scope",
+    "repro_torch.analysis", "repro_torch.analysis.collectives",
+    "repro_torch.analysis.tracer", "repro_torch.analysis.rules",
+    "repro_torch.analysis.report", "repro_torch.analysis.baselines",
+    "repro_torch.launch.analyze",
 ]
 
 
@@ -89,7 +93,9 @@ def test_port_sources_name_no_jax_or_repro_import():
             "repro_torch/runtime/trainer.py",
             "repro_torch/launch/train.py", "repro_torch/launch/scope.py",
             "repro_torch/telemetry/metrics.py",
-            "repro_torch/telemetry/kernelprof.py"} <= names
+            "repro_torch/telemetry/kernelprof.py",
+            "repro_torch/analysis/tracer.py", "repro_torch/analysis/rules.py",
+            "repro_torch/launch/analyze.py"} <= names
     assert len(files) > 25
     for f in files:
         hits = _BANNED.findall(f.read_text())
