@@ -221,6 +221,29 @@ each of which raises on failure:
                forward at L=2048 (band pass and global-row pass apart),
                the unembed product, and a profiled train step split by
                kernel category.
+ 27. context parallelism and pipeline - (run after phase 11, on phase 8's
+               params) (a) the halo-exchange CP op on a single-process
+               mesh at llama3.2-1b + with_swat's defaults (window 2048,
+               128 globals, 32 q over 8 kv heads, D=64, bf16): B=1,
+               L=32768 over 4 shards (one hop), L=4096 over 8 (four hops)
+               and L=4096 over 4 bidirectional, each against
+               ops.swat_attention on the unsharded sequence (atol 3e-2),
+               one kernel #2 launch a shard on the tensor cores; on the
+               bidirectional case kernel #2 (and #4, #5 with dLSE) on
+               shard 0 and the last shard against their plain versions
+               with the same offsets; both ops timed. (b) a loss and
+               gradient of the whole model with every attention layer CP
+               over 4 shards (B=2, L=8192) against the same without CP
+               (|dloss| <= 0.02, per-leaf grad error <= 0.05), #2 / #4 /
+               #5 launched 2 / 1 / 1 x layers x shards. (c) the GPipe loss
+               and gradient (4 stages of 4 layers, 4 microbatches of
+               phase 8's batch) against the plain step, same gates, each
+               kernel launched 4x the plain step's count; the bubble
+               fraction. (d) a one-rank NCCL process group and DeviceMesh:
+               one CP op and its gradients through the process mesh
+               against a single-process mesh. Then one AdamW step each
+               through CP and the pipeline, and #2 / #4 / #5 timed on a
+               CP shard's band pass at (b)'s shape.
  12. plain decode - the plain-mode decode kernel (the fused kernel's
                cluster split without the insert) against its plain version,
                bf16 and fp32, both GQA layouts, two launches bitwise equal,
@@ -1485,6 +1508,456 @@ def trace_train_step(torch, state):
                top_kernels_ms=dict(top))
     log("train trace: " + json.dumps(out))
     return out
+
+
+# ------------------------------------------------------------ phase 27 ---
+
+# phase 27's shapes: CP forward cases (sequence, shards, causal) at
+# llama3.2-1b + with_swat's defaults (window 2048, 128 globals); the CP
+# train step (B=2, L=8192 over 4 shards) and the pipeline (4 stages of 4
+# layers, 4 microbatches of phase 8's 4 x 2048 batch) at phase 8's spec
+CP_CASES = ((32768, 4, True), (4096, 8, True), (4096, 4, False))
+CP_TRAIN = dict(b=2, seq=8192, shards=4)
+PP = dict(stages=4, microbatches=4)
+# phase 27's O limits, set from a sound run (H100): randn inputs over a
+# 2048-wide window give |O| ~ 0.03, so bf16's TOL (atol 3e-2) would be as
+# large as the values. The CP op read 0.0039 against the unsharded op, the
+# band pass 0.00098 against its plain version; rtol 1e-2 covers one bf16
+# ulp at the larger outputs of the first causal rows
+CP_TOL = dict(atol=1e-2, rtol=1e-2)
+CP_BAND_TOL = dict(atol=4e-3, rtol=1e-2)
+# F.embedding's bf16 table gradient against an fp32 index_add, relative
+# norm over the touched rows (a sound run read 0.0017; the indexing's
+# backward 0.2355)
+EMBED_GRAD_LIMIT = 5e-3
+
+
+def _cp_band_case(torch, gen, spec, b, lp, n, idx, dtype=None):
+    """Inputs of shard `idx`'s band pass (n shards of lp rows): q (B, 32,
+    Lp, 64), the halo-extended K/V, the pass's spec, pattern and offsets,
+    and its visibility in global coordinates (Lp, halo + Lp (+ halo))."""
+    import dataclasses
+    from repro_torch.distributed import context_parallel as CP
+    from repro_torch.kernels import ops
+    dtype = dtype or torch.bfloat16
+    band = dataclasses.replace(spec, num_global=0, num_random=0)
+    halo = CP.halo_rows(spec.window, lp)
+    lkv = halo + lp + (0 if spec.causal else halo)
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    q = mk(b, MAIN["hq"], lp, MAIN["d"])
+    k, v = mk(b, MAIN["hkv"], lkv, MAIN["d"]), mk(b, MAIN["hkv"], lkv,
+                                                  MAIN["d"])
+    pat = ops.get_pattern(band, lp, lkv, 128, 128, q_shift=halo)
+    kw = dict(q_offset=idx * lp, kv_offset=idx * lp - halo,
+              seq_kv_bound=n * lp)
+    qi = idx * lp + torch.arange(lp, device="cuda")[:, None]
+    ki = idx * lp - halo + torch.arange(lkv, device="cuda")[None, :]
+    vis = (ki >= 0) & (ki < n * lp) & (ki >= qi - spec.window)
+    vis &= (ki <= qi) if spec.causal else (ki <= qi + spec.window)
+    return q, k, v, band, pat, kw, vis
+
+
+def check_cp_band(torch, spec, lp, n):
+    """Kernel #2's CP band pass on shard 0 (halo rows at negative token
+    indices, read as zeros) and on the last shard (rows past L on a
+    bidirectional spec) against banded_plain with the same offsets, and
+    the CP op's band pass against the kernel #4 / #5 backward of the same
+    offsets, each launch on the tensor-core route. Returns the largest
+    errors."""
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_backward as SB
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    errs = {}
+    for idx in (0, n - 1):
+        q, k, v, band, pat, kw, _ = _cp_band_case(torch, gen, spec, 1, lp, n,
+                                                  idx)
+        before = route_counts()
+        o, lse = SA.swat_attention_fwd(q, k, v, band, pattern=pat,
+                                       return_lse=True, **kw)
+        check_route(f"cp band shard {idx}", before, "fwd", "tc")
+        po, plse = SA.banded_plain(q, k, v, band, pat, MAIN["d"] ** -0.5,
+                                   return_lse=True, **kw)
+        errs[f"shard{idx}_o"] = check_close(f"cp band shard {idx} O", o, po,
+                                            "bfloat16", **CP_BAND_TOL)
+        errs[f"shard{idx}_lse"] = check_close(f"cp band shard {idx} LSE",
+                                              lse, plse, "bfloat16",
+                                              atol=1e-3, rtol=0.0)
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
+        dlse = torch.randn(lse.shape, generator=gen, device="cuda")
+        before = route_counts()
+        got = SB.swat_attention_bwd(q, k, v, o, lse, do, band, pattern=pat,
+                                    seq_kv_bound=kw["seq_kv_bound"],
+                                    q_offset=kw["q_offset"],
+                                    kv_offset=kw["kv_offset"], dlse=dlse)
+        check_route(f"cp band dq shard {idx}", before, "dq", "tc")
+        check_route(f"cp band dkv shard {idx}", before, "dkv", "tc")
+        want = SB.swat_attention_bwd_plain(
+            q, k, v, o, lse, do, band, pat, MAIN["d"] ** -0.5,
+            q_offset=kw["q_offset"], kv_offset=kw["kv_offset"],
+            seq_kv_bound=kw["seq_kv_bound"], dlse=dlse)
+        for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+            errs[f"shard{idx}_{name}"] = check_close(
+                f"cp band {name} shard {idx}", a, b_, "bfloat16",
+                **BWD_TOL["bfloat16"])
+    return errs
+
+
+def cp_forward(torch):
+    """(a): CP_CASES through swat_attention_context_parallel on a
+    single-process mesh against ops.swat_attention on the unsharded
+    sequence (CP_TOL); one kernel #2 launch per shard, on the
+    tensor cores; the two ops timed."""
+    import dataclasses
+    from repro_torch.configs import get_config, with_swat
+    from repro_torch.distributed import context_parallel as CP
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import LocalMesh
+    base = with_swat(get_config("llama3.2-1b")).attention
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    out = {}
+    for seq, n, causal in CP_CASES:
+        spec = dataclasses.replace(base, causal=causal)
+        tag = f"L={seq} over {n}{'' if causal else ' bidirectional'}"
+        mk = lambda *s: torch.randn(*s, generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+        q = mk(1, MAIN["hq"], seq, MAIN["d"])
+        k, v = mk(1, MAIN["hkv"], seq, MAIN["d"]), mk(1, MAIN["hkv"], seq,
+                                                      MAIN["d"])
+        mesh = LocalMesh((n,), ("model",))
+        cp = lambda: CP.swat_attention_context_parallel(
+            q, k, v, spec, mesh=mesh, axis="model")
+        ref = lambda: ops.swat_attention(q, k, v, spec)
+        with torch.no_grad():
+            before = route_counts()
+            got = cp()
+            check_route(f"cp {tag}", before, "fwd", "tc", n=n)
+            want = ref()
+            err = check_close(f"cp {tag}", got, want, "bfloat16", **CP_TOL)
+            cp_ms, ref_ms = time_ms(torch, cp, 5), time_ms(torch, ref, 5)
+        lp = seq // n
+        out[tag] = {"lp": lp, "hops": CP.halo_hops(spec.window, lp),
+                    "halo_rows": CP.halo_rows(spec.window, lp),
+                    "band_launches": n, "max_abs_err": err,
+                    "cp_ms": cp_ms, "unsharded_ms": ref_ms,
+                    "wire_bytes_per_shard": CP.cp_wire_bytes_per_device(
+                        seq, n, spec.window, MAIN["hkv"], MAIN["d"],
+                        causal=causal)}
+        if not causal:
+            out[tag]["band_pass_errors"] = check_cp_band(torch, spec, lp, n)
+        log(f"cp forward {tag}: " + json.dumps(out[tag]))
+    return out
+
+
+def time_cp_band(torch, spec, b, lp, n):
+    """Kernels #2, #4 and #5 on shard 1's band pass (b rows of lp tokens of
+    n shards; kv_offset = lp - halo), their plain versions and SDPA with
+    the pass's mask over the halo-extended K/V. Returns {kernel: (ms,
+    plain_ms, sdpa_ms, bytes, ops, max_abs_err)}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_backward as SB
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    q, k, v, band, pat, kw, vis = _cp_band_case(torch, gen, spec, b, lp, n,
+                                                1)
+    scale = MAIN["d"] ** -0.5
+    hq, hkv, d = MAIN["hq"], MAIN["hkv"], MAIN["d"]
+    fwd = lambda: SA.swat_attention_fwd(q, k, v, band, pattern=pat,
+                                        return_lse=True, **kw)
+    o, lse = fwd()
+    po, _ = SA.banded_plain(q, k, v, band, pat, scale, return_lse=True, **kw)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(o.dtype)
+    delta = (do.float() * o.float()).sum(-1)
+    bk = dict(q_offset=kw["q_offset"], kv_offset=kw["kv_offset"],
+              bound=kw["seq_kv_bound"])
+    dq = SB.launch_dq(q, k, v, do, lse, delta, band, pat, scale, **bk)
+    dk, dv = SB.launch_dkv(q, k, v, do, lse, delta, band, pat, scale, **bk)
+    pq, pk, pv = SB.swat_attention_bwd_plain(q, k, v, o, lse, do, band, pat,
+                                             scale, **kw)
+    f_ms = time_ms(torch, fwd)
+    fp_ms = time_ms(torch, lambda: SA.banded_plain(
+        q, k, v, band, pat, scale, return_lse=True, **kw), 5)
+    dq_ms = time_ms(torch, lambda: SB.launch_dq(q, k, v, do, lse, delta,
+                                                band, pat, scale, **bk))
+    dkv_ms = time_ms(torch, lambda: SB.launch_dkv(q, k, v, do, lse, delta,
+                                                  band, pat, scale, **bk))
+    bp_ms = time_ms(torch, lambda: SB.swat_attention_bwd_plain(
+        q, k, v, o, lse, do, band, pat, scale, **kw), 5)
+    qr = q.detach().clone().requires_grad_()
+    ke = k.repeat_interleave(hq // hkv, dim=1).requires_grad_()
+    ve = v.repeat_interleave(hq // hkv, dim=1).requires_grad_()
+    sdpa = lambda: F.scaled_dot_product_attention(qr, ke, ve, attn_mask=vis)
+    with torch.no_grad():
+        sf_ms = time_ms(torch, sdpa)
+    sb_ms = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa(), (qr, ke, ve), do)) - sf_ms
+    n_vis = int(vis.sum()) * b * hq
+    rows_q, rows_kv = b * hq * lp, b * hkv * k.shape[2]
+    return {
+        "fwd": (f_ms, fp_ms, sf_ms,
+                2 * d * (2 * rows_q + 2 * rows_kv) + 4 * rows_q,
+                4 * d * n_vis, max_err(o, po)),
+        "dq": (dq_ms, bp_ms, sb_ms,
+               2 * d * (3 * rows_q + 2 * rows_kv) + 4 * 2 * rows_q,
+               6 * d * n_vis, max_err(dq, pq)),
+        "dkv": (dkv_ms, bp_ms, sb_ms,
+                2 * d * (2 * rows_q + 4 * rows_kv) + 4 * 2 * rows_q,
+                8 * d * n_vis, max(max_err(dk, pk), max_err(dv, pv)))}
+
+
+def _kernel_counts():
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_backward as SB
+    return {"swat_attention_fwd": SA.LAUNCHES.n,
+            "swat_attention_dq": SB.DQ_LAUNCHES.n,
+            "swat_attention_dkv": SB.DKV_LAUNCHES.n,
+            "swat_attention_dkv_combine": SB.COMBINE_LAUNCHES.n}
+
+
+def _counted(torch, fn):
+    """fn() with every attention kernel's counter zeroed just before and
+    read just after; returns (result, counts, host ms)."""
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_backward as SB
+    for c in (SA.LAUNCHES, SB.DQ_LAUNCHES, SB.DKV_LAUNCHES,
+              SB.COMBINE_LAUNCHES):
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, _kernel_counts(), (time.perf_counter() - t0) * 1e3
+
+
+def cp_train(torch, cfg, params):
+    """(b): one loss and gradient of the whole model (phase 8's params, all
+    16 layers) on B=2 x 8192 tokens with every attention layer
+    context-parallel over 4 shards of a single-process mesh, against the
+    same step without CP; phase 9's gates; kernels #2, #4 and #5 launch
+    layers x shards times (#2 twice: remat)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import LocalMesh
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=CP_TRAIN["seq"],
+                                  global_batch=CP_TRAIN["b"], seed=1234))
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.global_batch(0).items()}
+    n = CP_TRAIN["shards"]
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    # the step without CP runs first, so its time includes this shape's
+    # first allocations; CP then runs twice, the second run counted and
+    # timed
+    plain, plain_counts, plain_ms = _counted(
+        torch, lambda: _loss_grads(torch, params, cfg, batch, None))
+    ops.set_context_parallel(LocalMesh((n,), ("model",)), "model")
+    try:
+        _, _, first_ms = _counted(
+            torch, lambda: _loss_grads(torch, params, cfg, batch, None))
+        before = route_counts()
+        cp, counts, cp_ms = _counted(
+            torch, lambda: _loss_grads(torch, params, cfg, batch, None))
+    finally:
+        ops.set_context_parallel(None)
+    layers = attn_layers(cfg)
+    need = {"swat_attention_fwd": 2 * layers * n,
+            "swat_attention_dq": layers * n,
+            "swat_attention_dkv": layers * n,
+            "swat_attention_dkv_combine": 0}
+    if counts != need:
+        raise AssertionError(f"cp train launches {counts}, expected {need}")
+    check_route("cp train", before, "fwd", "tc", n=need["swat_attention_fwd"])
+    check_route("cp train", before, "dq", "tc", n=layers * n)
+    check_route("cp train", before, "dkv", "tc", n=layers * n)
+    out = {"b": CP_TRAIN["b"], "seq": CP_TRAIN["seq"], "shards": n,
+           "layers": cfg.num_layers, **_grad_gap(params, cp, plain),
+           "launches": counts, "launches_without_cp": plain_counts,
+           "loss_grad_ms": cp_ms, "loss_grad_ms_first_cp_run": first_ms,
+           "loss_grad_ms_without_cp_first_at_shape": plain_ms,
+           "alloc_retries": torch.cuda.memory_stats().get(
+               "num_alloc_retries", 0) - retries,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss_bound": TRAIN_LOSS_BOUND, "grad_bound": TRAIN_GRAD_BOUND}
+    del cp, plain
+    log("cp train (B=2, L=8192 over 4 shards) vs no CP: " + json.dumps(out))
+    if not (out["loss_diff"] <= TRAIN_LOSS_BOUND
+            and out["max_leaf_rel_grad_err"] <= TRAIN_GRAD_BOUND):
+        raise AssertionError(f"cp train step vs the step without CP: {out}")
+    return out, batch
+
+
+def pp_train(torch, cfg, params, batch):
+    """(c): the GPipe loss and gradient (4 stages of 4 layers, 4
+    microbatches of phase 8's batch) on a single-process mesh against the
+    plain step on the whole batch; phase 9's gates; each attention kernel
+    launched m times the plain step's count (one microbatch a pass)."""
+    from repro_torch.distributed import pipeline as PPL
+    from repro_torch.launch.mesh import LocalMesh
+    pcfg = PPL.PipelineConfig(PP["stages"], PP["microbatches"])
+    loss = PPL.make_pipeline_loss(cfg, pcfg, LocalMesh((PP["stages"],),
+                                                       ("pipe",)))
+    leaves_fn = lambda: _pp_loss_grads(torch, params, loss, batch)
+    pp, counts, pp_ms = _counted(torch, leaves_fn)
+    plain, plain_counts, plain_ms = _counted(
+        torch, lambda: _loss_grads(torch, params, cfg, batch, None))
+    need = {k: v * PP["microbatches"] for k, v in plain_counts.items()}
+    if counts != need:
+        raise AssertionError(f"pipeline launches {counts}, expected {need}")
+    out = {"stages": PP["stages"], "microbatches": PP["microbatches"],
+           "layers_per_stage": cfg.num_layers // PP["stages"],
+           "bubble_fraction": PPL.bubble_fraction(pcfg),
+           **_grad_gap(params, pp, plain), "launches": counts,
+           "launches_plain": plain_counts, "loss_grad_ms": pp_ms,
+           "loss_grad_ms_plain": plain_ms, "loss_bound": TRAIN_LOSS_BOUND,
+           "grad_bound": TRAIN_GRAD_BOUND}
+    log("pipeline train vs plain step: " + json.dumps(out))
+    if not (out["loss_diff"] <= TRAIN_LOSS_BOUND
+            and out["max_leaf_rel_grad_err"] <= TRAIN_GRAD_BOUND):
+        raise AssertionError(f"pipeline step vs the plain step: {out}")
+    return out
+
+
+def embed_grad_sums(torch, params, cfg, batch):
+    """The plain step's gradient at the embedding output, summed into the
+    table's rows three ways: the indexing's backward and F.embedding's on
+    the bf16 table, and an fp32 index_add (the reference). Returns each
+    one's relative error (norm over the touched rows) and norm. The model's
+    lookup, F.embedding, must read below EMBED_GRAD_LIMIT."""
+    import torch.nn.functional as F
+    from repro_torch.core import model as Mod
+    emb, tok = params["embed"], batch["tokens"].long()
+    x0 = emb[tok].detach().requires_grad_()
+    total, _ = Mod.loss_fn(params, cfg, {"embeddings": x0,
+                                         "labels": batch["labels"]})
+    (dx,) = torch.autograd.grad(total, x0)
+    rows = torch.unique(tok)
+    ref = torch.zeros(emb.shape, device="cuda").index_add_(
+        0, tok.reshape(-1), dx.float().reshape(-1, emb.shape[1]))[rows]
+    out = {"reference_norm": float(ref.norm())}
+    for name, fn in (("index", lambda e: e[tok]),
+                     ("F.embedding", lambda e: F.embedding(tok, e))):
+        e = emb.detach().requires_grad_()
+        (g,) = torch.autograd.grad(fn(e), e, dx)
+        g = g[rows].float()
+        out[name] = {"norm": float(g.norm()),
+                     "rel_err": float((g - ref).norm() / ref.norm())}
+    log("embedding gradient sums (bf16 table, phase 8's batch): "
+        + json.dumps(out))
+    if not out["F.embedding"]["rel_err"] <= EMBED_GRAD_LIMIT:
+        raise AssertionError(f"F.embedding's table gradient: {out}")
+    return out
+
+
+def _pp_loss_grads(torch, params, loss, batch):
+    from repro_torch import tree
+    leaves = tree.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        total, m = loss(params, batch)
+        grads = torch.autograd.grad(total, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return float(m["loss"].detach()), float(m["aux_loss"].detach()), grads
+
+
+def process_mesh_cp(torch):
+    """(d): a one-rank NCCL process group and its DeviceMesh on the card;
+    one CP op (and its gradients) through the process mesh, bitwise equal
+    to the same op on a single-process mesh of the same shape. With one
+    rank the shift has no neighbour and sends nothing: only the psum and
+    pmax reach NCCL."""
+    import dataclasses
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, with_swat
+    from repro_torch.distributed import context_parallel as CP
+    from repro_torch.launch import mesh as ML
+    spec = with_swat(get_config("llama3.2-1b")).attention
+    spec = dataclasses.replace(spec, causal=True)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    mk = lambda *s: torch.randn(*s, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+    seq = 4096
+    ins = [mk(1, MAIN["hq"], seq, MAIN["d"]), mk(1, MAIN["hkv"], seq,
+                                                 MAIN["d"]),
+           mk(1, MAIN["hkv"], seq, MAIN["d"])]
+    t = mk(1, MAIN["hq"], seq, MAIN["d"])
+
+    def run(mesh):
+        q, k, v = (x.detach().clone().requires_grad_() for x in ins)
+        o = CP.swat_attention_context_parallel(q, k, v, spec, mesh=mesh,
+                                               axis="model")
+        (o.float() * t.float()).sum().backward()
+        return [o.detach(), q.grad, k.grad, v.grad]
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        pm = ML.make_debug_mesh(1, 1, process=True, device_type="cuda")
+        got = run(pm)
+        backend = dist.get_backend(pm.device_mesh.get_group("model"))
+    finally:
+        dist.destroy_process_group()
+    want = run(ML.make_debug_mesh(1, 1))
+    out = {"mesh": repr(pm), "backend": backend,
+           "bitwise": all(torch.equal(a, b) for a, b in zip(got, want))}
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        out[f"{name}_err"] = check_close(f"process mesh cp {name}", a, b,
+                                         "bfloat16")
+    log("process mesh cp (one-rank NCCL group): " + json.dumps(out))
+    if not out["bitwise"]:
+        raise AssertionError(f"process mesh cp vs single-process mesh: {out}")
+    return out
+
+
+def context_pipeline(torch, cfg, state, card):
+    """Phase 27: (a) CP forward at full width, (b) a CP train step of the
+    whole model, (c) a GPipe train step, (d) the process mesh on NCCL; then
+    one AdamW step each through CP and the pipeline on phase 8's params
+    and optimizer state (losses finite)."""
+    import math
+    from repro_torch.distributed import pipeline as PPL
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import LocalMesh
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    params, opt, step_fn, batch = state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = {"forward": cp_forward(torch)}
+    res["train"], cp_batch = cp_train(torch, cfg, params)
+    res["pipeline"] = pp_train(torch, cfg, params, batch)
+    res["embed_grad"] = embed_grad_sums(torch, params, cfg, batch)
+    res["process_mesh"] = process_mesh_cp(torch)
+    res["band_times"] = time_cp_band(torch, cfg.attention, CP_TRAIN["b"],
+                                     CP_TRAIN["seq"] // CP_TRAIN["shards"],
+                                     CP_TRAIN["shards"])
+    steps = {}
+    ops.set_context_parallel(LocalMesh((CP_TRAIN["shards"],), ("model",)),
+                             "model")
+    try:
+        _, _, m = step_fn(params, opt, cp_batch)
+        steps["cp_adamw_loss"] = float(m["loss"])
+    finally:
+        ops.set_context_parallel(None)
+    pcfg = PPL.PipelineConfig(PP["stages"], PP["microbatches"])
+    pp_step = PPL.make_pp_train_step(
+        cfg, adamw.AdamWConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                               total_steps=TRAIN["steps"]), pcfg,
+        LocalMesh((PP["stages"],), ("pipe",)))
+    _, _, m = pp_step(params, opt, batch)
+    steps["pp_adamw_loss"] = float(m["loss"])
+    if not all(math.isfinite(x) for x in steps.values()):
+        raise AssertionError(f"phase 27 AdamW steps: {steps}")
+    res["adamw_steps"] = steps
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 27 ({card}): " + json.dumps(
+        {k: res[k] for k in ("adamw_steps", "phase_s")}))
+    return res
 
 
 # ------------------------------------------------------------ phase 12 ---
@@ -4812,6 +5285,8 @@ def main():
     bt = time_backward(torch, spec)
     ft = time_forward_train(torch, spec)
     ttrace = trace_train_step(torch, tr_state)
+    # phase 27: context parallelism and the pipeline, on phase 8's params
+    cp27 = context_pipeline(torch, cfg, tr_state, card)
     del tr_state
     tr_e2e = train_end_to_end(torch, cfg)
     resume = resume_drill(torch)
@@ -4892,6 +5367,25 @@ def main():
              "ms": ms,
              "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": l_ms})
+    # phase 27: the CP band pass (kernels #2, #4 and #5 with offsets) at
+    # the CP train step's shard shape; launches from that step
+    for name, key, src, rep in (
+            ("swat_attention_fwd_tc (CP band pass, offsets)", "fwd",
+             "swat_attention_fwd.cu", "swat_attention.py:64"),
+            ("swat_attention_dq_tc (CP band pass, offsets)", "dq",
+             "swat_attention_bwd.cu", "swat_backward.py:51"),
+            ("swat_attention_dkv_tc (CP band pass, offsets)", "dkv",
+             "swat_attention_bwd.cu", "swat_backward.py:93")):
+        ms, p_ms, l_ms, bytes_, ops_, err = cp27["band_times"][key]
+        b_ms, b_by = bound(bytes_, ops_)
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": f"src/repro_torch/csrc/{src}",
+             "replaces": f"src/repro/kernels/{rep}",
+             "launches": cp27["train"]["launches"][
+                 f"swat_attention_{key}"],
+             "max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
     pb_ms_, pb_by_ = bound(pg_times[3], pg_times[4])
     kernels.append(
         {"name": "swat_decode_fused (paged view)", "route": "cuda",
@@ -4972,6 +5466,8 @@ def main():
     log(f"swatlint (phase 26; {card}): {json.dumps(lint26)}")
     log(f"granite-moe (phase 24; {card}): {json.dumps(moe24)}")
     log(f"mamba2 and jamba (phase 25; {card}): {json.dumps(mamba25)}")
+    log(f"context parallelism and pipeline (phase 27; {card}): "
+        f"{json.dumps(cp27)}")
     log(f"e2e: {json.dumps(e2e)}")
     log(f"trace: {json.dumps(trace)}")
     log(f"unembed: {json.dumps(unembed)}")

@@ -165,11 +165,17 @@ def embed_tokens(params: Params, cfg: ModelConfig,
                  batch: Dict[str, Any]) -> torch.Tensor:
     """Token embeddings, or the precomputed `"embeddings"` of a frontend
     stub (VLM patches, audio frames) cast to the model dtype; sinusoidal
-    absolute positions are added when the config has no rope (whisper)."""
+    absolute positions are added when the config has no rope (whisper).
+
+    The lookup is `F.embedding`: its backward sums a token's duplicate rows
+    in fp32 and rounds once, where the indexing's backward on CUDA rounds a
+    bf16 table's gradient after every duplicate and loses the small
+    additions of a frequent token."""
     if "embeddings" in batch:
         x = batch["embeddings"].to(_dtype(cfg))
     elif cfg.embed_inputs:
-        x = params["embed"][batch["tokens"].long()]
+        x = torch.nn.functional.embedding(batch["tokens"].long(),
+                                          params["embed"])
     else:
         raise ValueError("batch needs 'tokens' or 'embeddings'")
     if cfg.embed_scale:
@@ -353,7 +359,17 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, *,
     layers."""
     logits, aux = _forward(params, cfg, batch, impl=impl, remat=remat,
                            remat_policy=remat_policy)
-    labels = batch["labels"].long()
+    loss, denom = cross_entropy(logits, batch["labels"])
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux_loss": aux,
+                   "tokens": denom.to(torch.float32)}
+
+
+def cross_entropy(logits, labels):
+    """Next-token cross entropy in fp32 of (B, L, V) logits against (B, L)
+    labels (label < 0 masks a position). Returns (mean loss, counted
+    tokens)."""
+    labels = labels.long()
     logits = logits[:, :-1].float()
     targets = labels[:, 1:]
     valid = targets >= 0
@@ -362,10 +378,7 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, *,
     picked = logits.gather(-1, tsafe[..., None])[..., 0]
     nll = torch.where(valid, lse - picked, 0.0)
     denom = torch.clamp(valid.sum(), min=1)
-    loss = nll.sum() / denom
-    total = loss + aux_weight * aux
-    return total, {"loss": loss, "aux_loss": aux,
-                   "tokens": denom.to(torch.float32)}
+    return nll.sum() / denom, denom
 
 
 # --------------------------------------------------------------- serving ---

@@ -5,7 +5,8 @@ Implementations (impl=):
             `swat_backward.py`, `swat_decode.py`). For CUDA tensors they
             launch the kernel or raise; for CPU tensors the wrappers run
             their plain versions. `swat_attention` goes through
-            `_SwatAttentionFn`, whose backward is the dQ and dK/dV kernels.
+            `swat_attention_lse` (`_SwatAttentionFn`), whose backward is the
+            dQ and dK/dV kernels.
             The default for CUDA tensors.
   banded  - the plain exact-band PyTorch version (twin of the JAX
             package's `_xla_banded`), differentiated by autograd. The
@@ -22,6 +23,13 @@ Global tokens (Longformer) are composed here as in the JAX package: the
 band+global-column pass covers every non-global row; a second dense pass
 over the first g rows replaces their output. Gradients flow through both
 passes.
+
+Context parallelism (`set_context_parallel`) is checked first in
+`swat_attention`, before the impl: an eligible call (a window spec without
+random blocks, Lq = Lkv divisible over the axis, shards of at least 128
+rows that hold the globals) runs `distributed/context_parallel.py`'s halo
+exchange on a single-process mesh, whose band pass is `swat_attention_lse`
+(the forward kernel with offsets on CUDA tensors).
 
 `prefill_chunk_attention` is a prefill chunk's attention against the ring
 cache: on the card the banded forward with offsets over the ring tail
@@ -72,28 +80,77 @@ def _resolve(impl: Optional[str], t: torch.Tensor) -> str:
 
 
 class _SwatAttentionFn(torch.autograd.Function):
-    """One banded-attention pass with a hand-written backward (the port of
+    """One banded pass with offsets and a hand-written backward (the port of
     the JAX package's `_pallas_attention` custom VJP). Forward: the banded
-    forward with its row LSE; q, k, v, O and the LSE are saved. Backward:
-    `swat_attention_bwd` (the dQ and dK/dV kernels on CUDA tensors, their
-    plain version on CPU tensors). spec, pattern and scale get no
+    forward with its row LSE, both returned; q, k, v, O and the LSE are
+    saved. Backward: `swat_attention_bwd` (the dQ and dK/dV kernels on CUDA
+    tensors, their plain version on CPU tensors), whose delta is
+    rowsum(dO * O) - dLSE where the caller differentiates the LSE (context
+    parallelism's merge). spec, pattern, scale and the offsets get no
     gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, spec, pattern, scale):
-        out, lse = fwd_mod.swat_attention_fwd(q, k, v, spec, pattern=pattern,
-                                              scale=scale, return_lse=True)
+    def forward(ctx, q, k, v, spec, pattern, scale, q_offset, kv_offset,
+                bound):
+        out, lse = fwd_mod.swat_attention_fwd(
+            q, k, v, spec, pattern=pattern, scale=scale, return_lse=True,
+            q_offset=q_offset, kv_offset=kv_offset, seq_kv_bound=bound)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.spec, ctx.pattern, ctx.scale = spec, pattern, scale
-        return out
+        ctx.args = (spec, pattern, scale, q_offset, kv_offset, bound)
+        ctx.set_materialize_grads(False)
+        return out, lse
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, dlse):
         q, k, v, out, lse = ctx.saved_tensors
+        spec, pattern, scale, q_offset, kv_offset, bound = ctx.args
         dq, dk, dv = bwd_mod.swat_attention_bwd(
-            q, k, v, out, lse, do, ctx.spec, pattern=ctx.pattern,
-            scale=ctx.scale)
-        return dq, dk, dv, None, None, None
+            q, k, v, out, lse, do, spec, pattern=pattern, scale=scale,
+            q_offset=q_offset, kv_offset=kv_offset, seq_kv_bound=bound,
+            dlse=dlse)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def swat_attention_lse(q, k, v, spec: AttentionSpec,
+                       pattern: patterns.BlockPattern, scale: float, *,
+                       q_offset: int = 0, kv_offset: int = 0,
+                       seq_kv_bound: Optional[int] = None):
+    """One banded pass with offsets, differentiable in its output O and its
+    fp32 row LSE: the forward kernel (#2) and the dQ and dK/dV kernels (#4,
+    #5) on CUDA tensors, their plain versions on CPU tensors. Returns
+    (O, LSE)."""
+    bound = kv_offset + k.shape[2] if seq_kv_bound is None else seq_kv_bound
+    return _SwatAttentionFn.apply(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), spec, pattern, scale,
+                                  int(q_offset), int(kv_offset), int(bound))
+
+
+# Context-parallel dispatch, set by the caller and not per call (the model
+# stack keeps its signature while the distribution changes underneath, as
+# in the JAX package)
+_CP_CTX: Optional[tuple] = None   # (mesh, axis) | None
+
+
+def set_context_parallel(mesh, axis: str = "model") -> None:
+    """Run every eligible `swat_attention` call context-parallel over
+    `axis` of `mesh` (None turns it off). The model passes whole sequences,
+    so the mesh is a single-process `launch.mesh.LocalMesh`; a process mesh
+    takes per-rank shards and is called through
+    `context_parallel.swat_attention_context_parallel` directly."""
+    global _CP_CTX
+    if mesh is not None and not mesh.one_graph:
+        raise TypeError(f"set_context_parallel: {mesh!r} takes per-rank "
+                        "shards; the model's attention needs a LocalMesh")
+    _CP_CTX = (mesh, axis) if mesh is not None else None
+
+
+def _cp_eligible(spec: AttentionSpec, lq: int, lkv: int) -> bool:
+    if _CP_CTX is None or not spec.is_sparse or spec.num_random:
+        return False
+    mesh, axis = _CP_CTX
+    n = mesh.shape[axis]
+    return (lq == lkv and lq % n == 0 and lq // n >= 128
+            and spec.num_global <= lq // n)
 
 
 def swat_attention(q, k, v, spec: AttentionSpec, *,
@@ -104,6 +161,12 @@ def swat_attention(q, k, v, spec: AttentionSpec, *,
     k, v: (B, Hkv, Lkv, D). Differentiable for every impl."""
     lq, lkv, d = q.shape[2], k.shape[2], q.shape[3]
     scale = float(d ** -0.5 if scale is None else scale)
+    if _cp_eligible(spec, lq, lkv):
+        from repro_torch.distributed import context_parallel as CP
+        mesh, axis = _CP_CTX
+        return CP.swat_attention_context_parallel(
+            q, k, v, spec, mesh=mesh, axis=axis, block_q=block_q,
+            block_kv=block_kv, scale=scale)
     impl = _resolve(impl, q)
     pat = get_pattern(spec, lq, lkv, block_q, block_kv)
     if impl == "ref":
@@ -111,7 +174,7 @@ def swat_attention(q, k, v, spec: AttentionSpec, *,
 
     def run(qq, sp, pp):
         if impl == "kernel":
-            return _SwatAttentionFn.apply(qq, k, v, sp, pp, scale)
+            return swat_attention_lse(qq, k, v, sp, pp, scale)[0]
         return fwd_mod.banded_plain(qq, k, v, sp, pp, scale)
 
     out = run(q, spec, pat)

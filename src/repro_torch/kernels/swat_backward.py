@@ -128,14 +128,17 @@ def _pad_rows(x, n: int):
 def swat_attention_bwd_plain(q, k, v, o, lse, do, spec: AttentionSpec,
                              pattern: patterns.BlockPattern, scale: float,
                              q_offset: int = 0, kv_offset: int = 0,
-                             seq_kv_bound: Optional[int] = None):
+                             seq_kv_bound: Optional[int] = None,
+                             dlse=None):
     """Plain PyTorch version: dQ, dK and dV written out explicitly (no
     autograd) from the kv blocks `banded_plain` gathers, in fp32. Per
     visible pair: p = exp(s - lse), dp = dO.V^T, ds = p (dp - delta) times
     the softcap chain 1 - t^2, dq = ds.K scale, dk = ds^T.Q scale,
     dv = p^T.dO; dK/dV are scattered back to their kv rows with index_add_
     (summing the GQA group and every q block that gathered the row).
-    Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    delta = rowsum(dO * O), less `dlse` (B, Hq, Lq) where the row LSE is an
+    output too (dLSE/ds = p). Returns (dq, dk, dv) in q's, k's and v's
+    dtypes."""
     b, hq, lq, d = q.shape
     _, hkv, lkv, _ = k.shape
     group = hq // hkv
@@ -143,7 +146,7 @@ def swat_attention_bwd_plain(q, k, v, o, lse, do, spec: AttentionSpec,
     bq, bk = pattern.block_q, pattern.block_kv
     nq, ns = pattern.num_q_blocks, pattern.num_slots
     lq_pad, lkv_pad = nq * bq, pattern.num_kv_blocks * bk
-    delta = (do.float() * o.float()).sum(-1)
+    delta = _delta(o, do, dlse)
     flat, mask = fwd_mod.slot_mask(spec, pattern, q.device,
                                    q_offset=q_offset, kv_offset=kv_offset,
                                    bound=bound)
@@ -180,6 +183,12 @@ def swat_attention_bwd_plain(q, k, v, o, lse, do, spec: AttentionSpec,
     dq = dq.reshape(b, hq, lq_pad, d)[:, :, :lq]
     return (dq.to(q.dtype), dk[:, :, :lkv].to(k.dtype),
             dv[:, :, :lkv].to(v.dtype))
+
+
+def _delta(o, do, dlse=None):
+    """rowsum(dO * O) in fp32, less the row LSE's cotangent when given."""
+    delta = (do.float() * o.float()).sum(-1)
+    return delta if dlse is None else delta - dlse.float()
 
 
 @functools.lru_cache(maxsize=256)
@@ -397,12 +406,14 @@ def swat_attention_bwd(q, k, v, o, lse, do, spec: AttentionSpec, *,
                        pattern: patterns.BlockPattern,
                        scale: Optional[float] = None,
                        q_offset: int = 0, kv_offset: int = 0,
-                       seq_kv_bound: Optional[int] = None):
+                       seq_kv_bound: Optional[int] = None, dlse=None):
     """Returns (dq, dk, dv). q, o, do: (B, Hq, Lq, D); k, v: (B, Hkv, Lkv,
     D); lse: the forward's fp32 row LSE (B, Hq, Lq). Offsets: global token
-    coordinates, as in the forward call. For CUDA tensors delta =
-    rowsum(dO * O) is computed here in plain torch (as the JAX wrapper does
-    outside its kernels), then the dQ kernel and the dK/dV kernel run."""
+    coordinates, as in the forward call. dlse: the cotangent of the LSE
+    where the caller differentiates it (context parallelism's merge), or
+    None. For CUDA tensors delta = rowsum(dO * O) - dlse is computed here in
+    plain torch (as the JAX wrapper does outside its kernels), then the dQ
+    kernel and the dK/dV kernel run."""
     d = q.shape[3]
     lkv = k.shape[2]
     scale = float(d ** -0.5 if scale is None else scale)
@@ -411,12 +422,12 @@ def swat_attention_bwd(q, k, v, o, lse, do, spec: AttentionSpec, *,
         return swat_attention_bwd_plain(q, k, v, o, lse, do, spec, pattern,
                                         scale, q_offset=q_offset,
                                         kv_offset=kv_offset,
-                                        seq_kv_bound=bound)
+                                        seq_kv_bound=bound, dlse=dlse)
     if q.device.type != "cuda":
         raise ValueError(f"swat_attention_bwd: no kernel for {q.device}")
     do = do.contiguous()
     _check(q, k, v, o, lse, do, pattern)
-    delta = (do.float() * o.float()).sum(-1)
+    delta = _delta(o, do, dlse).contiguous()
     kw = dict(q_offset=q_offset, kv_offset=kv_offset, bound=bound)
     dq = launch_dq(q, k, v, do, lse, delta, spec, pattern, scale, **kw)
     dk, dv = launch_dkv(q, k, v, do, lse, delta, spec, pattern, scale, **kw)

@@ -1,0 +1,286 @@
+"""Meshes: the port of the JAX package's `launch/mesh.py`, and the two kinds
+of mesh the distributed modules run on.
+
+Axis names and shapes are the JAX package's:
+  single pod  (16, 16)     = 256 ranks, axes (data, model);
+  multi-pod   (2, 16, 16)  = 512 ranks, axes (pod, data, model);
+  pipeline    (n, 16/n, 16) axes (pipe, data, model), and (2, n, 16/n, 16)
+              with "pod" first across pods;
+  debug       (2, 2) (data, model), (2, 2) (pipe, data); `parse_mesh` reads
+              the launchers' "DxM" flags ("4x1", "2x2", "2x2x2").
+
+Both kinds answer one small interface, per axis: `shape[axis]`,
+`axis_names`, `index(axis)`, `shift` (JAX's ppermute by one position),
+`psum`, `pmax`, `replicated` and `sum_out`. The distributed modules write
+their per-shard code over LISTS of shards, the mesh's local shards of one
+axis in axis order:
+
+  ProcessMesh - a `torch.distributed.device_mesh.DeviceMesh` over an
+                initialised process group, one shard per rank: every list
+                has one entry, and the collectives are `batch_isend_irecv`
+                (shift) and `all_reduce` (psum, pmax) on the axis's group.
+                Every rank must run the same program: the same collectives
+                in the same order, forward and backward, with the same
+                tensors requiring grad.
+  LocalMesh   - n shards of one axis in ONE process, on one device (the
+                counterpart of the forced host devices on which the JAX
+                package runs its meshes in tests and examples). The lists
+                hold all n shards; the shift moves them along the list with
+                zeros at the edge and the reductions sum or max over them,
+                in one thread and one autograd graph. A multi-axis
+                LocalMesh keeps its shape and names, but an op over one
+                axis runs that axis's shards only: the shards of the other
+                axes would be replicas of the same work in one process.
+
+Gradients are JAX's transposes: the shift's is the opposite shift; psum's is
+the psum of the cotangents (the objective is the sum of what every shard
+computes); `replicated` (a value every shard reads, JAX's replicated
+in_spec) sums its cotangents over the axis; `sum_out` (a per-shard
+contribution summed into one replicated result, JAX's psum under
+out_specs=P()) passes each shard's cotangent back once. pmax has none (the
+JAX package takes it of a stop_gradient'd max).
+
+Defined as functions, so importing this module touches no device and no
+process group.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+Shards = List[torch.Tensor]
+
+PRODUCTION_SHAPE = (16, 16)
+MULTI_POD_SHAPE = (2, 16, 16)
+
+
+# ------------------------------------------------------ single process ----
+
+class LocalMesh:
+    """n shards per axis in one process and one autograd graph."""
+
+    one_graph = True
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+        if len(shape) != len(axis_names) or min(shape) < 1:
+            raise ValueError(f"mesh shape {shape} vs axes {axis_names}")
+        self.shape: Dict[str, int] = dict(zip(axis_names, shape))
+        self.axis_names = axis_names
+
+    def __repr__(self) -> str:
+        return f"LocalMesh({self.shape})"
+
+    def index(self, axis: str) -> List[int]:
+        return list(range(self.shape[axis]))
+
+    def shard(self, x: torch.Tensor, axis: str, dim: int) -> Shards:
+        """The local shards of a global tensor split evenly along `dim`."""
+        n = self.shape[axis]
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                             f"over {axis}={n}")
+        return list(torch.chunk(x, n, dim=dim))
+
+    def shift(self, xs: Shards, axis: str, direction: int = +1) -> Shards:
+        """Shard i receives shard i - direction; shards with no sender get
+        zeros."""
+        n = self.shape[axis]
+        return [xs[i - direction] if 0 <= i - direction < n
+                else torch.zeros_like(xs[i]) for i in range(n)]
+
+    def psum(self, xs: Shards, axis: str) -> Shards:
+        total = xs[0]
+        for x in xs[1:]:
+            total = total + x
+        return [total] * len(xs)
+
+    def pmax(self, xs: Shards, axis: str) -> Shards:
+        top = xs[0].detach()
+        for x in xs[1:]:
+            top = torch.maximum(top, x.detach())
+        return [top] * len(xs)
+
+    def replicated(self, x: torch.Tensor, axis: str) -> Shards:
+        return [x] * self.shape[axis]
+
+    def sum_out(self, xs: Shards, axis: str) -> torch.Tensor:
+        return self.psum(xs, axis)[0]
+
+
+# ------------------------------------------------------- process group ----
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, direction):
+        ctx.mesh, ctx.axis, ctx.direction = mesh, axis, direction
+        return mesh._p2p(x, axis, direction)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._p2p(g, ctx.axis, -ctx.direction), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum over the axis; backward: `grad_sum` decides whether the
+    cotangents are summed too (psum, replicated) or passed back (sum_out)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, fwd_sum, grad_sum):
+        ctx.mesh, ctx.axis, ctx.grad_sum = mesh, axis, grad_sum
+        return mesh._all_reduce(x, axis) if fwd_sum else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad_sum:
+            g = ctx.mesh._all_reduce(g, ctx.axis)
+        return g, None, None, None, None
+
+
+class ProcessMesh:
+    """One shard per rank of a `DeviceMesh`."""
+
+    one_graph = False
+
+    def __init__(self, device_mesh):
+        self.device_mesh = device_mesh
+        self.axis_names: Tuple[str, ...] = tuple(device_mesh.mesh_dim_names)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names,
+                                              device_mesh.shape))
+
+    def __repr__(self) -> str:
+        return f"ProcessMesh({self.shape})"
+
+    def _group(self, axis: str):
+        return self.device_mesh.get_group(axis)
+
+    def index(self, axis: str) -> List[int]:
+        return [self.device_mesh.get_local_rank(axis)]
+
+    def shard(self, x: torch.Tensor, axis: str, dim: int) -> Shards:
+        """This rank's shard of a global tensor split evenly along `dim`."""
+        n = self.shape[axis]
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                             f"over {axis}={n}")
+        return [torch.chunk(x, n, dim=dim)[self.index(axis)[0]]]
+
+    def _p2p(self, x: torch.Tensor, axis: str, direction: int):
+        import torch.distributed as dist
+        n, i = self.shape[axis], self.index(axis)[0]
+        x = x.contiguous()
+        out = torch.zeros_like(x)
+        if n == 1:
+            return out
+        group = self._group(axis)
+        ops = []
+        if 0 <= i + direction < n:
+            ops.append(dist.P2POp(dist.isend, x, dist.get_global_rank(
+                group, i + direction), group))
+        if 0 <= i - direction < n:
+            ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(
+                group, i - direction), group))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return out
+
+    def _all_reduce(self, x: torch.Tensor, axis: str, op=None):
+        import torch.distributed as dist
+        y = x.detach().clone().contiguous()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM if op is None else op,
+                        group=self._group(axis))
+        return y
+
+    def shift(self, xs: Shards, axis: str, direction: int = +1) -> Shards:
+        return [_Shift.apply(xs[0], self, axis, direction)]
+
+    def psum(self, xs: Shards, axis: str) -> Shards:
+        return [_AllReduce.apply(xs[0], self, axis, True, True)]
+
+    def pmax(self, xs: Shards, axis: str) -> Shards:
+        import torch.distributed as dist
+        return [self._all_reduce(xs[0], axis, dist.ReduceOp.MAX)]
+
+    def replicated(self, x: torch.Tensor, axis: str) -> Shards:
+        return [_AllReduce.apply(x, self, axis, False, True)]
+
+    def sum_out(self, xs: Shards, axis: str) -> torch.Tensor:
+        return _AllReduce.apply(xs[0], self, axis, True, False)
+
+
+# ----------------------------------------------------------- builders -----
+
+def _build(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
+           process: bool, device_type: str = "cuda"):
+    """A LocalMesh, or with `process` a ProcessMesh over the initialised
+    default process group, whose world size must be the mesh's size."""
+    if not process:
+        return LocalMesh(shape, axes)
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    size = 1
+    for s in shape:
+        size *= s
+    world = dist.get_world_size() if dist.is_initialized() else None
+    if world != size:
+        raise RuntimeError(
+            f"a {shape} mesh {axes} needs a process group of {size} ranks; "
+            + ("none is initialised" if world is None
+               else f"this one has {world}"))
+    return ProcessMesh(init_device_mesh(device_type, shape,
+                                        mesh_dim_names=axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> ProcessMesh:
+    """(16, 16) (data, model), or (2, 16, 16) (pod, data, model) across two
+    pods, over a process group of exactly that many ranks."""
+    shape = MULTI_POD_SHAPE if multi_pod else PRODUCTION_SHAPE
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _build(shape, axes, process=True, device_type=device_type)
+
+
+def make_pp_mesh(*, num_stages: int = 4, multi_pod: bool = False,
+                 device_type: str = "cuda") -> ProcessMesh:
+    """Pipeline-parallel production mesh: the "pipe" axis takes ranks from
+    "data". Single pod (n, 16/n, 16); multi-pod keeps the stages inside a
+    pod, (2, n, 16/n, 16)."""
+    if 16 % num_stages:
+        raise ValueError(f"{num_stages} stages do not divide 16")
+    if multi_pod:
+        return _build((2, num_stages, 16 // num_stages, 16),
+                      ("pod", "pipe", "data", "model"), process=True,
+                      device_type=device_type)
+    return _build((num_stages, 16 // num_stages, 16),
+                  ("pipe", "data", "model"), process=True,
+                  device_type=device_type)
+
+
+def parse_mesh(spec: str, *, process: bool = False,
+               device_type: str = "cuda"):
+    """A mesh from a "DxM" launcher flag: "4x1" = 4-way data (slot)
+    parallel, "2x2" = data x model, "2x2x2" = pod x data x model."""
+    dims = tuple(int(x) for x in spec.lower().replace("×", "x").split("x"))
+    if not dims or min(dims) < 1 or len(dims) > 3:
+        raise ValueError(f"mesh spec {spec!r}")
+    axes = {1: ("data",), 2: ("data", "model"),
+            3: ("pod", "data", "model")}[len(dims)]
+    return _build(dims, axes, process=process, device_type=device_type)
+
+
+def make_debug_mesh(n_data: int = 2, n_model: int = 2, *,
+                    process: bool = False, device_type: str = "cuda"):
+    """Small (data, model) mesh for tests and examples."""
+    return _build((n_data, n_model), ("data", "model"), process=process,
+                  device_type=device_type)
+
+
+def make_debug_pp_mesh(n_pipe: int = 2, n_data: int = 2, *,
+                       process: bool = False, device_type: str = "cuda"):
+    return _build((n_pipe, n_data), ("pipe", "data"), process=process,
+                  device_type=device_type)
+
+
+def batch_axes(mesh) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -65,12 +65,16 @@ def global_norm(grads) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: OptState, cfg: AdamWConfig):
+def apply_updates(params, grads, state: OptState, cfg: AdamWConfig,
+                  gnorm: Optional[torch.Tensor] = None):
     """One AdamW step. Returns (params, state, {"grad_norm", "lr"}): params
     and the moments are the given tensors, updated in place; the step is a
-    new tensor. Weight decay applies to leaves with ndim >= 2."""
+    new tensor. Weight decay applies to leaves with ndim >= 2. `gnorm`: the
+    clipping norm where `grads` holds only part of the model (a pipeline
+    stage's), else the global norm of `grads`."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step)
     stepf = step.to(torch.float32)

@@ -32,7 +32,9 @@ PORT_MODULES = [
     "repro_torch.analysis", "repro_torch.analysis.collectives",
     "repro_torch.analysis.tracer", "repro_torch.analysis.rules",
     "repro_torch.analysis.report", "repro_torch.analysis.baselines",
-    "repro_torch.launch.analyze",
+    "repro_torch.launch.analyze", "repro_torch.launch.mesh",
+    "repro_torch.distributed.context_parallel",
+    "repro_torch.distributed.pipeline",
 ]
 
 
