@@ -241,9 +241,28 @@ each of which raises on failure:
                kernel launched 4x the plain step's count; the bubble
                fraction. (d) a one-rank NCCL process group and DeviceMesh:
                one CP op and its gradients through the process mesh
-               against a single-process mesh. Then one AdamW step each
+               against a single-process mesh, its psum and pmax issued
+               to NCCL as all_reduce calls. Then one AdamW step each
                through CP and the pipeline, and #2 / #4 / #5 timed on a
                CP shard's band pass at (b)'s shape.
+ 28. mesh    - (run after phase 27) serving on a mesh, on phase 3's cell
+               (llama3.2-1b + SWAT, bf16, params from seed 0, 8 requests,
+               4 slots, prompt 512, 64 new tokens, graphs): (a) a 4x1
+               slot-parallel LocalMesh, two runs with tokens bitwise phase
+               3's, kernel #1 16 layers x 4 shards a decode step and no
+               plain decode launch, #2 twice a layer and shard a prefill
+               batch; (b) 2x2 and 1x4 TP (per shard 16 q / 4 kv heads and
+               d_ff 4096, or 8 q / 2 kv and 2048, vocab-parallel head):
+               prefill and first decode step logits against the
+               single-device engine within LOGIT_BOUND, greedy agreement at
+               least AGREE_BOUND, every budget exact, two runs bitwise, the
+               same launch counts per shard; (c) the paged layout on the 4x1
+               mesh's slot-local pool, tokens bitwise (a)'s; (d) a one-rank
+               NCCL ProcessMesh (1x1), tokens bitwise phase 3's, the
+               plan's psums and logit gathers issued to NCCL (all_reduce
+               and all_gather calls, inside the captured graphs; none
+               crosses a wire on one rank). Decode ms a step of each beside
+               the single-device engine's.
  12. plain decode - the plain-mode decode kernel (the fused kernel's
                cluster split without the insert) against its plain version,
                bf16 and fp32, both GQA layouts, two launches bitwise equal,
@@ -1865,8 +1884,9 @@ def process_mesh_cp(torch):
     """(d): a one-rank NCCL process group and its DeviceMesh on the card;
     one CP op (and its gradients) through the process mesh, bitwise equal
     to the same op on a single-process mesh of the same shape. With one
-    rank the shift has no neighbour and sends nothing: only the psum and
-    pmax reach NCCL."""
+    rank the shift has no neighbour and sends nothing: the psum and pmax
+    reach NCCL as all_reduce calls on the one-rank group, and the run fails
+    unless some did."""
     import dataclasses
     import datetime
     import tempfile
@@ -1903,13 +1923,13 @@ def process_mesh_cp(torch):
     finally:
         dist.destroy_process_group()
     want = run(ML.make_debug_mesh(1, 1))
-    out = {"mesh": repr(pm), "backend": backend,
+    out = {"mesh": repr(pm), "backend": backend, "collectives": pm.calls,
            "bitwise": all(torch.equal(a, b) for a, b in zip(got, want))}
     for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
         out[f"{name}_err"] = check_close(f"process mesh cp {name}", a, b,
                                          "bfloat16")
     log("process mesh cp (one-rank NCCL group): " + json.dumps(out))
-    if not out["bitwise"]:
+    if not out["bitwise"] or not pm.calls["all_reduce"]:
         raise AssertionError(f"process mesh cp vs single-process mesh: {out}")
     return out
 
@@ -1958,6 +1978,223 @@ def context_pipeline(torch, cfg, state, card):
     log(f"phase 27 ({card}): " + json.dumps(
         {k: res[k] for k in ("adamw_steps", "phase_s")}))
     return res
+
+
+# ------------------------------------------------------------ phase 28 ---
+
+# phase 28's meshes: slot-parallel, and TP at two widths (per shard 16 q / 4
+# kv heads and d_ff 4096 at 2x2, 8 q / 2 kv and 2048 at 1x4)
+MESH_TP = ("2x2", "1x4")
+
+
+def _mesh_run(torch, eng, prompts, where):
+    """Phase 3's requests through `eng` once: tokens, the launch counts of
+    this run (zeroed just before, read just after), the run's decode steps,
+    prefill batches and decode ms a step. Every request meets its budget
+    and no engine steps down."""
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_decode as SD
+    from repro_torch.serving.engine import Request
+    st = eng.stats
+    s0, b0, d0 = st["decode_steps"], st["prefill_batches"], st["decode_s"]
+    torch.cuda.synchronize()
+    SD.LAUNCHES.reset()
+    SD.PLAIN_LAUNCHES.reset()
+    SA.LAUNCHES.reset()
+    before = route_counts()
+    res = eng.run([Request(rid=i, prompt=p, max_new_tokens=MAIN["new_tokens"])
+                   for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    launches = {"swat_decode": SD.LAUNCHES.n,
+                "swat_decode_plain": SD.PLAIN_LAUNCHES.n,
+                "swat_attention_fwd": SA.LAUNCHES.n}
+    check_route(where, before, "fwd", "tc", n=SA.LAUNCHES.n)
+    no_step_down(eng, where)
+    for r in res:
+        if r.status != "ok" or len(r.tokens) != MAIN["new_tokens"]:
+            raise AssertionError(f"{where} request {r.rid}: {r.status}, "
+                                 f"{len(r.tokens)} tokens")
+    steps = st["decode_steps"] - s0
+    return {"tokens": [r.tokens for r in res], "launches": launches,
+            "decode_steps": steps,
+            "prefill_batches": st["prefill_batches"] - b0,
+            "decode_ms_per_step": (st["decode_s"] - d0) * 1e3 / steps}
+
+
+def _mesh_launch_gate(run, layers, shards, where):
+    """Kernel #1 once per layer, shard and decode step, no plain decode
+    launch; kernel #2's band and global-row passes once per layer and shard
+    a prefill batch."""
+    want = {"swat_decode": layers * shards * run["decode_steps"],
+            "swat_decode_plain": 0,
+            "swat_attention_fwd": 2 * layers * shards
+            * run["prefill_batches"]}
+    if run["launches"] != want:
+        raise AssertionError(f"{where} launches {run['launches']}, expected "
+                             f"{want} ({shards} shards)")
+
+
+def _first_logits(torch, eng, prompts):
+    """The engine's prefill logits of four prompts as one batch, and its
+    first decode step's logits after admitting them."""
+    import collections
+    from repro_torch.serving.engine import Request
+    tok = torch.as_tensor(__import__("numpy").stack(prompts[:4]),
+                          device="cuda")
+    lens = torch.full((4,), MAIN["prompt"], dtype=torch.int32, device="cuda")
+    pre = eng.prefill_logits(tok, lens)[0].clone()
+    eng._admit(collections.deque(
+        Request(rid=i, prompt=p, max_new_tokens=MAIN["new_tokens"])
+        for i, p in enumerate(prompts[:4])))
+    eng._stage()
+    step = eng._model_step(eng._dev["tok"][:, None])[:, 0]
+    return torch.cat([pre, step])
+
+
+def serve_mesh(torch, cfg, tokens, card):
+    """Phase 28: serving on a mesh, on phase 3's cell (llama3.2-1b + SWAT,
+    bf16, params from seed 0, 8 requests, 4 slots, graphs). (a) a 4x1
+    slot-parallel LocalMesh: tokens bitwise phase 3's single-device tokens,
+    kernel #1 16 layers x 4 shards a decode step; (b) 2x2 and 1x4 TP: the
+    shards' head and d_ff widths, prefill and first-step logits against the
+    single-device engine's within LOGIT_BOUND with greedy agreement at
+    least AGREE_BOUND, every budget exact, two runs bitwise, #1 and #2 per
+    shard; (c) the paged layout on the 4x1 mesh's slot-local pool: tokens
+    bitwise (a)'s; (d) a one-rank NCCL ProcessMesh (1x1): tokens bitwise
+    phase 3's, the plan's psums (all_reduce) and logit gathers (all_gather)
+    issued to NCCL on the one-rank groups, inside the captured decode
+    graphs (none crosses a wire: the mesh has one rank). Decode ms a step
+    of each beside the single-device engine's (graphs, second runs)."""
+    import datetime
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core import model as Mod
+    from repro_torch.launch import mesh as ML
+    from repro_torch.serving.engine import ServingEngine
+    t0 = time.perf_counter()
+    params = Mod.init_model(cfg, seed=0, device="cuda")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, (MAIN["prompt"],))
+               .astype(np.int32) for _ in range(8)]
+    layers = cfg.num_layers
+
+    def engine(mesh=None, **kw):
+        return ServingEngine(cfg, params, batch_slots=MAIN["b"],
+                             max_len=MAIN["max_len"], scan_steps=8,
+                             mesh=mesh, **kw)
+
+    out = {}
+    base = engine()
+    _mesh_run(torch, base, prompts, "phase 28 single-device")
+    single = _mesh_run(torch, base, prompts, "phase 28 single-device")
+    if single["tokens"] != tokens:
+        raise AssertionError("phase 28: the single-device engine's tokens "
+                             "differ from phase 3's")
+    out["single_device_decode_ms_per_step"] = single["decode_ms_per_step"]
+    base_logits = _first_logits(torch, engine(), prompts)
+    del base
+
+    # (a) slot-parallel, and (c) its paged twin
+    for key, kw in (("4x1", {}), ("4x1_paged", {"kv_layout": "paged"})):
+        eng = engine(ML.LocalMesh((4, 1), ("data", "model")), **kw)
+        runs = [_mesh_run(torch, eng, prompts, f"phase 28 {key}")
+                for _ in range(2)]
+        for r in runs:
+            _mesh_launch_gate(r, layers, 4, f"phase 28 {key}")
+        want = tokens if key == "4x1" else out["4x1"]["tokens"]
+        bitwise = [r["tokens"] == want for r in runs]
+        out[key] = {"tokens": runs[1]["tokens"], "bitwise": bitwise,
+                    "launches": runs[1]["launches"],
+                    "decode_steps": runs[1]["decode_steps"],
+                    "decode_ms_per_step": runs[1]["decode_ms_per_step"],
+                    "slot_quantum": eng.scheduler.slot_quantum,
+                    "graphs_captured": len(eng._compiled.captured),
+                    "replays": eng._compiled.replays}
+        del eng
+        if not all(bitwise):
+            raise AssertionError(f"phase 28 {key}: tokens not bitwise "
+                                 f"{'phase 3' if key == '4x1' else '4x1'}'s "
+                                 f"({bitwise})")
+
+    # (b) tensor parallelism
+    for key in MESH_TP:
+        dm, mm = (int(x) for x in key.split("x"))
+        mesh = ML.LocalMesh((dm, mm), ("data", "model"))
+        lg = _first_logits(torch, engine(mesh), prompts)
+        err = max_err(lg, base_logits)
+        agree = float((lg.argmax(-1) == base_logits.argmax(-1)).float()
+                      .mean())
+        eng = engine(mesh)
+        shard = eng.shard_params[-1]["blocks"][0]["l0"]
+        widths = {"q_heads": shard["mixer"]["wq"].shape[1] // MAIN["d"],
+                  "kv_heads": eng.shard_caches[-1][0]["l0"]["k"].shape[1],
+                  "d_ff": shard["mlp"]["w1"].shape[1],
+                  "vocab": eng.shard_params[-1]["embed"].shape[0]}
+        want_w = {"q_heads": MAIN["hq"] // mm, "kv_heads": MAIN["hkv"] // mm,
+                  "d_ff": cfg.d_ff // mm, "vocab": cfg.vocab_size // mm}
+        runs = [_mesh_run(torch, eng, prompts, f"phase 28 {key}")
+                for _ in range(2)]
+        for r in runs:
+            _mesh_launch_gate(r, layers, dm * mm, f"phase 28 {key}")
+        out[key] = {"max_abs_logit_err": err, "greedy_agreement": agree,
+                    "shard_widths": widths,
+                    "plan": {k: v for k, v in eng._mp.describe().items()
+                             if k != "slot_axes"},
+                    "two_runs_bitwise": runs[0]["tokens"] == runs[1]["tokens"],
+                    "agreement_with_single_device": float(np.mean(
+                        np.asarray(runs[1]["tokens"]) == np.asarray(tokens))),
+                    "launches": runs[1]["launches"],
+                    "decode_ms_per_step": runs[1]["decode_ms_per_step"]}
+        del eng
+        if widths != want_w or not all(
+                out[key]["plan"]["attention_tp"].values()):
+            raise AssertionError(f"phase 28 {key}: shard widths {widths} "
+                                 f"(expected {want_w}), plan "
+                                 f"{out[key]['plan']}")
+        if err > LOGIT_BOUND or agree < AGREE_BOUND:
+            raise AssertionError(f"phase 28 {key}: logits vs single-device "
+                                 f"max |d| {err} (limit {LOGIT_BOUND}), "
+                                 f"greedy agreement {agree} (limit "
+                                 f"{AGREE_BOUND})")
+        if not out[key]["two_runs_bitwise"]:
+            raise AssertionError(f"phase 28 {key}: two runs differ")
+
+    # (d) a one-rank NCCL process mesh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg28_")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        pm = ML.parse_mesh("1x1", process=True, device_type="cuda")
+        eng = engine(pm)
+        runs = [_mesh_run(torch, eng, prompts, "phase 28 1x1 process")
+                for _ in range(2)]
+        backend = dist.get_backend(pm.device_mesh.get_group("model"))
+        del eng
+    finally:
+        dist.destroy_process_group()
+    for r in runs:
+        _mesh_launch_gate(r, layers, 1, "phase 28 1x1 process")
+    out["1x1_process"] = {
+        "backend": backend, "collectives": pm.calls,
+        "wire_collectives": pm.wire_ops,
+        "bitwise": [r["tokens"] == tokens for r in runs],
+        "decode_ms_per_step": runs[1]["decode_ms_per_step"]}
+    if (not all(out["1x1_process"]["bitwise"]) or pm.wire_ops
+            or not pm.calls["all_reduce"] or not pm.calls["all_gather"]):
+        raise AssertionError(f"phase 28 1x1 process mesh: "
+                             f"{out['1x1_process']}")
+    for key in ("4x1", "4x1_paged"):
+        out[key].pop("tokens")
+    out["decode_ms_per_step"] = {
+        k: out[k]["decode_ms_per_step"] for k in
+        ("4x1", "4x1_paged") + MESH_TP + ("1x1_process",)}
+    out["decode_ms_per_step"]["single_device"] = single["decode_ms_per_step"]
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 28 decode ms a step ({card}): "
+        + json.dumps(out["decode_ms_per_step"]))
+    return out
 
 
 # ------------------------------------------------------------ phase 12 ---
@@ -3171,12 +3408,13 @@ def _run_requests(torch, eng, reqs):
 def _chunk_buffer_mb(eng):
     """The persistent chunked-prefill set's size (caches, logits, tokens,
     lengths), MiB; 0 before the engine's first chunked batch."""
-    buf = eng._chunk_buf
-    if buf is None:
+    if eng._chunk_buf is None:
         return 0.0
-    leaves = [t for blk in buf["caches"] for layer in blk.values()
-              for t in layer.values()]
-    leaves += [buf[k] for k in ("last", "tok", "lens")]
+    leaves = []
+    for buf in eng._chunk_buf:
+        leaves += [t for blk in buf["caches"] for layer in blk.values()
+                   for t in layer.values()]
+        leaves += [buf[k] for k in ("last", "tok", "lens")]
     return sum(t.numel() * t.element_size() for t in leaves) / 2 ** 20
 
 
@@ -5288,6 +5526,8 @@ def main():
     # phase 27: context parallelism and the pipeline, on phase 8's params
     cp27 = context_pipeline(torch, cfg, tr_state, card)
     del tr_state
+    # phase 28: serving on a mesh, on phase 3's cell
+    mesh28 = serve_mesh(torch, cfg, tokens, card)
     tr_e2e = train_end_to_end(torch, cfg)
     resume = resume_drill(torch)
 
@@ -5468,6 +5708,7 @@ def main():
     log(f"mamba2 and jamba (phase 25; {card}): {json.dumps(mamba25)}")
     log(f"context parallelism and pipeline (phase 27; {card}): "
         f"{json.dumps(cp27)}")
+    log(f"serving on a mesh (phase 28; {card}): {json.dumps(mesh28)}")
     log(f"e2e: {json.dumps(e2e)}")
     log(f"trace: {json.dumps(trace)}")
     log(f"unembed: {json.dumps(unembed)}")

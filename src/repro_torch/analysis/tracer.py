@@ -488,13 +488,13 @@ def engine_entry_points(engine, *, batch_sizes: Optional[Sequence[int]] = None,
             inputs=(("tokens", tok), ("lengths", lens)), tags=base,
             **common))
         if Mod.prefill_chunkable(cfg):
-            buf = dict(engine._chunk_rows(n))
+            buf = dict(engine._chunk_rows(n)[0])
             if buf["tok"].shape[1] < chunk_len:
                 # an engine without prefill_chunk never runs chunks: the
                 # entry stages its chunk tokens in a buffer of its own
                 buf["tok"] = torch.zeros((n, chunk_len), dtype=torch.long,
                                          device=dev)
-            body = functools.partial(engine._chunk_body, buf, chunk_len,
+            body = functools.partial(engine._chunk_body, [buf], chunk_len,
                                      chunk_len)
             points.append(EntryPoint(
                 name=f"prefill_chunk[n={n},c={chunk_len}]",
@@ -590,7 +590,7 @@ def _decode_carries(engine, spec: bool) -> Dict[str, torch.Tensor]:
 
 
 def _chunk_carries(engine) -> Dict[str, torch.Tensor]:
-    buf = engine._chunk_buf
+    buf = engine._chunk_buf[0]
     out = _cache_leaves(buf["caches"], "chunk.caches")
     out.update({f"chunk.{k}": buf[k] for k in ("last", "tok", "lens")})
     return out

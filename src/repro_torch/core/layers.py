@@ -255,20 +255,36 @@ def paged_num_blocks(cfg: AttentionLayerCfg, max_len: int,
 
 def init_paged_kv_cache(cfg: AttentionLayerCfg, batch: int, max_len: int,
                         dtype=torch.bfloat16, lookahead: int = 0,
-                        device=None):
-    """Paged twin of `init_kv_cache`, in the shared global-id pool layout
-    (the JAX package's shared_pool=True). Tables start at the identity
-    mapping (slot s owns its home blocks), so a fresh paged cache gathers
-    to exactly `init_kv_cache`'s zeros."""
+                        device=None, shared_pool: bool = True):
+    """Paged twin of `init_kv_cache`. shared_pool: the global-id pool
+    (batch*(nb+1), Hkv, page, D), block sharing possible; else the
+    slot-local pool (batch, nb+1, Hkv, page, D) whose tables hold each
+    slot's own block ids in [0, nb] (the layout a mesh shards over its
+    slot axes). Tables start at the identity mapping (slot s owns its home
+    blocks), so a fresh paged cache gathers to exactly `init_kv_cache`'s
+    zeros."""
     nb = paged_num_blocks(cfg, max_len, lookahead)
     nbp = nb + 1                                   # + per-slot scratch block
-    shape = (batch * nbp, cfg.num_kv_heads, PAGE_SIZE, cfg.head_dim)
+    hd = (cfg.num_kv_heads, PAGE_SIZE, cfg.head_dim)
+    shape = (batch * nbp,) + hd if shared_pool else (batch, nbp) + hd
     table = (torch.arange(batch, dtype=torch.int32, device=device)[:, None]
-             * nbp + torch.arange(nb, dtype=torch.int32, device=device))
+             * (nbp if shared_pool else 0)
+             + torch.arange(nb, dtype=torch.int32, device=device))
     return {"pk": torch.zeros(shape, dtype=dtype, device=device),
             "pv": torch.zeros(shape, dtype=dtype, device=device),
             "table": table,
             "step": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def _global_ids(pool: torch.Tensor, table: torch.Tensor):
+    """(the pool as (P, H, page, D), the table as global block ids): a
+    slot-local pool (B, nb+1, H, page, D) is addressed as one flat pool
+    with slot s's local id i at s*(nb+1) + i."""
+    if pool.dim() == 4:
+        return pool, table
+    b, nbp = pool.shape[:2]
+    rows = torch.arange(b, dtype=table.dtype, device=table.device)
+    return pool.view(b * nbp, *pool.shape[2:]), table + rows[:, None] * nbp
 
 
 def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -277,6 +293,7 @@ def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     contiguous as the decode kernel requires. Records the gather-view
     fallback for the static analyzer (`swat_decode.record_paged_fallback`,
     host-only)."""
+    pool, table = _global_ids(pool, table)
     b, nb = table.shape
     p, h, page, d = pool.shape
     swat_decode.record_paged_fallback(
@@ -294,11 +311,12 @@ def paged_scatter(pool: torch.Tensor, table: torch.Tensor,
     IN PLACE. Duplicate table entries (shared prefix blocks, parked slots'
     scratch rows) receive value-identical or never-read writes, so the
     order the duplicates land in is immaterial. Returns `pool`."""
+    flat, table = _global_ids(pool, table)
     b, nb = table.shape
-    p, h, page, d = pool.shape
+    p, h, page, d = flat.shape
     blocks = view.reshape(b, h, nb, page, d).transpose(1, 2)
-    pool.view(p, -1).index_copy_(0, table.reshape(-1).long(),
-                                 blocks.reshape(b * nb, -1).to(pool.dtype))
+    flat.view(p, -1).index_copy_(0, table.reshape(-1).long(),
+                                 blocks.reshape(b * nb, -1).to(flat.dtype))
     return pool
 
 
@@ -357,7 +375,8 @@ def prefill_kv_cache(cfg: AttentionLayerCfg, k, v, max_len: int,
 
 def attention_decode(params: Params, cfg: AttentionLayerCfg, x, cache, *,
                      impl: Optional[str] = None, lookahead: int = 0,
-                     rope=None, num_new=None, step_in_place: bool = False):
+                     rope=None, num_new=None, step_in_place: bool = False,
+                     split_rings: Optional[int] = None):
     """T-token decode. x: (B, T, Dm). The ring insert (at each slot's own
     `step`) and the window attention run in one `decode_attention` call —
     the fused CUDA kernel on the card. `rope` (tables of `rope_tables` at
@@ -368,7 +387,8 @@ def attention_decode(params: Params, cfg: AttentionLayerCfg, x, cache, *,
     tensors, or pk/pv pools, and step) and returns (out (B, T, Dm),
     cache). The step advances by T: into a new tensor by default, or in
     the given tensor's storage with `step_in_place` (`model.decode_step`,
-    whose caches keep their storage for CUDA graph replay)."""
+    whose caches keep their storage for CUDA graph replay). `split_rings`:
+    the decode kernel's split plan (`ops.decode_attention`)."""
     b, t, _ = x.shape
     q, k_new, v_new = _project_qkv(params, cfg, x, x)
     step = cache["step"]
@@ -397,7 +417,8 @@ def attention_decode(params: Params, cfg: AttentionLayerCfg, x, cache, *,
                          "lookahead >= T-1")
     out, _, _ = kops.decode_attention(
         q, k_arr, v_arr, None, cfg.spec, impl=impl,
-        new_kv=(k_new, v_new), num_new=num_new, pos=step, ring_cap=cap)
+        new_kv=(k_new, v_new), num_new=num_new, pos=step, ring_cap=cap,
+        split_rings=split_rings)
     if paged:
         paged_scatter(cache["pk"], cache["table"], k_arr)
         paged_scatter(cache["pv"], cache["table"], v_arr)

@@ -385,20 +385,22 @@ def cross_entropy(logits, labels):
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 enc_len: int = 0, lookahead: int = 0, paged: bool = False,
-                device="cuda") -> Caches:
+                device="cuda", shared_pool: bool = True) -> Caches:
     """Per-super-block decode caches (zeroed rings, step 0); "xattn" layers
     also get zeroed cross K/V ("xk", "xv") of max(enc_len, 1) rows. With
     `paged`, each attention layer holds block pools and a table
     (`layers.init_paged_kv_cache`) instead of a ring; every layer
     position's `table` is ONE tensor shared by reference by all
     super-blocks (the JAX package broadcasts one table over the stacked
-    axis), so a host push updates it once. Identity tables make a fresh
+    axis), so a host push updates it once; `shared_pool` False gives the
+    slot-local pools a mesh shards. Identity tables make a fresh
     paged cache gather-equal to a fresh contiguous one. A mamba layer holds
     `ssm.init_mamba_cache`'s zeroed conv window and SSM state in both
     layouts."""
     _check_supported(cfg)
     dt = _dtype(cfg)
-    init = L.init_paged_kv_cache if paged else L.init_kv_cache
+    init = (functools.partial(L.init_paged_kv_cache, shared_pool=shared_pool)
+            if paged else L.init_kv_cache)
     tables: Dict[int, torch.Tensor] = {}
 
     def layer(i, kind):
@@ -444,9 +446,63 @@ def paged_layout(cfg: ModelConfig, max_len: int,
     return out
 
 
+class OneDevice:
+    """The compute plan of one device: one coordinate that holds every
+    param and cache whole, and no collective. `decode_step`,
+    `prefill_chunk` and `prefill` run each layer over lists with one entry
+    per local coordinate of a plan, through these hooks; a mesh's plan
+    (`distributed.tensor_parallel.MeshPlan`) answers the same ones for its
+    shards, with the collectives where its tables split a weight, a cache
+    or the heads."""
+
+    def embed(self, ps, cfg: ModelConfig, batches):
+        return [embed_tokens(p, cfg, b) for p, b in zip(ps, batches)]
+
+    def unembed(self, ps, cfg: ModelConfig, xs):
+        return [_unembed(p, cfg, x) for p, x in zip(ps, xs)]
+
+    def mixer(self, ps, sb: int, i: int):
+        """Per coordinate, the mixer params of layer i of super-block sb."""
+        return [p["blocks"][sb][f"l{i}"]["mixer"] for p in ps]
+
+    def attn_cfg(self, cfg: ModelConfig, kind: str, i: int):
+        """The attention layer's config at the coordinates' head counts."""
+        return attn_cfg(cfg, kind, index=i)
+
+    def split_rings(self, acfg) -> Optional[int]:
+        """The decode kernel's split plan (`ops.decode_attention`)."""
+        return None
+
+    def cache_views(self, caches, sb: int, i: int):
+        """(per coordinate, the decode cache of layer i of super-block sb;
+        whether the caller writes the views back with `write_back`)."""
+        return [c[sb][f"l{i}"] for c in caches], False
+
+    def write_back(self, caches, sb: int, i: int, views) -> None:
+        pass
+
+    def attn_out(self, i: int, ys):
+        """The attention outputs' reduction over the heads' shards."""
+        return ys
+
+    def ffn(self, ps, cfg: ModelConfig, sb: int, i: int, xs):
+        return [_ffn(p["blocks"][sb][f"l{i}"], cfg, x) for p, x in zip(ps, xs)]
+
+
+ONE_DEVICE = OneDevice()
+
+
+def _coords(params, batch, caches, plan):
+    """(params, batches, caches, plan) as lists over the plan's local
+    coordinates: with no plan, one device's, each a list of one."""
+    if plan is None:
+        return [params], [batch], [caches], ONE_DEVICE
+    return params, batch, caches, plan
+
+
 @torch.no_grad()
 def decode_step(params: Params, cfg: ModelConfig, batch, caches: Caches, *,
-                impl: Optional[str] = None, lookahead: int = 0):
+                impl: Optional[str] = None, lookahead: int = 0, plan=None):
     """T tokens for every sequence (usually T=1). batch: {"tokens": (B, T)}
     (or {"embeddings": (B, T, Dm)}). Per-slot cache steps: rows may sit at
     different positions. T > 1 needs caches allocated with lookahead >=
@@ -461,50 +517,70 @@ def decode_step(params: Params, cfg: ModelConfig, batch, caches: Caches, *,
     before any layer writes its cache: in a hybrid stack mamba layers run
     before the first attention layer, and the step must fail as a whole,
     as the JAX engine's does at trace time. Returns (logits (B, T, V)
-    fp32, caches)."""
+    fp32, caches).
+
+    plan: a mesh's compute plan (`OneDevice`'s hooks); params, batch and
+    caches are then lists with one entry per local coordinate, and so are
+    the logits returned."""
     _check_supported(cfg)
-    x = embed_tokens(params, cfg, batch)
-    b, t = x.shape[:2]
+    one = plan is None
+    ps, bs, cs, plan = _coords(params, batch, caches, plan)
+    xs = plan.embed(ps, cfg, bs)
+    t = xs[0].shape[1]
     attn = [i for i, k in enumerate(cfg.layer_pattern) if not _is_mamba(k)]
     if t > 1 and len(attn) < len(cfg.layer_pattern):
         raise ValueError(f"{cfg.name}: a {t}-token decode step; mamba layers "
                          "update their state one token at a time")
-    if attn and (impl or kops.default_impl(x)) == "kernel":
+    if attn and (impl or kops.default_impl(xs[0])) == "kernel":
         swat_decode.check_force_fail()
     # every attention layer's cache advances together, so the rope tables
     # at step + arange(T), the per-slot row count and the encoder length
     # are the same for all layers: build them once per step (each is
     # several launches) from the first attention layer's cache
-    first = caches[0][f"l{attn[0]}"] if attn else {}
-    rope = None
-    if cfg.use_rope and attn:
-        step = first["step"]
-        pos = step.long()[:, None, None] + torch.arange(t, device=step.device)
-        rope = L.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
-    num_new = torch.full((b,), t, dtype=torch.int32, device=x.device)
-    enc_len = (torch.full((b,), first["xk"].shape[2], dtype=torch.int32,
-                          device=x.device) if "xk" in first else None)
-    for blk, blk_cache in zip(params["blocks"], caches):
+    ropes, nums, encs = [], [], []
+    for x, c in zip(xs, cs):
+        first = c[0][f"l{attn[0]}"] if attn else {}
+        rope = None
+        if cfg.use_rope and attn:
+            step = first["step"]
+            pos = (step.long()[:, None, None]
+                   + torch.arange(t, device=step.device))
+            rope = L.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
+        b = x.shape[0]
+        ropes.append(rope)
+        nums.append(torch.full((b,), t, dtype=torch.int32, device=x.device))
+        encs.append(torch.full((b,), first["xk"].shape[2], dtype=torch.int32,
+                               device=x.device) if "xk" in first else None)
+    for sb in range(len(ps[0]["blocks"])):
         for i, kind in enumerate(cfg.layer_pattern):
-            p, cache = blk[f"l{i}"], blk_cache[f"l{i}"]
-            h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+            lps = [p["blocks"][sb][f"l{i}"] for p in ps]
+            hs = [L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+                  for p, x in zip(lps, xs)]
+            ws = plan.mixer(ps, sb, i)
+            views, gathered = plan.cache_views(cs, sb, i)
             if _is_mamba(kind):
-                y, _ = S.mamba_decode(p["mixer"], h, cache, cfg.ssm)
+                ys = [S.mamba_decode(w, h, v, cfg.ssm)[0]
+                      for w, h, v in zip(ws, hs, views)]
             else:
-                y, _ = L.attention_decode(p["mixer"],
-                                          attn_cfg(cfg, kind, index=i), h,
-                                          cache, impl=impl,
-                                          lookahead=lookahead, rope=rope,
-                                          num_new=num_new,
-                                          step_in_place=True)
-            x = x + y
+                acfg = plan.attn_cfg(cfg, kind, i)
+                ys = plan.attn_out(i, [
+                    L.attention_decode(w, acfg, h, v, impl=impl,
+                                       lookahead=lookahead, rope=r,
+                                       num_new=n, step_in_place=True,
+                                       split_rings=plan.split_rings(acfg))[0]
+                    for w, h, v, r, n in zip(ws, hs, views, ropes, nums)])
+            if gathered:
+                plan.write_back(cs, sb, i, views)
+            xs = [x + y for x, y in zip(xs, ys)]
             if kind == "xattn":
-                h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
-                x = x + L.cross_attention_decode(
-                    p["cross"], attn_cfg(cfg, kind, cross=True), h, cache,
-                    enc_len, impl=impl)
-            x = _ffn(p, cfg, x)
-    return _unembed(params, cfg, x), caches
+                for k, (p, x) in enumerate(zip(lps, xs)):
+                    h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
+                    xs[k] = x + L.cross_attention_decode(
+                        p["cross"], attn_cfg(cfg, kind, cross=True), h,
+                        views[k], encs[k], impl=impl)
+            xs = plan.ffn(ps, cfg, sb, i, xs)
+    logits = plan.unembed(ps, cfg, xs)
+    return (logits[0] if one else logits), caches
 
 
 def prefill_chunkable(cfg: ModelConfig) -> bool:
@@ -528,38 +604,46 @@ def speculative_supported(cfg: ModelConfig) -> bool:
 @torch.no_grad()
 def prefill_chunk(params: Params, cfg: ModelConfig, batch, caches: Caches,
                   pos0: int, lengths, *, impl: Optional[str] = None,
-                  lookahead: int = 0) -> torch.Tensor:
+                  lookahead: int = 0, plan=None) -> torch.Tensor:
     """One lockstep chunk of a batched chunked prefill: tokens [pos0,
     pos0+T) of every row through the stack against the ring caches, which
     take the chunk's K/V IN PLACE. Equal to single-shot `prefill` on the
     band, with per-layer scores of O(T * (cap + T)). lengths: (B,) real
     prompt lengths. Returns the hidden states (B, T, Dm): unembedding is
     the caller's, which gathers the one last-real-token row per sequence
-    first. Runs without autograd."""
+    first. Runs without autograd. plan: as `decode_step`'s (lengths is
+    then a list too; a mesh plan's caches are its plan-local chunk
+    caches)."""
     if not prefill_chunkable(cfg):
         raise ValueError(f"{cfg.name}: prefill chunks need rotary "
                          f"attention-only layers, not {cfg.layer_pattern}")
     _check_supported(cfg)
-    x = embed_tokens(params, cfg, batch)
-    t = x.shape[1]
+    one = plan is None
+    ps, bs, cs, plan = _coords(params, batch, caches, plan)
+    lens = [lengths] if one else lengths
+    xs = plan.embed(ps, cfg, bs)
+    t = xs[0].shape[1]
     # every layer shares the chunk's positions: one set of rope tables
-    pos = pos0 + torch.arange(t, device=x.device)
+    pos = pos0 + torch.arange(t, device=xs[0].device)
     rope = L.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
-    for blk, blk_cache in zip(params["blocks"], caches):
+    for sb in range(len(ps[0]["blocks"])):
         for i, kind in enumerate(cfg.layer_pattern):
-            p = blk[f"l{i}"]
-            h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-            y, _ = L.attention_prefill_chunk(
-                p["mixer"], attn_cfg(cfg, kind, index=i), h,
-                blk_cache[f"l{i}"], pos0, lengths, impl=impl,
-                lookahead=lookahead, rope=rope)
-            x = _ffn(p, cfg, x + y)
-    return x
+            hs = [L.rmsnorm(p["blocks"][sb][f"l{i}"]["norm1"], x,
+                            cfg.norm_eps) for p, x in zip(ps, xs)]
+            acfg = plan.attn_cfg(cfg, kind, i)
+            ys = plan.attn_out(i, [
+                L.attention_prefill_chunk(w, acfg, h, c[sb][f"l{i}"], pos0,
+                                          n, impl=impl, lookahead=lookahead,
+                                          rope=rope)[0]
+                for w, h, c, n in zip(plan.mixer(ps, sb, i), hs, cs, lens)])
+            xs = plan.ffn(ps, cfg, sb, i, [x + y for x, y in zip(xs, ys)])
+    return xs[0] if one else xs
 
 
 @torch.no_grad()
 def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
-            impl: Optional[str] = None, lengths=None, lookahead: int = 0):
+            impl: Optional[str] = None, lengths=None, lookahead: int = 0,
+            plan=None):
     """Run the prompt, return (last-position logits (B, 1, V), primed
     caches). lengths: optional (B,) real prompt lengths of a right-padded
     batch — per-row cache steps, and logits gathered at each row's last
@@ -568,49 +652,69 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
     "xattn" layer stores the encoder's cross K/V in its cache ("xk",
     "xv"); they take no `lengths`, as in the JAX package. A mamba layer
     keeps its final conv window and SSM state (`_mamba_prefill_cache`).
-    Runs without autograd."""
+    Runs without autograd. plan: as `decode_step`'s (lengths is then a
+    list too; a mesh plan's caches come back in its plan-local layout)."""
     _check_supported(cfg)
     if lengths is not None and cfg.encoder_decoder:
         raise ValueError("padded prefill: decoder-only models")
-    enc_out = (encode(params, cfg, batch, impl=impl)
+    one = plan is None
+    ps, bs, _, plan = _coords(params, batch, None, plan)
+    lens = [lengths] if one else lengths
+    # a mesh plan refuses encoder-decoder configs: the encoder is one
+    # device's
+    enc_out = (encode(ps[0], cfg, bs[0], impl=impl)
                if cfg.encoder_decoder else None)
-    x = embed_tokens(params, cfg, batch)
-    b, l, _ = x.shape
-    caches: Caches = []
-    for blk in params["blocks"]:
-        new_caches = {}
+    xs = plan.embed(ps, cfg, bs)
+    caches: List[Caches] = [[] for _ in xs]
+    for sb in range(len(ps[0]["blocks"])):
+        new = [{} for _ in xs]
         for i, kind in enumerate(cfg.layer_pattern):
-            p = blk[f"l{i}"]
-            h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+            lps = [p["blocks"][sb][f"l{i}"] for p in ps]
+            hs = [L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+                  for p, x in zip(lps, xs)]
+            ys = []
             if _is_mamba(kind):
-                m = S.mamba_inputs(p["mixer"], h, cfg.ssm)
-                y = S.mamba_block(p["mixer"], h, cfg.ssm,
-                                  chunk=cfg.ssm.chunk_size, inputs=m)
-                cache = _mamba_prefill_cache(p["mixer"], h, cfg,
-                                             lengths=lengths, inputs=m)
+                for k, (w, h, n) in enumerate(zip(plan.mixer(ps, sb, i), hs,
+                                                  lens)):
+                    m = S.mamba_inputs(w, h, cfg.ssm)
+                    ys.append(S.mamba_block(w, h, cfg.ssm,
+                                            chunk=cfg.ssm.chunk_size,
+                                            inputs=m))
+                    new[k][f"l{i}"] = _mamba_prefill_cache(
+                        w, h, cfg, lengths=n, inputs=m)
             else:
-                acfg = attn_cfg(cfg, kind, index=i)
-                y, k, v = L.attention_layer(p["mixer"], acfg, h, impl=impl,
-                                            return_kv=True)
-                cache = L.prefill_kv_cache(acfg, k, v, max_len,
-                                           lengths=lengths,
-                                           lookahead=lookahead)
-            x = x + y
+                acfg = plan.attn_cfg(cfg, kind, i)
+                for k, (w, h, n) in enumerate(zip(plan.mixer(ps, sb, i), hs,
+                                                  lens)):
+                    y, kk, vv = L.attention_layer(w, acfg, h, impl=impl,
+                                                  return_kv=True)
+                    ys.append(y)
+                    new[k][f"l{i}"] = L.prefill_kv_cache(
+                        acfg, kk, vv, max_len, lengths=n,
+                        lookahead=lookahead)
+                ys = plan.attn_out(i, ys)
+            xs = [x + y for x, y in zip(xs, ys)]
             if kind == "xattn":
-                h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
-                y, cache["xk"], cache["xv"] = L.attention_layer(
-                    p["cross"], attn_cfg(cfg, kind, cross=True), h,
-                    kv_x=enc_out, impl=impl, return_kv=True)
-                x = x + y
-            new_caches[f"l{i}"] = cache
-            x = _ffn(p, cfg, x)
-        caches.append(new_caches)
-    if lengths is None:
-        last = x[:, -1:]
-    else:
-        idx = torch.clamp(lengths.to(x.device).long() - 1, 0, l - 1)
-        last = x[torch.arange(b, device=x.device), idx][:, None]
-    return _unembed(params, cfg, last), caches
+                for k, (p, x) in enumerate(zip(lps, xs)):
+                    cache = new[k][f"l{i}"]
+                    h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
+                    y, cache["xk"], cache["xv"] = L.attention_layer(
+                        p["cross"], attn_cfg(cfg, kind, cross=True), h,
+                        kv_x=enc_out, impl=impl, return_kv=True)
+                    xs[k] = x + y
+            xs = plan.ffn(ps, cfg, sb, i, xs)
+        for c, n in zip(caches, new):
+            c.append(n)
+    lasts = []
+    for x, n in zip(xs, lens):
+        if n is None:
+            lasts.append(x[:, -1:])
+            continue
+        b, l, _ = x.shape
+        idx = torch.clamp(n.to(x.device).long() - 1, 0, l - 1)
+        lasts.append(x[torch.arange(b, device=x.device), idx][:, None])
+    logits = plan.unembed(ps, cfg, lasts)
+    return (logits[0], caches[0]) if one else (logits, caches)
 
 
 def _mamba_prefill_cache(p: Params, h, cfg: ModelConfig, lengths=None,

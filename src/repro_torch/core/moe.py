@@ -107,7 +107,7 @@ def moe_ffn(params: Params, x: torch.Tensor, spec: MoESpec, *,
     probs, gates, ids = _route(params, xf, k)
     aux = _aux_loss(probs, ids, e, k) if return_aux else None
     if dispatch == "dense":
-        out = _dense_combine(params, xf, gates, ids, e)
+        out = dense_partial(params, xf, gates, ids, e).to(x.dtype)
         return out.reshape(b, l, d), aux
 
     # "sort" (and "ep" without a mesh): capacity dispatch
@@ -138,17 +138,23 @@ def moe_ffn(params: Params, x: torch.Tensor, spec: MoESpec, *,
     return out.to(x.dtype).reshape(b, l, d), aux
 
 
-def _dense_combine(params: Params, xf, gates, ids, e: int) -> torch.Tensor:
-    """Every expert on every token, combined by the (T, E) gate matrix:
-    built in fp32, cast to the expert outputs' dtype and combined in it,
-    then cast to xf's dtype (the JAX package's rounding points)."""
+def dense_partial(params: Params, xf, gates, ids, e: int,
+                  lo: int = 0) -> torch.Tensor:
+    """The "dense" dispatch: every expert on every token, combined by the
+    (T, E) gate matrix, built in fp32, cast to the expert outputs' dtype
+    and combined in it; the caller casts the (T, D) result to xf's dtype
+    (the JAX package's rounding points). `params` may hold only experts
+    [lo, lo + E_local) of the e (the router whole): the result is then
+    their share, and the shares of every slice summed (one psum over a
+    mesh axis that splits the experts) give the whole."""
     t = xf.shape[0]
     full_gates = torch.zeros((t, e), dtype=torch.float32,
                              device=xf.device).scatter(1, ids, gates)
     y = _experts(params, xf)                                    # (E, T, D)
-    out = torch.bmm(full_gates.to(y.dtype)[:, None, :],
-                    y.transpose(0, 1))[:, 0]
-    return out.to(xf.dtype)
+    if y.shape[0] != e:
+        full_gates = full_gates[:, lo:lo + y.shape[0]]
+    return torch.bmm(full_gates.to(y.dtype)[:, None, :],
+                     y.transpose(0, 1))[:, 0]
 
 
 def moe_ffn_dense_ref(params: Params, x: torch.Tensor,

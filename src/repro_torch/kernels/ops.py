@@ -199,7 +199,8 @@ def _per_slot(x, b: int, device) -> torch.Tensor:
 def decode_attention(q, k_cache, v_cache, cache_len, spec: AttentionSpec, *,
                      scale: Optional[float] = None, impl: Optional[str] = None,
                      new_kv=None, num_new=None, pos=None,
-                     ring_cap: Optional[int] = None):
+                     ring_cap: Optional[int] = None,
+                     split_rings: Optional[int] = None):
     """Decode T >= 1 tokens vs a (ring) KV cache. q: (B, Hq, T, D); caches
     (B, Hkv, W, D). cache_len / pos / num_new are per-slot (scalar, (B,) or
     (B,1,1,1)). `ring_cap` is the LOGICAL rotation modulus (defaults to the
@@ -220,7 +221,9 @@ def decode_attention(q, k_cache, v_cache, cache_len, spec: AttentionSpec, *,
       `pos` (required) counts tokens BEFORE the insert; `num_new`
       optionally limits how many of the T rows are real per slot. Returns
       (out, k_cache, v_cache): the caches are the given tensors, updated
-      IN PLACE for every impl (where the JAX engine donated them)."""
+      IN PLACE for every impl (where the JAX engine donated them).
+      `split_rings` plans the kernel's split for that many rings
+      (`swat_decode.swat_decode_fused`); the plain versions have none."""
     b, _, t, _ = q.shape
     w_phys = k_cache.shape[2]
     cap = w_phys if ring_cap is None else int(ring_cap)
@@ -278,7 +281,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, spec: AttentionSpec, *,
     if impl == "kernel":
         out = dec_mod.swat_decode_fused(q.contiguous(), k_cache, v_cache,
                                         k_new, v_new, pos, nn, spec,
-                                        ring_cap=cap, scale=scale)
+                                        ring_cap=cap, scale=scale,
+                                        split_rings=split_rings)
         return out, k_cache, v_cache
     out, kn, vn = dec_mod.swat_decode_fused_plain(
         q, k_cache, v_cache, k_new, v_new, pos, nn, spec, ring_cap=cap,

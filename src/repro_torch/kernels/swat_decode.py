@@ -190,11 +190,16 @@ def fused_splits(n_heads: int, cap: int, sms: int) -> Tuple[int, int]:
 
 def swat_decode_fused(q, k_cache, v_cache, new_k, new_v, pos, num_new,
                       spec: AttentionSpec, *, ring_cap: Optional[int] = None,
-                      scale: Optional[float] = None) -> torch.Tensor:
+                      scale: Optional[float] = None,
+                      split_rings: Optional[int] = None) -> torch.Tensor:
     """q: (B, Hq, T, D); caches: (B, Hkv, W, D), updated in place;
     new_k/new_v: (B, Hkv, T, D) in the cache dtype; pos/num_new: int32
     (B,). Returns out (B, Hq, T, D). Rows j >= num_new are neither written
-    nor attendable, and their outputs are garbage the caller discards."""
+    nor attendable, and their outputs are garbage the caller discards.
+    split_rings: the ring count the split is planned for (`fused_splits`;
+    default B x Hkv). A mesh shard passes its whole engine's, so that it
+    cuts each ring where the single-device engine does: the split is the
+    order of the softmax merge, and so a bit of every output."""
     check_force_fail()
     cap, g, window = _ring_geometry(spec, k_cache.shape[2], ring_cap)
     scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
@@ -210,7 +215,8 @@ def swat_decode_fused(q, k_cache, v_cache, new_k, new_v, pos, num_new,
     _check(q, k_cache, v_cache, new_k, new_v, pos, num_new, cap, g)
     b, hq, t, d = q.shape
     hkv, w = k_cache.shape[1], k_cache.shape[2]
-    chunk, nsplit = fused_splits(b * hkv, cap, _num_sms(q.device))
+    chunk, nsplit = fused_splits(split_rings or b * hkv, cap,
+                                 _num_sms(q.device))
     if KP.census_enabled():
         # the geometry the kernel runs with (the JAX package records its
         # block_kv and pad fallback here)

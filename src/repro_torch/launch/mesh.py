@@ -10,10 +10,12 @@ Axis names and shapes are the JAX package's:
               the launchers' "DxM" flags ("4x1", "2x2", "2x2x2").
 
 Both kinds answer one small interface, per axis: `shape[axis]`,
-`axis_names`, `index(axis)`, `shift` (JAX's ppermute by one position),
-`psum`, `pmax`, `replicated` and `sum_out`. The distributed modules write
-their per-shard code over LISTS of shards, the mesh's local shards of one
-axis in axis order:
+`axis_names`, `index(axis)`, `coords()`, `shift` (JAX's ppermute by one
+position), `psum`, `pmax`, `all_gather`, `replicated` and `sum_out`. The
+distributed modules write their per-shard code over LISTS of shards: the
+mesh's local shards of one axis in axis order, or the local shards of the
+whole grid in `coords()` order (row-major over the axes), where an op over
+one axis runs within each line of the other axes:
 
   ProcessMesh - a `torch.distributed.device_mesh.DeviceMesh` over an
                 initialised process group, one shard per rank: every list
@@ -22,15 +24,13 @@ axis in axis order:
                 Every rank must run the same program: the same collectives
                 in the same order, forward and backward, with the same
                 tensors requiring grad.
-  LocalMesh   - n shards of one axis in ONE process, on one device (the
-                counterpart of the forced host devices on which the JAX
-                package runs its meshes in tests and examples). The lists
-                hold all n shards; the shift moves them along the list with
-                zeros at the edge and the reductions sum or max over them,
-                in one thread and one autograd graph. A multi-axis
-                LocalMesh keeps its shape and names, but an op over one
-                axis runs that axis's shards only: the shards of the other
-                axes would be replicas of the same work in one process.
+  LocalMesh   - every shard of the grid in ONE process, on one device
+                (the counterpart of the forced host devices on which the
+                JAX package runs its meshes in tests and examples). A list
+                of one axis's n shards, or of the whole grid's shards; the
+                shift moves them along each line with zeros at the edge,
+                the reductions sum or max over each line and the gather
+                concatenates it, in one thread and one autograd graph.
 
 Gradients are JAX's transposes: the shift's is the opposite shift; psum's is
 the psum of the cotangents (the objective is the sum of what every shard
@@ -40,11 +40,19 @@ contribution summed into one replicated result, JAX's psum under
 out_specs=P()) passes each shard's cotangent back once. pmax has none (the
 JAX package takes it of a stop_gradient'd max).
 
+A ProcessMesh issues every collective it is asked for, over an axis of
+size 1 too (a one-rank group: NCCL or gloo runs it and nothing crosses a
+wire; the shift alone sends nothing, having no neighbour), and counts them
+as Python issues them: `calls` by kind, and `wire_ops` for those over an
+axis of more than one rank (a captured CUDA graph's replays run its
+collectives again uncounted).
+
 Defined as functions, so importing this module touches no device and no
 process group.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -72,8 +80,20 @@ class LocalMesh:
     def __repr__(self) -> str:
         return f"LocalMesh({self.shape})"
 
+    @property
+    def size(self) -> int:
+        n = 1
+        for a in self.axis_names:
+            n *= self.shape[a]
+        return n
+
     def index(self, axis: str) -> List[int]:
         return list(range(self.shape[axis]))
+
+    def coords(self) -> List[Dict[str, int]]:
+        """Every coordinate of the grid, row-major ({axis: index})."""
+        return [dict(zip(self.axis_names, c)) for c in itertools.product(
+            *(range(self.shape[a]) for a in self.axis_names))]
 
     def shard(self, x: torch.Tensor, axis: str, dim: int) -> Shards:
         """The local shards of a global tensor split evenly along `dim`."""
@@ -83,24 +103,60 @@ class LocalMesh:
                              f"over {axis}={n}")
         return list(torch.chunk(x, n, dim=dim))
 
+    def _lines(self, xs: Shards, axis: str) -> List[List[int]]:
+        """Positions in `xs` of each line along `axis`: one line when xs
+        holds one axis's shards, else one per coordinate of the others."""
+        n = self.shape[axis]
+        if len(xs) == n:
+            return [list(range(n))]
+        if len(xs) != self.size:
+            raise ValueError(f"{len(xs)} shards on a {self.shape} mesh")
+        stride = 1
+        for a in reversed(self.axis_names):
+            if a == axis:
+                break
+            stride *= self.shape[a]
+        return [[base + i * stride for i in range(n)]
+                for base in range(len(xs))
+                if (base // stride) % n == 0]
+
+    def _per_line(self, xs: Shards, axis: str, fn) -> Shards:
+        out = list(xs)
+        for line in self._lines(xs, axis):
+            for pos, y in zip(line, fn([xs[p] for p in line])):
+                out[pos] = y
+        return out
+
     def shift(self, xs: Shards, axis: str, direction: int = +1) -> Shards:
         """Shard i receives shard i - direction; shards with no sender get
         zeros."""
-        n = self.shape[axis]
-        return [xs[i - direction] if 0 <= i - direction < n
-                else torch.zeros_like(xs[i]) for i in range(n)]
+        def line(ys):
+            n = len(ys)
+            return [ys[i - direction] if 0 <= i - direction < n
+                    else torch.zeros_like(ys[i]) for i in range(n)]
+        return self._per_line(xs, axis, line)
 
     def psum(self, xs: Shards, axis: str) -> Shards:
-        total = xs[0]
-        for x in xs[1:]:
-            total = total + x
-        return [total] * len(xs)
+        def line(ys):
+            total = ys[0]
+            for y in ys[1:]:
+                total = total + y
+            return [total] * len(ys)
+        return self._per_line(xs, axis, line)
 
     def pmax(self, xs: Shards, axis: str) -> Shards:
-        top = xs[0].detach()
-        for x in xs[1:]:
-            top = torch.maximum(top, x.detach())
-        return [top] * len(xs)
+        def line(ys):
+            top = ys[0].detach()
+            for y in ys[1:]:
+                top = torch.maximum(top, y.detach())
+            return [top] * len(ys)
+        return self._per_line(xs, axis, line)
+
+    def all_gather(self, xs: Shards, axis: str, dim: int) -> Shards:
+        """Each shard receives its line's shards concatenated along dim, in
+        axis order."""
+        return self._per_line(
+            xs, axis, lambda ys: [torch.cat(ys, dim=dim)] * len(ys))
 
     def replicated(self, x: torch.Tensor, axis: str) -> Shards:
         return [x] * self.shape[axis]
@@ -148,6 +204,10 @@ class ProcessMesh:
         self.axis_names: Tuple[str, ...] = tuple(device_mesh.mesh_dim_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
                                               device_mesh.shape))
+        # collectives issued, by kind; those over an axis of size > 1
+        self.calls: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
+                                      "p2p": 0}
+        self.wire_ops = 0
 
     def __repr__(self) -> str:
         return f"ProcessMesh({self.shape})"
@@ -155,8 +215,16 @@ class ProcessMesh:
     def _group(self, axis: str):
         return self.device_mesh.get_group(axis)
 
+    def _count(self, kind: str, axis: str) -> None:
+        self.calls[kind] += 1
+        self.wire_ops += self.shape[axis] > 1
+
     def index(self, axis: str) -> List[int]:
         return [self.device_mesh.get_local_rank(axis)]
+
+    def coords(self) -> List[Dict[str, int]]:
+        """This rank's coordinate."""
+        return [{a: self.index(a)[0] for a in self.axis_names}]
 
     def shard(self, x: torch.Tensor, axis: str, dim: int) -> Shards:
         """This rank's shard of a global tensor split evenly along `dim`."""
@@ -173,6 +241,7 @@ class ProcessMesh:
         out = torch.zeros_like(x)
         if n == 1:
             return out
+        self._count("p2p", axis)
         group = self._group(axis)
         ops = []
         if 0 <= i + direction < n:
@@ -188,9 +257,21 @@ class ProcessMesh:
     def _all_reduce(self, x: torch.Tensor, axis: str, op=None):
         import torch.distributed as dist
         y = x.detach().clone().contiguous()
+        self._count("all_reduce", axis)
         dist.all_reduce(y, op=dist.ReduceOp.SUM if op is None else op,
                         group=self._group(axis))
         return y
+
+    def all_gather(self, xs: Shards, axis: str, dim: int) -> Shards:
+        """The axis's shards concatenated along dim, in axis order (no
+        gradient)."""
+        import torch.distributed as dist
+        n = self.shape[axis]
+        self._count("all_gather", axis)
+        x = xs[0].detach().contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=self._group(axis))
+        return [torch.cat(parts, dim=dim)]
 
     def shift(self, xs: Shards, axis: str, direction: int = +1) -> Shards:
         return [_Shift.apply(xs[0], self, axis, direction)]

@@ -15,7 +15,11 @@ flags and defaults. `--decode-impl pallas` runs the fused decode kernel
 device picks (the kernel on the card). `--metrics` keeps the engine's
 device counters, `--trace-out` / `--metrics-out` write its Chrome trace
 and Prometheus text (`python -m repro_torch.launch.scope validate` checks
-them); every run prints its TTFT / TPOT percentiles. Resilience takes
+them); every run prints its TTFT / TPOT percentiles. `--mesh DxM` (with
+`--profile tp|cp|fsdp`) serves on a mesh (`ServingEngine(mesh=,
+profile=)`): a single-process LocalMesh of that shape on the one device,
+or, under `torchrun` (an initialised torch.distributed group, one rank a
+shard), a ProcessMesh; the run line names it ("2x2 mesh (tp)"). Resilience takes
 the JAX launcher's flags: `--max-pending` sheds requests beyond a queue
 depth, `--deadline` gives every request a deadline in seconds, and the
 chaos flags build a fault plan: `--chaos-poison-slot S` (with
@@ -26,20 +30,13 @@ degradation events and every request that did not end ok. Params are
 random, from the port's own `init_model` with seed 0. On a machine without
 a CUDA device the launcher exits non-zero; `--device cpu` runs the plain
 versions of the kernels instead (small configs: `--smoke`). Every JAX
-launcher flag is declared with the JAX launcher's default; `--mesh` exits
-non-zero with the ROADMAP item that will port it.
+launcher flag is declared with the JAX launcher's default.
 """
 import argparse
 import sys
 import time
 
 import numpy as np
-
-# JAX launcher flags whose features later slices port: dest -> (ROADMAP
-# item, whether the given value turns the feature on). The JAX launcher's
-# default turns nothing on. `--profile` only shapes a `--mesh`, so it is
-# ignored alone, as the JAX launcher ignores it.
-_NOT_PORTED = {"mesh": (13, lambda v: v is not None)}
 
 
 def main(argv=None) -> int:
@@ -98,10 +95,12 @@ def main(argv=None) -> int:
                          "prefix once and block-share it (paged, with "
                          "--prefill-chunk); demoed with a shared system "
                          "prompt across all requests")
-    # the JAX launcher's flags of later slices, with its defaults
-    ap.add_argument("--mesh", default=None, help="not ported")
+    ap.add_argument("--mesh", default=None,
+                    help="mesh 'DxM' (e.g. 2x2): sharded serving, a "
+                         "single-process mesh (one rank a shard under "
+                         "torchrun); default: single-device")
     ap.add_argument("--profile", choices=("tp", "cp", "fsdp"), default="tp",
-                    help="not ported (ignored without --mesh)")
+                    help="param sharding profile for --mesh")
     # resilience
     ap.add_argument("--max-pending", type=int, default=0,
                     help="reject requests beyond this queue depth (status "
@@ -131,15 +130,6 @@ def main(argv=None) -> int:
                     help="write the Prometheus text exposition to PATH "
                          "(implies --metrics)")
     args = ap.parse_args(argv)
-
-    used = [(f"--{n.replace('_', '-')}", item)
-            for n, (item, turns_on) in _NOT_PORTED.items()
-            if turns_on(getattr(args, n))]
-    if used:
-        for flag, item in used:
-            print(f"[serve] {flag}: not ported (ROADMAP item {item})",
-                  file=sys.stderr)
-        return 2
 
     import torch
 
@@ -180,7 +170,8 @@ def main(argv=None) -> int:
             spec_min_acceptance=args.spec_min_acceptance,
             kv_layout=args.kv_layout, share_prefix=args.share_prefix,
             decode_impl=args.decode_impl,
-            metrics=args.metrics or bool(args.metrics_out))
+            metrics=args.metrics or bool(args.metrics_out),
+            mesh=args.mesh, profile=args.profile)
     except ValueError as e:
         print(f"[serve] {e}", file=sys.stderr)
         return 2
@@ -219,10 +210,13 @@ def main(argv=None) -> int:
     # the engine's impl after the run: "ref" once it stepped down
     impl = engine.decode_impl or ("pallas" if engine.device.type == "cuda"
                                   else "ref")
+    mdesc = "single-device" if engine.mesh is None else (
+        "x".join(str(engine.mesh.shape[a]) for a in engine.mesh.axis_names)
+        + f" mesh ({args.profile})")
     print(f"[serve] {len(results)} requests / {n} tokens in {dt:.3f}s "
           f"({n / dt:.1f} tok/s; scan_steps={args.scan_steps}, "
           f"batch_prefill={args.batch_prefill}, "
-          f"prefill_chunk={engine.prefill_chunk}{spec}, "
+          f"prefill_chunk={engine.prefill_chunk}{spec}, {mdesc}, "
           f"decode_impl={impl}, kv_layout={args.kv_layout}; {where})")
     print(f"[serve] prefill {st['prefill_batches']} batches in "
           f"{st['prefill_s'] * 1e3:.1f}ms; decode {st['decode_steps']} steps "

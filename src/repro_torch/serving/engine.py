@@ -78,8 +78,22 @@ out of a decode or verify block switches the engine to the plain decode
 version for good, counted in `stats["kernel_fallbacks"]`, put on the
 event bus and warned once. A failure armed after a key was captured does
 not raise: its replays run no Python (as a JAX jit-cache hit is not
-traced again). Meshes are not ported (ROADMAP item 13) and raise
-NotImplementedError at construction.
+traced again).
+
+Meshes (`mesh=`, `profile=`; the JAX engine's mesh-sharded serving): the
+params are placed once at construction by `param_sharding_serving`, the
+caches by `cache_sharding` (the paged pool slot-local, PagedManager's
+"local" mode), and every model call runs the model's forward with
+`distributed/tensor_parallel.py`'s plan over the mesh's local shards. The engine's per-slot vectors,
+token blocks, drafter history and device counters hold the slots of its
+local shards (`decode_batch_sharding`): every slot on a LocalMesh, the
+rank's slot group on a ProcessMesh. The samplers draw the whole slot
+batch's noise and keep their rows, so a slot-parallel mesh gives the
+single-device engine's tokens, sampled rows included. On a ProcessMesh each
+host sync all-gathers the blocks over the slot axes, so every rank's
+scheduler runs on the same state; the decode and verify bodies themselves
+run no collective over the slot axes. The scheduler keeps prefill batches
+a multiple of the slot axes' size (`slot_quantum`).
 """
 from __future__ import annotations
 
@@ -96,6 +110,7 @@ import torch
 from repro_torch.core import layers as L
 from repro_torch.core import model as Mod
 from repro_torch.core.types import ModelConfig
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.kernels import _build
 from repro_torch.serving import faults as F
 from repro_torch.serving import sampling
@@ -274,7 +289,8 @@ class ServingEngine:
                  kv_layout: str = "contiguous", share_prefix: bool = False,
                  share_min_prefix: int = 16,
                  decode_impl: Optional[str] = None,
-                 graphs: Optional[bool] = None, mesh=None, faults=None,
+                 graphs: Optional[bool] = None, mesh=None,
+                 profile: str = "tp", faults=None,
                  max_pending: Optional[int] = None, metrics: bool = False,
                  trace_capacity: int = 4096):
         """Runs on the device that holds `params` (see `model.init_model` /
@@ -341,12 +357,11 @@ class ServingEngine:
         max_pending: `run()` rejects requests beyond this queue depth
         (status "rejected", "queue overflow") instead of queueing them.
 
-        mesh exists so that a caller porting a JAX engine call gets an
-        error, not a silently different engine: any value but None raises
-        NotImplementedError (ROADMAP item 13)."""
-        if mesh is not None:
-            raise NotImplementedError(f"ServingEngine(mesh={mesh!r}) is not "
-                                      "ported yet (ROADMAP item 13)")
+        mesh: a `launch.mesh` LocalMesh or ProcessMesh, or a "DxM" string
+        (`parse_mesh`; a ProcessMesh when a torch.distributed group is
+        initialised). params are the whole model on every process; the
+        engine keeps its shards. profile: the param rule table, "tp"
+        (default), "cp" or "fsdp" (see the module docstring)."""
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"kv_layout={kv_layout!r}: 'contiguous' or "
                              "'paged'")
@@ -367,6 +382,9 @@ class ServingEngine:
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
+        self.mesh = (None if mesh is None
+                     else TP.resolve_mesh(mesh, self.device))
+        self.profile = profile
         if decode_impl == "pallas" and self.device.type != "cuda":
             raise ValueError("decode_impl='pallas' runs the CUDA decode "
                              f"kernel; the params are on {self.device}")
@@ -389,20 +407,42 @@ class ServingEngine:
         self._compiled = _Compiled(
             self.device.type == "cuda" if graphs is None else bool(graphs),
             self.generator)
+        # the mesh plan (None on one device) and the slots [_lo, _lo +
+        # _nloc) that this process's shards hold
+        self._mp: Optional[TP.MeshPlan] = None
+        self._lo, self._nloc = 0, batch_slots
+        quantum = 1
+        if self.mesh is not None:
+            self._mp = TP.MeshPlan(cfg, self.mesh, params, slots=batch_slots,
+                                   max_len=max_len, lookahead=self.lookahead,
+                                   paged=kv_layout == "paged",
+                                   profile=profile)
+            self.shard_params = self._mp.place_params(params)
+            lo, hi = self._mp.local_slots()
+            self._lo, self._nloc = lo, hi - lo
+            quantum = self._mp.slot_quantum()
         self.scheduler = Scheduler(
             max_prefill_tokens=max_prefill_tokens, pad_to=pad_to,
-            max_prompt_len=max_prompt_len, vocab_size=cfg.vocab_size)
+            slot_quantum=quantum, max_prompt_len=max_prompt_len,
+            vocab_size=cfg.vocab_size)
         self.kv_layout = kv_layout
         self.share_prefix = bool(share_prefix) and kv_layout == "paged"
         self.share_min_prefix = max(1, share_min_prefix)
         self._paged: Optional[PagedManager] = None
         if kv_layout == "paged":
             self._paged = PagedManager(
-                Mod.paged_layout(cfg, max_len, self.lookahead), batch_slots)
-        self.caches = Mod.init_caches(cfg, batch_slots, max_len,
-                                      lookahead=self.lookahead,
-                                      paged=kv_layout == "paged",
-                                      device=self.device)
+                Mod.paged_layout(cfg, max_len, self.lookahead), batch_slots,
+                mode="shared" if self.mesh is None else "local")
+        # one device: `caches`; a mesh: `shard_caches`, one cache tree per
+        # local shard (coordinate), and `caches` None
+        self.caches = self.shard_caches = None
+        if self._mp is None:
+            self.caches = Mod.init_caches(cfg, batch_slots, max_len,
+                                          lookahead=self.lookahead,
+                                          paged=kv_layout == "paged",
+                                          device=self.device)
+        else:
+            self.shard_caches = self._mp.init_caches(self.device)
         # next ring-write token position per slot (the paged COW plan)
         self._slot_pos = np.zeros((batch_slots,), np.int64)
         self.slot_free = [True] * batch_slots
@@ -411,28 +451,27 @@ class ServingEngine:
         self.slot_last = np.zeros((batch_slots,), np.int32)
         self.slot_budget = np.zeros((batch_slots,), np.int32)
         self.slot_temp = np.zeros((batch_slots,), np.float32)
+        nloc = self._nloc
         if self.drafter is not None:
             # drafter history: device-resident, rows written at admission
             self.slot_hist, self.slot_hcnt = self.drafter.init_state(
-                batch_slots, self.device)
+                nloc, self.device)
         dev = self.device
-        # the per-slot decode vectors on the device: static buffers that the
-        # host mirrors are copied into after an admission (`_stage`) and
-        # that every block updates in place
+        # the per-slot decode vectors on the device (the local slots):
+        # static buffers that the host mirrors are copied into after an
+        # admission (`_stage`) and that every block updates in place
         self._dev: Dict[str, torch.Tensor] = dict(
-            tok=torch.zeros((batch_slots,), dtype=torch.int32, device=dev),
-            active=torch.zeros((batch_slots,), dtype=torch.bool, device=dev),
-            budget=torch.zeros((batch_slots,), dtype=torch.int32, device=dev),
-            temps=torch.zeros((batch_slots,), dtype=torch.float32,
-                              device=dev),
-            poisoned=torch.zeros((batch_slots,), dtype=torch.bool,
-                                 device=dev))
+            tok=torch.zeros((nloc,), dtype=torch.int32, device=dev),
+            active=torch.zeros((nloc,), dtype=torch.bool, device=dev),
+            budget=torch.zeros((nloc,), dtype=torch.int32, device=dev),
+            temps=torch.zeros((nloc,), dtype=torch.float32, device=dev),
+            poisoned=torch.zeros((nloc,), dtype=torch.bool, device=dev))
         # device metrics (metrics=True): static counters beside the staged
         # vectors, never reset by a restage, updated in place by every
         # captured body and read only by device_metrics()
         self.metrics = bool(metrics)
         self.ring_mod = MX.ring_modulus(cfg, max_len, self.lookahead)
-        self._mx = MX.init_metrics(batch_slots, dev) if self.metrics else None
+        self._mx = MX.init_metrics(nloc, dev) if self.metrics else None
         # host-side lifecycle tracer (always on: O(1) Python per hook, no
         # device work) and its subscription to the degradation-event bus
         self.tracer = Tracer(capacity=trace_capacity)
@@ -444,31 +483,31 @@ class ServingEngine:
         # whose steps write row `_sidx` and flag in `_flip` that a slot's
         # `active` changed since the block began (`_active0`)
         t = self.speculative + 1
-        self._toks = torch.zeros((self.scan_steps, batch_slots, t),
+        self._toks = torch.zeros((self.scan_steps, nloc, t),
                                  dtype=torch.int32, device=dev)
-        self._emit = torch.zeros((self.scan_steps, batch_slots, t),
+        self._emit = torch.zeros((self.scan_steps, nloc, t),
                                  dtype=torch.bool, device=dev)
         self._sidx = torch.zeros((1,), dtype=torch.long, device=dev)
         self._flip = torch.zeros((), dtype=torch.bool, device=dev)
-        self._active0 = torch.zeros((batch_slots,), dtype=torch.bool,
-                                    device=dev)
+        self._active0 = torch.zeros((nloc,), dtype=torch.bool, device=dev)
         # chaos (faults): the per-slot countdown `fin` is a staged vector,
         # restaged with the others and decremented in place by the bodies;
         # the poison value per slot (NaN, or +Inf) and the draft corruption
         # mask are made once
         self.faults = faults if faults is not None else FaultPlan()
         self._bad_val = self._draft_mask = None
+        here = slice(self._lo, self._lo + nloc)
         if self.faults.has_logit_faults:
-            self._dev["fin"] = torch.zeros((batch_slots,), dtype=torch.int32,
+            self._dev["fin"] = torch.zeros((nloc,), dtype=torch.int32,
                                            device=dev)
             self._bad_val = torch.as_tensor(
                 np.where(self.faults.inf_mask(batch_slots), np.inf, np.nan)
-                .astype(np.float32), device=dev)
+                .astype(np.float32)[here], device=dev)
         if self.faults.corrupt_draft_slots and self.speculative:
             self._draft_mask = torch.as_tensor(
-                self.faults.draft_mask(batch_slots), device=dev)[:, None]
+                self.faults.draft_mask(batch_slots)[here], device=dev)[:, None]
             self._draft_bad = torch.full(
-                (batch_slots, self.speculative), cfg.vocab_size + 1337,
+                (nloc, self.speculative), cfg.vocab_size + 1337,
                 dtype=torch.int32, device=dev)
         self._faults_fired: set = set()      # slots whose logit fault fired
         self._cache_poison_applied: set = set()
@@ -478,9 +517,10 @@ class ServingEngine:
         self._retry_counts: Dict[int, int] = {}
         self._readmit: List[Request] = []
         # chunked prefill's caches, last logits, chunk tokens and lengths:
-        # one persistent set of batch_slots rows, made at the first chunked
-        # batch; a batch of n rows runs in its first n rows
-        self._chunk_buf: Optional[Dict] = None
+        # one persistent set of batch_slots rows (one per local shard on a
+        # mesh), made at the first chunked batch; a batch of n rows runs in
+        # its first n rows
+        self._chunk_buf: Optional[List[Dict]] = None
         self.spec_min_acceptance = float(spec_min_acceptance)
         self.spec_resume_acceptance = float(
             spec_min_acceptance if spec_resume_acceptance is None
@@ -531,7 +571,8 @@ class ServingEngine:
         as numpy with per_slot=True. Empty when metrics=False."""
         if self._mx is None:
             return {}
-        host = {k: v.cpu().numpy() for k, v in self._mx.items()}
+        host = {k: (self._gather_slots(v) if v.dim() else v).cpu().numpy()
+                for k, v in self._mx.items()}
         if per_slot:
             return host
         return {k: int(v.sum()) if v.ndim else int(v)
@@ -663,44 +704,74 @@ class ServingEngine:
         set (zeroed in place first, so the rings match fresh caches), each
         chunk keyed (n, pos0, chunk length) for compiled dispatch; the
         returned logits and caches are views of that set, valid until the
-        next chunked batch."""
+        next chunked batch.
+
+        On a mesh the rows split over the slot groups when they divide
+        them (else every group prefills them all), each shard runs the
+        plan on its rows, and the rows' logits and plan-local caches are
+        all-gathered over the slot axes: the caches are then a list, the n
+        rows' tree per local shard."""
+        mp = self._mp
         n, l_pad = tokens.shape
+        split = mp is not None and mp.groups > 1 and n % mp.groups == 0
+        per = n // mp.groups if split else n
+        if mp is None:
+            plan, params, toks, lens = (Mod.ONE_DEVICE, [self.params],
+                                        [tokens], [lengths])
+        else:
+            plan, params = mp, self.shard_params
+            starts = [mp.group(c) * per if split else 0 for c in mp.coords]
+            toks = [tokens[a:a + per] for a in starts]
+            lens = [lengths[a:a + per] for a in starts]
         c = self.prefill_chunk
         if not prefix and (not c or l_pad <= c):
-            logits, caches = Mod.prefill(self.params, self.cfg,
-                                         {"tokens": tokens}, self.max_len,
-                                         lengths=lengths,
-                                         lookahead=self.lookahead)
-            return logits[:, 0], caches
-        buf = self._chunk_rows(n)
-        if prefix:
-            one = torch.full((1,), prefix, dtype=torch.int32,
-                             device=self.device)
-            logits, caches = Mod.prefill(self.params, self.cfg,
-                                         {"tokens": tokens[:1, :prefix]},
-                                         self.max_len, lengths=one,
-                                         lookahead=self.lookahead)
-            for full, first in zip(buf["caches"], caches):
-                for name, layer in full.items():
-                    for leaf, t in layer.items():
-                        t.copy_(first[name][leaf].expand_as(t))
-            buf["last"].copy_(logits[:, 0].expand_as(buf["last"]))
+            lgs, caches = Mod.prefill(params, self.cfg,
+                                      [{"tokens": t} for t in toks],
+                                      self.max_len, lengths=lens,
+                                      lookahead=self.lookahead, plan=plan)
+            lgs = [x[:, 0] for x in lgs]
         else:
-            for layer in (x for blk in buf["caches"] for x in blk.values()):
-                for t in layer.values():
-                    t.zero_()
-            buf["last"].zero_()
-        buf["lens"].copy_(lengths)
-        for p in range(prefix, l_pad, c):
-            t = min(c, l_pad - p)
-            buf["tok"][:, :t].copy_(tokens[:, p:p + t])
-            self._compiled.run(("chunk", n, p, t),
-                               functools.partial(self._chunk_body, buf, p, t))
-        return buf["last"], buf["caches"]
+            bufs = self._chunk_rows(per)
+            if prefix:
+                one = [torch.full((1,), prefix, dtype=torch.int32,
+                                  device=self.device) for _ in toks]
+                firsts, pcaches = Mod.prefill(
+                    params, self.cfg,
+                    [{"tokens": t[:1, :prefix]} for t in toks],
+                    self.max_len, lengths=one, lookahead=self.lookahead,
+                    plan=plan)
+                for buf, lg, pc in zip(bufs, firsts, pcaches):
+                    for full, first in zip(buf["caches"], pc):
+                        for name, layer in full.items():
+                            for leaf, t in layer.items():
+                                t.copy_(first[name][leaf].expand_as(t))
+                    buf["last"].copy_(lg[:, 0].expand_as(buf["last"]))
+            else:
+                for buf in bufs:
+                    for layer in (x for blk in buf["caches"]
+                                  for x in blk.values()):
+                        for t in layer.values():
+                            t.zero_()
+                    buf["last"].zero_()
+            for buf, ln in zip(bufs, lens):
+                buf["lens"].copy_(ln)
+            for p in range(prefix, l_pad, c):
+                t = min(c, l_pad - p)
+                for buf, tk in zip(bufs, toks):
+                    buf["tok"][:, :t].copy_(tk[:, p:p + t])
+                self._compiled.run(("chunk", n, p, t), functools.partial(
+                    self._chunk_body, bufs, p, t))
+            lgs = [buf["last"] for buf in bufs]
+            caches = [buf["caches"] for buf in bufs]
+        if split:
+            lgs = mp.gather_slots(lgs)
+            caches = _map_shards(mp.gather_slots, caches)
+        return lgs[0], (caches[0] if mp is None else caches)
 
-    def _chunk_rows(self, n: int) -> Dict:
+    def _chunk_rows(self, n: int) -> List[Dict]:
         """Views of the first n rows of the persistent chunked-prefill set
-        (batch_slots rows, made at its first use). The views of one n
+        (batch_slots rows, made at its first use): one set, or on a mesh
+        one per local shard in its plan-local layout. The views of one n
         always start at the same addresses, which is what a chunk's graph
         replays."""
         if n > self.slots:
@@ -708,34 +779,86 @@ class ServingEngine:
                              f"batch_slots={self.slots} rows, not {n}")
         if self._chunk_buf is None:
             dev, b = self.device, self.slots
-            self._chunk_buf = dict(
-                caches=Mod.init_caches(self.cfg, b, self.max_len,
-                                       lookahead=self.lookahead, device=dev),
+            trees = ([Mod.init_caches(self.cfg, b, self.max_len,
+                                      lookahead=self.lookahead, device=dev)]
+                     if self._mp is None else self._mp.chunk_caches(b, dev))
+            self._chunk_buf = [dict(
+                caches=tree,
                 last=torch.zeros((b, self.cfg.vocab_size),
                                  dtype=torch.float32, device=dev),
                 tok=torch.zeros((b, self.prefill_chunk), dtype=torch.long,
                                 device=dev),
                 lens=torch.zeros((b,), dtype=torch.int32, device=dev))
-        full = self._chunk_buf
-        return dict(caches=[{name: {leaf: t[:n] for leaf, t in layer.items()}
-                             for name, layer in blk.items()}
-                            for blk in full["caches"]],
-                    **{k: full[k][:n] for k in ("last", "tok", "lens")})
+                for tree in trees]
+        return [dict(caches=[{name: {leaf: t[:n] for leaf, t in layer.items()}
+                              for name, layer in blk.items()}
+                             for blk in full["caches"]],
+                     **{k: full[k][:n] for k in ("last", "tok", "lens")})
+                for full in self._chunk_buf]
 
-    def _chunk_body(self, buf: Dict, p: int, t: int) -> None:
-        """One prefill chunk (tokens [p, p+t) of buf's rows) into buf's
-        caches, and each row's last-real-token logits into buf["last"]
-        where the chunk holds that token."""
-        lens, last = buf["lens"], buf["last"]
-        x = Mod.prefill_chunk(self.params, self.cfg,
-                              {"tokens": buf["tok"][:, :t]}, buf["caches"],
-                              p, lens, lookahead=self.lookahead)
-        tpos = lens.long() - 1 - p
-        hit = (tpos >= 0) & (tpos < t)
-        rows = torch.arange(x.shape[0], device=x.device)
-        xsel = x[rows, tpos.clamp(0, t - 1)][:, None]
-        sel = Mod._unembed(self.params, self.cfg, xsel)[:, 0]
-        last.copy_(torch.where(hit[:, None], sel, last))
+    def _chunk_body(self, bufs: List[Dict], p: int, t: int) -> None:
+        """One prefill chunk (tokens [p, p+t) of each set's rows) into the
+        sets' caches, and each row's last-real-token logits into its set's
+        "last" where the chunk holds that token. bufs: `_chunk_rows`'s
+        sets; on a mesh the model runs the mesh's plan over them."""
+        if self._mp is None:
+            params, plan = [self.params], Mod.ONE_DEVICE
+        else:
+            params, plan = self.shard_params, self._mp
+        xs = Mod.prefill_chunk(
+            params, self.cfg, [{"tokens": b["tok"][:, :t]} for b in bufs],
+            [b["caches"] for b in bufs], p, [b["lens"] for b in bufs],
+            lookahead=self.lookahead, plan=plan)
+        sel, hits = [], []
+        for x, b in zip(xs, bufs):
+            tpos = b["lens"].long() - 1 - p
+            hits.append((tpos >= 0) & (tpos < t))
+            rows = torch.arange(x.shape[0], device=x.device)
+            sel.append(x[rows, tpos.clamp(0, t - 1)][:, None])
+        for lg, hit, b in zip(plan.unembed(params, self.cfg, sel), hits,
+                              bufs):
+            lg = lg[:, 0]
+            b["last"].copy_(torch.where(hit[:, None], lg, b["last"]))
+
+    def _mesh_insert(self, caches, slots: List[int]) -> None:
+        """Admission on the mesh: each shard copies the prefilled rows of
+        the slots it holds (every row's caches reached it by the gather in
+        `_mesh_prefill`), cut to its layout; a paged layer writes them
+        through the slots' table rows into its slot-local pools."""
+        mp, dev = self._mp, self.device
+        tables = self._paged.tables if self._paged is not None else {}
+        for shard, rows, coord in zip(self.shard_caches, caches, mp.coords):
+            lo, hi = mp.slot_range(coord)
+            sel = [(r, s - lo) for r, s in enumerate(slots) if lo <= s < hi]
+            if not sel:
+                continue
+            src = torch.as_tensor([r for r, _ in sel], dtype=torch.long,
+                                  device=dev)
+            dst = torch.as_tensor([s for _, s in sel], dtype=torch.long,
+                                  device=dev)
+            for full, one in zip(shard, rows):
+                for name, fc in full.items():
+                    i = int(name[1:])
+                    oc = {k: v.index_select(0, src)
+                          for k, v in one[name].items()}
+                    if i in tables:
+                        nbp = fc["pk"].shape[1]
+                        # global ids of the slot-local pool viewed flat
+                        ids = self._upload(
+                            tables[i][[slots[r] for r, _ in sel]]
+                            + np.asarray([s for _, s in sel])[:, None] * nbp)
+                        for kv in ("k", "v"):
+                            pool = fc["p" + kv]
+                            L.paged_scatter(
+                                pool.view(-1, *pool.shape[2:]), ids,
+                                mp.prefill_cut(i, kv, oc[kv], coord))
+                        fc["step"].index_copy_(0, dst, oc["step"])
+                        continue
+                    for leaf, t in fc.items():
+                        t.index_copy_(0, dst, mp.prefill_cut(
+                            i, leaf, oc[leaf], coord).to(t.dtype))
+        if tables:
+            self._push_tables()
 
     @torch.no_grad()
     def _prefill_batch(self, plan: PrefillPlan, slots: List[int]):
@@ -760,6 +883,9 @@ class ServingEngine:
             # padded rows carry masked garbage up to l_pad, so each row's
             # write span is [prefix, l_pad)
             self._paged.admit(slots, [l_pad] * n, prefix_len=prefix)
+        if self._mp is not None:
+            self._mesh_insert(caches, slots)
+        elif self._paged is not None:
             self._insert_paged(caches, slots, idx)
         else:
             self._insert(caches, idx)
@@ -840,7 +966,12 @@ class ServingEngine:
         layer position (shared by every super-block)."""
         pm = self._paged
         for i, host in pm.tables.items():
-            self.caches[0][f"l{i}"]["table"].copy_(self._upload(host))
+            if self._mp is None:
+                self.caches[0][f"l{i}"]["table"].copy_(self._upload(host))
+                continue
+            for shard, coord in zip(self.shard_caches, self._mp.coords):
+                lo, hi = self._mp.slot_range(coord)
+                shard[0][f"l{i}"]["table"].copy_(self._upload(host[lo:hi]))
         pm.dirty = False
 
     def _paged_sync(self, n: int):
@@ -885,6 +1016,11 @@ class ServingEngine:
     def _seed_history(self, slots: List[int], seqs) -> None:
         """Write the drafter history rows of `slots` from host token
         sequences (one host-to-device copy)."""
+        pairs = [(s - self._lo, q) for s, q in zip(slots, seqs)
+                 if self._lo <= s < self._lo + self._nloc]
+        if not pairs:
+            return
+        slots, seqs = zip(*pairs)
         rows, cnts = zip(*(self.drafter.seed_row(q) for q in seqs))
         idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
         self.slot_hist[idx] = torch.as_tensor(np.stack(rows),
@@ -964,21 +1100,41 @@ class ServingEngine:
         for s in self.faults.cache_poisons_due(self.slots, done,
                                                self._cache_poison_applied):
             self._cache_poison_applied.add(s)
-            if self._paged is not None:
+            if self._paged is not None and self._mp is None:
                 # the slot must own its blocks before they are NaN-ed: a
                 # shared prefix block would poison every sharer
                 self._paged_flush(self._paged.force_private(s))
-                _poison_slot_k_paged(self.caches, self._paged.tables, s)
-            else:
-                _poison_slot_k(self.caches, s)
+            for tree, row in self._slot_homes(s):
+                if self._paged is not None:
+                    _poison_slot_k_paged(tree, self._paged.tables, s, row)
+                else:
+                    _poison_slot_k(tree, row)
             TEV.record_event("cache_poisoned", slot=s)
+
+    def _slot_homes(self, slot: int) -> List[Tuple[list, int]]:
+        """(cache tree, row) of every local cache tree that holds a slot:
+        the one device's at the slot itself, or on a mesh each shard of
+        the slot's group at its row there."""
+        if self._mp is None:
+            return [(self.caches, slot)]
+        homes = []
+        for tree, coord in zip(self.shard_caches, self._mp.coords):
+            lo, hi = self._mp.slot_range(coord)
+            if lo <= slot < hi:
+                homes.append((tree, slot - lo))
+        return homes
+
+    def _cache_trees(self) -> List[list]:
+        """The cache trees this process holds: one, or one per shard."""
+        return [self.caches] if self._mp is None else self.shard_caches
 
     def _cache_versions(self) -> Tuple[int, ...]:
         """The version counters of every cache tensor: PyTorch bumps one at
         each in-place write (the decode kernel's raw writes come with its
         layer's `step.add_`), so a change says a block wrote the caches."""
-        return tuple(t._version for blk in self.caches
-                     for layer in blk.values() for t in layer.values())
+        return tuple(t._version for tree in self._cache_trees()
+                     for blk in tree for layer in blk.values()
+                     for t in layer.values())
 
     def _kernel_fallback(self, err: Exception, n: int,
                          lost: bool) -> List[Result]:
@@ -1027,14 +1183,16 @@ class ServingEngine:
             self._free_slot(s)
         if self._paged is not None:
             self._paged.reset()
-        fresh = Mod.init_caches(self.cfg, self.slots, self.max_len,
-                                lookahead=self.lookahead,
-                                paged=self._paged is not None,
-                                device=self.device)
-        for blk, new in zip(self.caches, fresh):
-            for name, layer in blk.items():
-                for leaf, t in layer.items():
-                    t.copy_(new[name][leaf])
+        fresh = ([Mod.init_caches(self.cfg, self.slots, self.max_len,
+                                  lookahead=self.lookahead,
+                                  paged=self._paged is not None,
+                                  device=self.device)]
+                 if self._mp is None else self._mp.init_caches(self.device))
+        for tree, new_tree in zip(self._cache_trees(), fresh):
+            for blk, new in zip(tree, new_tree):
+                for name, layer in blk.items():
+                    for leaf, t in layer.items():
+                        t.copy_(new[name][leaf])
         self._stale = True
         return done
 
@@ -1080,16 +1238,18 @@ class ServingEngine:
             return
         active = np.asarray([not f for f in self.slot_free], bool)
         d = self._dev
+        here = slice(self._lo, self._lo + self._nloc)
         for name, host in (("tok", self.slot_last), ("active", active),
                            ("budget", self.slot_budget),
                            ("temps", self.slot_temp)):
-            d[name].copy_(torch.from_numpy(host))
+            d[name].copy_(torch.from_numpy(np.ascontiguousarray(host[here])))
         d["poisoned"].zero_()
         if "fin" in d:
             done = [len(self.slot_out[s]) if not self.slot_free[s] else 0
                     for s in range(self.slots)]
-            d["fin"].copy_(torch.from_numpy(self.faults.logit_countdown(
-                self.slots, done, fired=self._faults_fired)))
+            d["fin"].copy_(torch.from_numpy(np.ascontiguousarray(
+                self.faults.logit_countdown(
+                    self.slots, done, fired=self._faults_fired)[here])))
         self._anyt = bool(np.any((self.slot_temp > 0) & active))
         self._stale = False
 
@@ -1114,18 +1274,15 @@ class ServingEngine:
                                          d["poisoned"])
         fin = d.get("fin")
         for i in range(n):
-            logits, _ = Mod.decode_step(self.params, self.cfg,
-                                        {"tokens": tok[:, None]},
-                                        self.caches, impl=self._impl,
-                                        lookahead=self.lookahead)
-            lg = logits[:, 0]
+            lg = self._model_step(tok[:, None])[:, 0]
             if fin is not None:
                 # chaos countdown: at a slot's trigger step its whole
                 # logits row becomes NaN / +Inf, no other row touched
                 lg = torch.where((active & (fin == 0))[:, None],
                                  self._bad_val[:, None], lg)
             nxt = sampling.sample(self.generator, lg, d["temps"], self.top_k,
-                                  any_sampling=not greedy)
+                                  any_sampling=not greedy,
+                                  rows=self._sample_rows(1))
             # numerical guard: a non-finite row is QUARANTINED — not
             # emitted, budget untouched, slot deactivated
             bad = active & ~sampling.finite_rows(lg)
@@ -1146,6 +1303,64 @@ class ServingEngine:
             d[name].copy_(val)
         if fin is not None:
             d["fin"].copy_(fin)
+
+    def _model_step(self, tokens: torch.Tensor) -> torch.Tensor:
+        """One `decode_step` of the local slots' tokens (nloc, T): fp32
+        logits (nloc, T, V). On a mesh every shard runs the plan on its
+        slot group's rows, and one shard per local group gives the
+        rows."""
+        if self._mp is None:
+            return Mod.decode_step(self.params, self.cfg, {"tokens": tokens},
+                                   self.caches, impl=self._impl,
+                                   lookahead=self.lookahead)[0]
+        mp = self._mp
+        logits, _ = Mod.decode_step(
+            self.shard_params, self.cfg,
+            [{"tokens": t} for t in mp.local_rows(tokens, self._lo)],
+            self.shard_caches, impl=self._impl, lookahead=self.lookahead,
+            plan=mp)
+        return mp.join_rows(logits)
+
+    def _sample_rows(self, t: int) -> Optional[Tuple[int, int]]:
+        """`sampling.sample`'s rows for the local slots' (nloc * t) rows:
+        None when they are the whole slot batch."""
+        if self._nloc == self.slots:
+            return None
+        return self._lo * t, self.slots * t
+
+    def _gather_slots(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """A local-slot tensor with every slot's rows along dim: an
+        all-gather over the slot axes on a ProcessMesh, x itself when the
+        process holds every slot."""
+        if self._nloc == self.slots:
+            return x
+        y = x.to(torch.uint8) if x.dtype == torch.bool else x
+        y = self._mp.gather_slots([y], dim)[0]
+        return y.bool() if x.dtype == torch.bool else y
+
+    def _any_flip(self) -> bool:
+        """The verify block's early exit: whether any slot's active flag
+        flipped, over every slot group (one host read)."""
+        if self._nloc == self.slots:
+            return bool(self._flip)
+        f = [self._flip.to(torch.int32).reshape(1)]
+        for a in self._mp.slot_axes:
+            f = self.mesh.pmax(f, a)
+        return bool(f[0])
+
+    def _rollback(self, back: torch.Tensor) -> None:
+        """Every ring `step` of the local slots -= back (nloc,)."""
+        if self._mp is None:
+            for blk in self.caches:
+                for layer in blk.values():
+                    layer["step"].sub_(back)
+            return
+        for shard, coord in zip(self.shard_caches, self._mp.coords):
+            lo, hi = self._mp.slot_range(coord)
+            part = back[lo - self._lo:hi - self._lo]
+            for blk in shard:
+                for layer in blk.values():
+                    layer["step"].sub_(part)
 
     @torch.no_grad()
     def _verify_steps(self, n: int, live: List[int],
@@ -1182,7 +1397,7 @@ class ServingEngine:
         while steps < n:
             self._compiled.run(("verify", self.slots, greedy), body)
             steps += 1
-            if bool(self._flip):                     # one host read
+            if self._any_flip():                     # one host read
                 break
         read = self._read_block(live, steps, self._toks[:steps],
                                 self._emit[:steps], t0)
@@ -1224,10 +1439,7 @@ class ServingEngine:
             drafts = torch.where(self._draft_mask, self._draft_bad, drafts)
         drafts = self.drafter.sanitize(drafts, self.cfg.vocab_size)
         x = torch.cat([tok[:, None], drafts], dim=1)
-        logits, _ = Mod.decode_step(self.params, self.cfg,
-                                    {"tokens": x}, self.caches,
-                                    impl=self._impl,
-                                    lookahead=self.lookahead)
+        logits = self._model_step(x)
         if fin is not None:
             # poison the one window position the countdown lands on, so a
             # poisoned request keeps exactly its trigger index of tokens,
@@ -1238,10 +1450,12 @@ class ServingEngine:
             logits = torch.where(hitpos[:, :, None],
                                  self._bad_val[:, None, None], logits)
         # every verify position in one sampling call
+        nloc = self._nloc
         ver = sampling.sample(
-            self.generator, logits.reshape(self.slots * t, -1),
+            self.generator, logits.reshape(nloc * t, -1),
             d["temps"].repeat_interleave(t), self.top_k,
-            any_sampling=not greedy).reshape(self.slots, t)
+            any_sampling=not greedy,
+            rows=self._sample_rows(t)).reshape(nloc, t)
         finpos = torch.isfinite(logits).all(dim=-1)              # (B, T)
         first_bad = torch.where(
             finpos.all(dim=1), t,
@@ -1255,10 +1469,7 @@ class ServingEngine:
                         0).to(torch.int32)
         if self._mx is not None:
             MX.spec_update_(self._mx, e, bad, k, self.ring_mod)
-        back = t - e
-        for blk in self.caches:
-            for layer in blk.values():
-                layer["step"].sub_(back)
+        self._rollback(t - e)
         newlast = ver.gather(1, (e - 1).clamp(min=0).long()[:, None])[:, 0]
         new_hist, new_hcnt = self.drafter.observe(hist, hcnt, ver, e)
         pos = torch.arange(t, device=ver.device)
@@ -1285,11 +1496,13 @@ class ServingEngine:
         carried slot vectors back, and count the block in `stats`. Returns
         (tokens, emit flags, poisoned flags) as numpy."""
         d = self._dev
-        toks_np = toks.cpu().numpy()
-        emit_np = emit.cpu().numpy()
-        self.slot_last = d["tok"].cpu().numpy().astype(np.int32)
-        self.slot_budget = d["budget"].cpu().numpy().astype(np.int32)
-        poisoned_np = d["poisoned"].cpu().numpy()
+        toks_np = self._gather_slots(toks, 1).cpu().numpy()
+        emit_np = self._gather_slots(emit, 1).cpu().numpy()
+        self.slot_last = self._gather_slots(d["tok"]).cpu().numpy().astype(
+            np.int32)
+        self.slot_budget = self._gather_slots(d["budget"]).cpu().numpy(
+        ).astype(np.int32)
+        poisoned_np = self._gather_slots(d["poisoned"]).cpu().numpy()
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += steps
         self.stats["tokens_emitted"] += int(emit_np.sum())
@@ -1381,6 +1594,18 @@ class ServingEngine:
         return self.take_completed()
 
 
+def _map_shards(fn, trees: List[list]) -> List[list]:
+    """fn over each cache leaf's list of per-shard tensors (a mesh
+    collective), for per-shard cache trees of one structure."""
+    out = [[{name: {} for name in blk} for blk in tree] for tree in trees]
+    for b, blk in enumerate(trees[0]):
+        for name, layer in blk.items():
+            for leaf in layer:
+                for o, x in zip(out, fn([t[b][name][leaf] for t in trees])):
+                    o[b][name][leaf] = x
+    return out
+
+
 def _poison_slot_k(caches, slot: int) -> None:
     """NaN over one slot's K caches in every layer and super-block, in
     place (the storage the captured graphs read)."""
@@ -1391,15 +1616,18 @@ def _poison_slot_k(caches, slot: int) -> None:
 
 
 def _poison_slot_k_paged(caches, tables: Dict[int, np.ndarray],
-                         slot: int) -> None:
+                         slot: int, row: int) -> None:
     """Paged twin of `_poison_slot_k`: NaN over the K pool blocks of the
     slot's host table row (`tables`, the PagedManager's mirror, which the
-    caller made private to the slot and pushed)."""
+    caller made private to the slot and pushed). A slot-local pool (B,
+    nb+1, H, page, D) holds the slot at `row`, its ids local to it."""
     for i, host in tables.items():
         ids = torch.as_tensor(host[slot], dtype=torch.long,
                               device=caches[0][f"l{i}"]["pk"].device)
         for blk in caches:
-            blk[f"l{i}"]["pk"].index_fill_(0, ids, float("nan"))
+            pool = blk[f"l{i}"]["pk"]
+            (pool[row] if pool.dim() == 5 else pool).index_fill_(
+                0, ids, float("nan"))
 
 
 def ring_cache_bytes(cfg: ModelConfig, batch: int, context: int) -> int:

@@ -19,7 +19,7 @@ not to JAX's tokens.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,18 +33,29 @@ def finite_rows(logits: torch.Tensor) -> torch.Tensor:
 
 def sample(generator: torch.Generator, logits: torch.Tensor,
            temperatures: torch.Tensor, top_k: int = 0,
-           any_sampling: Optional[bool] = None) -> torch.Tensor:
+           any_sampling: Optional[bool] = None,
+           rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Draw one token per row. logits: (B, V); temperatures: (B,) float.
     top_k: 0 disables truncation. any_sampling: the host's `any(temps > 0)`
     over the live rows; False takes the greedy-only branch, one argmax of
     the raw logits, bitwise the full path's greedy rows. None (the caller
-    does not know) and True take the full path. Returns int32 (B,)."""
+    does not know) and True take the full path. rows (offset, total): the
+    B rows are rows [offset, offset + B) of a block of `total`: the noise
+    of the whole block is drawn and these rows of it kept, so a shard of a
+    slot-parallel mesh draws what the single-device engine draws for its
+    slots. Returns int32 (B,)."""
     logits = logits.float()
     greedy = logits.argmax(dim=-1).to(torch.int32)
     if any_sampling is False:
         return greedy
     temps = temperatures.to(device=logits.device, dtype=torch.float32)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    if rows is None:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
+    else:
+        u = torch.rand((rows[1], logits.shape[1]), generator=generator,
+                       device=logits.device)[rows[0]:rows[0]
+                                             + logits.shape[0]]
     gumbel = -torch.log(-torch.log(u.clamp_(min=1e-20)))
     lg = logits
     if top_k and top_k < lg.shape[-1]:

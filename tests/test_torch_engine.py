@@ -112,14 +112,23 @@ def test_non_finite_rows_are_quarantined(setup):
                                         poison_logits=((1, 3, "nan"),)))],
                          ids=lambda o: next(iter(o)))
 def test_unported_options_raise(setup, option):
-    """Only the mesh (ROADMAP item 13) is still refused; max_pending and
-    faults, ported with resilience, serve: 6 requests on max_pending=4
-    shed the last 2 as queue overflow, and NaN on slot 1 at token 3
-    quarantines that request with its 3 clean tokens."""
+    """Every option of a later slice now serves: a 4x1 mesh (its 2 slots
+    do not divide the slot axis, so every shard serves them and the rings
+    split their sequence dim over it) gives the single-device tokens;
+    max_pending and faults, ported with resilience: 6 requests on
+    max_pending=4 shed the last 2 as queue overflow, and NaN on slot 1 at
+    token 3 quarantines that request with its 3 clean tokens."""
     _, tcfg, _, tp, prompts = setup
     if "mesh" in option:
-        with pytest.raises(NotImplementedError):
-            ServingEngine(tcfg, tp, batch_slots=2, max_len=256, **option)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        eng = ServingEngine(tcfg, tp, batch_slots=2, max_len=256, **option)
+        res = eng.run(reqs)
+        clean = ServingEngine(tcfg, tp, batch_slots=2, max_len=256).run(
+            reqs)
+        assert len(eng.shard_caches) == 4 and eng.caches is None
+        assert [r.tokens for r in res] == [r.tokens for r in clean]
+        assert all(r.status == "ok" for r in res)
         return
     reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
             for i, p in enumerate((prompts + prompts)[:6])]

@@ -88,8 +88,8 @@ def _carries(eng):
                flip=eng._flip, active0=eng._active0)
     if eng.drafter is not None:
         out.update(hist=eng.slot_hist, hcnt=eng.slot_hcnt)
-    buf = eng._chunk_buf
-    if buf is not None:
+    if eng._chunk_buf is not None:
+        buf, = eng._chunk_buf
         for b, blk in enumerate(buf["caches"]):
             for name, layer in blk.items():
                 for leaf, t in layer.items():
@@ -330,7 +330,7 @@ def test_chunk_graphs_bounded_and_one_chunk_set(setup, monkeypatch):
     assert len(decode_keys) == len(set(decode_keys))
     assert all(k in c._graphs for k in decode_keys)
     assert {k[1] for k in uses if k[0] == "chunk"} == {1, 2}
-    assert eng._chunk_buf["last"].shape[0] == kw["batch_slots"]
+    assert eng._chunk_buf[0]["last"].shape[0] == kw["batch_slots"]
     with pytest.raises(ValueError, match="batch_slots"):
         eng.prefill_logits(torch.zeros((3, 40), dtype=torch.long),
                            torch.full((3,), 40, dtype=torch.int32))

@@ -35,6 +35,8 @@ PORT_MODULES = [
     "repro_torch.launch.analyze", "repro_torch.launch.mesh",
     "repro_torch.distributed.context_parallel",
     "repro_torch.distributed.pipeline",
+    "repro_torch.distributed.sharding",
+    "repro_torch.distributed.tensor_parallel",
 ]
 
 

@@ -367,13 +367,15 @@ def test_serve_launcher_chunked_and_speculative_on_cpu():
                                        (["--mesh", "2x2"], 13),
                                        (["--deadline", "1.0"], 10)])
 def test_serve_launcher_refuses_later_slice_flags(flag, item):
-    """`--mesh` (ROADMAP item 13) is still refused; the resilience flags
-    (item 10) now serve and report their outcome."""
+    """Every flag of a later slice now serves: the resilience flags (item
+    10) report their outcome, and `--mesh 2x2` (item 13) serves on a 2x2
+    single-process mesh and names it on the run line."""
     out = _serve("--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
                  *flag)
     if item != 10:
-        assert out.returncode != 0
-        assert f"not ported (ROADMAP item {item})" in out.stderr
+        assert out.returncode == 0, out.stderr
+        assert "2x2 mesh (tp)" in out.stdout
+        assert "not ported" not in out.stderr
         return
     assert out.returncode == 0, out.stderr
     assert "not ported" not in out.stderr
