@@ -263,6 +263,33 @@ each of which raises on failure:
                and all_gather calls, inside the captured graphs; none
                crosses a wire on one rank). Decode ms a step of each beside
                the single-device engine's.
+ 29. mesh train - (run right after phase 27, on phase 8's state, which it
+               consumes) training on a mesh: (a) one train step of
+               llama3.2-1b + SWAT at full width and depth on a 2x2
+               LocalMesh (tp profile, sequence parallelism, phase 8's batch)
+               against the plain single-device kernel step on the same
+               state (loss and every gradient leaf within phase 9's gates;
+               each of the 4 shards launching #2 / #4 / #5 what the plain
+               step launches, on the tensor cores), then one AdamW step
+               each (params and first moments within the gates), its time
+               beside phase 8's; (d) that state saved (gathered global
+               leaves) and restored onto one device and a 4x1 mesh, every
+               leaf bitwise, and a resumed 4x1 step against the 2x2 mesh's
+               second step within the gates; (b) granite-moe-1b-a400m +
+               SWAT at full width cut to 4 layers, fp32, on a 1x4 mesh and
+               on a 2x2 one (capacity drops slots of phase 8's batch; the
+               2x2 mesh ranks the 'data' rows together) with the sort
+               dispatch (the plain step's global capacity) and the ep
+               dispatch (`set_expert_parallel`; against the single-device
+               model running the same expert-parallel function): loss, aux
+               loss and every gradient leaf within MESH_LOSS_BOUND /
+               MESH_GRAD_BOUND, the all-to-alls counted and their bytes
+               beside `ep_wire_bytes_per_device`, and a control (the 2x2
+               sort ranked per shard) that must leave those bounds; (c) a
+               one-rank NCCL ProcessMesh (llama cut to 4 layers): the step
+               against the plain step within MESH_LOSS_BOUND /
+               MESH_GRAD_BOUND, its collectives counted, none over a
+               wire.
  12. plain decode - the plain-mode decode kernel (the fused kernel's
                cluster split without the insert) against its plain version,
                bf16 and fp32, both GQA layouts, two launches bitwise equal,
@@ -355,6 +382,15 @@ GRAD_TOL = {"bfloat16": dict(atol=6e-2, rtol=3e-2),
             "float32": dict(atol=5e-5, rtol=1e-3)}
 TRAIN_LOSS_BOUND = 0.02     # |loss kernel - loss plain|, bf16, 4 layers
 TRAIN_GRAD_BOUND = 0.05     # max over leaves of |g_k - g_p| / |g_p|
+# phase 29's fp32 mesh cells (b) and its one-rank NCCL step (c) against the
+# plain step: the same function summed in another order. Sound runs read
+# |dloss| <= 9.5e-7, |daux| 0 and a worst leaf <= 8.9e-6; (b)'s control,
+# the sort dispatch ranking each shard's slots on its own, read 3.6e-3,
+# 0.24 and 1.0 (PERF.md). A routed token whose 8th and 9th router
+# probabilities tie to an ulp can flip with the summation order and then
+# leaves these bounds too (PERF.md): phase 8's batch has no such token.
+MESH_LOSS_BOUND = 1e-5      # |dloss| and |daux|
+MESH_GRAD_BOUND = 1e-4      # max over leaves of |g_mesh - g_p| / |g_p|
 # moe_ffn at granite-moe's own experts (outputs up to |y| ~ 70, RMS ~ 25,
 # one bf16 ulp 0.25-0.5), bf16, the card against the CPU: max |error| over
 # the output's RMS. A sound run differs by a rounding or two at the largest
@@ -2195,6 +2231,426 @@ def serve_mesh(torch, cfg, tokens, card):
     log(f"phase 28 decode ms a step ({card}): "
         + json.dumps(out["decode_ms_per_step"]))
     return out
+
+
+# ------------------------------------------------------------ phase 29 ---
+
+# phase 29's meshes: (a) 2x2 tp + SP on phase 8's state; (b) granite-moe at
+# full width cut to 4 layers, fp32 (the random experts amplify bf16
+# rounding into routing flips, as in phase 24's gradient gate), on 1x4
+# and 2x2 with the sort and the ep dispatch; (c) a one-rank NCCL
+# ProcessMesh on llama cut to 4 layers (phase 9's shape)
+MESH_TRAIN = dict(shape=(2, 2), elastic=(4, 1), layers=4, elastic_layers=2)
+# (a) and (d)'s optimizer: phase 8's, two steps further on
+MESH_OPT = dict(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                total_steps=TRAIN["steps"] + 2)
+
+
+def _mesh_plan_step(torch, cfg, mesh, opt_cfg, **kw):
+    """A mesh train step with the tp profile and sequence parallelism."""
+    from repro_torch.distributed import sharding as Sh
+    from repro_torch.launch import steps as St
+    return St.make_train_step(cfg, opt_cfg, act_sharding=Sh.NamedSharding(
+        mesh, Sh.activation_spec(mesh, sequence_parallel=True)), **kw)
+
+
+def _mesh_loss_grads(torch, plan, cfg, placed, batch):
+    """(loss, aux_loss, the global gradient of every leaf) of one mesh loss
+    and backward (`model.loss_fn(plan=)`), leaves in `tree` order."""
+    from repro_torch import tree
+    from repro_torch.launch import steps as St
+    leaves = St.unique_leaves(placed)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        total, m = plan.train_loss(placed, cfg, batch)
+        grads = torch.autograd.grad(total, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    by_id = {id(x): g for x, g in zip(leaves, grads)}
+    full = plan.gather_tree([tree.tree_map(lambda x: by_id[id(x)], t)
+                        for t in placed])
+    return (float(m["loss"]), float(m["aux_loss"]), tree.leaves(full))
+
+
+def _leaf_gap(a, b):
+    """The largest relative (norm) error over the leaves of a against b."""
+    return max(float((x.float() - y.float()).norm()
+                     / y.float().norm().clamp(min=1e-30))
+               for x, y in zip(a, b))
+
+
+def _fingerprint(torch, tree_):
+    """Per leaf, two exact integer sums of its raw bits (bitwise equality
+    of two trees without keeping both)."""
+    from repro_torch import tree
+    out = []
+    for x in tree.leaves(tree_):
+        v = x.contiguous().view(
+            {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+             8: torch.int64}[x.element_size()]).reshape(-1).long()
+        w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+        out.append((int(v.sum()), int((v * w).sum())))
+    return out
+
+
+def _within(out, loss_bound=TRAIN_LOSS_BOUND, grad_bound=TRAIN_GRAD_BOUND):
+    return (out["loss_diff"] <= loss_bound
+            and out["max_leaf_rel_grad_err"] <= grad_bound)
+
+
+def _gates(out, where, **bounds):
+    if not _within(out, **bounds):
+        raise AssertionError(f"{where}: {out}")
+
+
+def mesh_train_llama(torch, cfg, params, opt, batch, phase8_ms):
+    """(a): one train step of the whole model (phase 8's state and batch)
+    on a 2x2 LocalMesh, tp + SP, against the plain single-device kernel
+    step on the same state: loss and every gradient leaf within phase 9's
+    gates, each shard launching #2 / #4 / #5 what the single-device step
+    launches; then one AdamW step each, params and first moments within
+    the gates. Returns (summary, the 2x2 step, its placed state)."""
+    from repro_torch import tree
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import LocalMesh
+    from repro_torch.optim import adamw
+    opt_cfg = adamw.AdamWConfig(**MESH_OPT)
+    mesh = LocalMesh(MESH_TRAIN["shape"], ("data", "model"))
+    step = _mesh_plan_step(torch, cfg, mesh, opt_cfg)
+    plan = step.plan
+    plain, plain_counts, plain_ms = _counted(
+        torch, lambda: _loss_grads(torch, params, cfg, batch, None))
+    t0 = time.perf_counter()
+    placed = plan.place({"params": params, "opt": opt})
+    torch.cuda.synchronize()
+    place_ms = (time.perf_counter() - t0) * 1e3
+    shards = mesh.size
+    before = route_counts()
+    got, counts, mesh_ms = _counted(torch, lambda: _mesh_loss_grads(
+        torch, plan, cfg, [s["params"] for s in placed], batch))
+    need = {k: v * shards for k, v in plain_counts.items()}
+    if counts != need:
+        raise AssertionError(f"mesh train launches {counts}, expected "
+                             f"{need} ({shards} shards x the plain step)")
+    for k in ("fwd", "dq", "dkv"):
+        check_route("mesh train", before, k, "tc",
+                    n=counts[f"swat_attention_{k}"])
+    out = {"mesh": "x".join(map(str, MESH_TRAIN["shape"])),
+           "plan": plan.describe(), **_grad_gap(params, got, plain),
+           "launches": counts, "launches_plain": plain_counts,
+           "launches_per_shard": {k: v // shards for k, v in counts.items()},
+           "loss_grad_ms": mesh_ms, "loss_grad_ms_plain": plain_ms,
+           "place_ms": place_ms}
+    del got, plain
+    _gates(out, "mesh train step vs the plain step")
+    # one AdamW step each from the same state: the mesh's on its copies
+    ps, opts = [s["params"] for s in placed], [s["opt"] for s in placed]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps, opts, m = step(ps, opts, batch)
+    loss = float(m["loss"])
+    out["adamw_step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["phase8_step_ms_after_step_1"] = phase8_ms
+    for s, p, o in zip(placed, ps, opts):
+        s["params"], s["opt"] = p, o
+    _, opt1, m1 = St.make_train_step(cfg, opt_cfg)(params, opt, batch)
+    glob = plan.gather_tree(ps)
+    out["adamw_loss"], out["adamw_loss_plain"] = loss, float(m1["loss"])
+    out["adamw_param_rel_err"] = _leaf_gap(tree.leaves(glob),
+                                           tree.leaves(params))
+    del glob
+    mu = plan.gather_tree([o.mu for o in opts])
+    out["adamw_mu_rel_err"] = _leaf_gap(tree.leaves(mu),
+                                        tree.leaves(opt1.mu))
+    del mu
+    out["grad_norm"], out["grad_norm_plain"] = (float(m["grad_norm"]),
+                                                float(m1["grad_norm"]))
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if not (abs(loss - out["adamw_loss_plain"]) <= TRAIN_LOSS_BOUND
+            and out["adamw_param_rel_err"] <= TRAIN_GRAD_BOUND
+            and out["adamw_mu_rel_err"] <= TRAIN_GRAD_BOUND):
+        raise AssertionError(f"mesh AdamW step vs the plain step: {out}")
+    return out, step, placed
+
+
+def mesh_elastic(torch, cfg, step, placed, batches):
+    """(d): the 2x2 state after (a)'s step, cut to its first
+    MESH_TRAIN["elastic_layers"] layers at full width (the whole state's
+    12.4 GB took 21 s to save and 71 s to restore twice on the H100
+    machine's host: PERF.md), saved (the gathered global leaves),
+    restored onto one device and onto a 4x1 mesh, every leaf bitwise the
+    saved one; a step on the restored 4x1 state against the 2x2 state's
+    second step on the same batch, within phase 9's gates."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        return _mesh_elastic(torch, cfg, step, placed, batches,
+                             CheckpointManager(root, keep=1))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _cut_state(state, n):
+    """A train state (params and AdamW state) cut to its first n
+    super-blocks."""
+    from repro_torch.optim import adamw
+    cut = lambda t: {**t, "blocks": t["blocks"][:n]}
+    o = state["opt"]
+    return {"params": cut(state["params"]),
+            "opt": adamw.OptState(o.step, cut(o.mu), cut(o.nu))}
+
+
+def _mesh_elastic(torch, cfg, step, placed, batches, ckpt):
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.launch.mesh import LocalMesh
+    from repro_torch.optim import adamw
+    # (a)'s state cut in depth: the checkpoint's bytes are its time
+    n = MESH_TRAIN["elastic_layers"]
+    cfg = dataclasses.replace(cfg, num_layers=n)
+    placed[:] = [_cut_state(st, n) for st in placed]
+    step = _mesh_plan_step(torch, cfg, step.plan.mesh,
+                           adamw.AdamWConfig(**MESH_OPT))
+    plan = step.plan
+    t0 = time.perf_counter()
+    glob = plan.gather_tree(placed)
+    saved = _fingerprint(torch, glob)
+    like = tree.tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                               device="meta"), glob)
+    ckpt.save(1, glob, blocking=True)
+    del glob
+    save_s = time.perf_counter() - t0
+    ps, opts = [s["params"] for s in placed], [s["opt"] for s in placed]
+    ps, opts, m2 = step(ps, opts, batches[1])
+    want_p = tree.leaves(plan.gather_tree(ps))
+    want_mu = tree.leaves(plan.gather_tree([o.mu for o in opts]))
+    placed.clear()
+    del ps, opts
+    t0 = time.perf_counter()
+    one = ckpt.restore(1, like=like, device="cuda")
+    one_ok = _fingerprint(torch, one) == saved
+    del one
+    mesh4 = LocalMesh(MESH_TRAIN["elastic"], ("data", "model"))
+    step4 = _mesh_plan_step(torch, cfg, mesh4, adamw.AdamWConfig(**MESH_OPT))
+    placed4 = ckpt.restore(1, like=like, device="cuda",
+                           sharding=step4.plan.placement())
+    restore_s = time.perf_counter() - t0
+    glob4 = step4.plan.gather_tree(placed4)
+    mesh_ok = _fingerprint(torch, glob4) == saved
+    del glob4
+    ps4, opts4 = [s["params"] for s in placed4], [s["opt"] for s in placed4]
+    ps4, opts4, m4 = step4(ps4, opts4, batches[1])
+    out = {"layers": n, "state_gb": sum(
+        x.numel() * x.element_size() for x in tree.leaves(like)) / 1e9,
+        "restored_onto": ["one device", "x".join(map(
+            str, MESH_TRAIN["elastic"]))], "one_device_bitwise": one_ok,
+        "mesh_4x1_bitwise": mesh_ok, "save_s": save_s,
+        "restore_s": restore_s, "step2_loss_2x2": float(m2["loss"]),
+        "step2_loss_4x1": float(m4["loss"]),
+        "loss_diff": abs(float(m2["loss"]) - float(m4["loss"])),
+        "grad_norm_2x2": float(m2["grad_norm"]),
+        "grad_norm_4x1": float(m4["grad_norm"]),
+        "param_rel_err": _leaf_gap(tree.leaves(step4.plan.gather_tree(ps4)),
+                                   want_p),
+        "mu_rel_err": _leaf_gap(tree.leaves(step4.plan.gather_tree(
+            [o.mu for o in opts4])), want_mu)}
+    out["max_leaf_rel_grad_err"] = max(out["param_rel_err"],
+                                       out["mu_rel_err"])
+    if not (one_ok and mesh_ok):
+        raise AssertionError(f"elastic restore: leaves differ: {out}")
+    _gates(out, "resumed 4x1 step vs the 2x2 step")
+    return out
+
+
+def mesh_train_moe(torch):
+    """(b): granite-moe-1b-a400m + SWAT at full width, 4 layers, fp32, on
+    a 1x4 and a 2x2 LocalMesh (phase 8's batch, whose skewed tokens make
+    capacity drop slots; the 2x2 mesh ranks them over its 'data' rows): the sort dispatch against the
+    plain single-device step (global capacity: the same slots drop), and
+    the ep dispatch (`set_expert_parallel`) against the single-device
+    model whose MoE layers run the same expert-parallel function on the
+    same mesh; loss, aux loss and every gradient leaf within
+    MESH_LOSS_BOUND / MESH_GRAD_BOUND; the all-to-alls counted and their
+    bytes beside `ep_wire_bytes_per_device`. The control, the 2x2 sort
+    dispatch with each shard ranking its own slots, must leave the
+    bounds."""
+    import dataclasses
+    from repro_torch.core import model as Mod
+    from repro_torch.core import moe as M
+    from repro_torch.core import moe_ep as EP
+    from repro_torch.launch.mesh import LocalMesh
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(granite_cfg("float32"),
+                              num_layers=MESH_TRAIN["layers"])
+    params = Mod.init_model(cfg, seed=0, device="cuda")
+    batch = _train_batches(torch, cfg, 1)[0]
+    out = {"layers": cfg.num_layers, "dtype": "float32",
+           "loss_bound": MESH_LOSS_BOUND, "grad_bound": MESH_GRAD_BOUND}
+    sent = {"calls": 0, "token_bytes": 0, "dropped": 0}
+    ranks = M.group_ranks
+
+    def dropping(ids, cap, n):
+        r, keep = ranks(ids, cap, n)
+        if n == sent["buckets"]:
+            sent["dropped"] += int((~keep).sum())
+        return r, keep
+
+    def cell(shape, dispatch, b, control=False):
+        mesh = LocalMesh(shape, ("data", "model"))
+        a2a = mesh.all_to_all
+
+        def counting(xs, axis, split_dim, concat_dim):
+            sent["calls"] += 1
+            if xs[0].dim() == 3:                # the (n, cap, D) buffers
+                sent["token_bytes"] += sum(x.numel() * x.element_size()
+                                           for x in xs)
+            return a2a(xs, axis, split_dim, concat_dim)
+
+        mesh.all_to_all = counting
+        dcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=dispatch))
+        plan = _mesh_plan_step(torch, dcfg, mesh, adamw.AdamWConfig()).plan
+        placed = plan.place(params)
+        if dispatch == "ep":
+            M.set_expert_parallel(mesh)
+        slot_ranks = EP.slot_ranks
+        if control:                             # each shard on its own
+            EP.slot_ranks = lambda m, ids, cap, n, *a, **k: slot_ranks(
+                m, ids, cap, n)
+        try:
+            plain, _, plain_ms = _counted(
+                torch, lambda: _loss_grads(torch, params, dcfg, b, None))
+            sent.update(calls=0, token_bytes=0, dropped=0,
+                        buckets=plan.m if dispatch == "ep" else cfg.moe
+                        .num_experts)
+            M.group_ranks = dropping
+            got, counts, ms = _counted(torch, lambda: _mesh_loss_grads(
+                torch, plan, dcfg, placed, b))
+        finally:
+            M.set_expert_parallel(None)
+            M.group_ranks, EP.slot_ranks = ranks, slot_ranks
+        res = {**_grad_gap(params, got, plain), "loss_grad_ms": ms,
+               "loss_grad_ms_plain": plain_ms, "launches": counts,
+               "slots_dropped": sent["dropped"]}
+        if dispatch == "ep":
+            t_local = (b["tokens"].numel() // mesh.size)
+            res.update(
+                all_to_all_calls=sent["calls"],
+                all_to_all_calls_expected=3 * cfg.num_layers * 2,
+                # tokens there and back a layer, two forward passes (remat)
+                exchanged_bytes_per_shard_layer=sent["token_bytes"]
+                // (2 * cfg.num_layers * mesh.size),
+                ep_wire_bytes_per_device=EP.ep_wire_bytes_per_device(
+                    t_local, cfg.moe.top_k, cfg.d_model, bytes_per_el=4))
+            if sent["calls"] != res["all_to_all_calls_expected"]:
+                raise AssertionError(f"ep all-to-alls: {res}")
+        return res
+
+    for shape in ((1, 4), (2, 2)):
+        name = "x".join(map(str, shape))
+        for dispatch in ("sort", "ep"):
+            res = cell(shape, dispatch, batch)
+            out[f"{dispatch} {name}"] = res
+            log(f"phase 29 (b) {dispatch} {name}: {json.dumps(res)}")
+            where = f"mesh train ({dispatch}, {name}) vs the plain step"
+            _gates(res, where, loss_bound=MESH_LOSS_BOUND,
+                   grad_bound=MESH_GRAD_BOUND)
+            if res["aux_diff"] > MESH_LOSS_BOUND:
+                raise AssertionError(f"{where}, aux: {res}")
+    if not out["sort 2x2"]["slots_dropped"]:
+        raise AssertionError(f"(b): no slot dropped on 2x2: {out}")
+    ctl = cell((2, 2), "sort", batch, control=True)
+    out["control: sort 2x2 ranked per shard"] = ctl
+    log(f"phase 29 (b) control: {json.dumps(ctl)}")
+    if _within(ctl, MESH_LOSS_BOUND, MESH_GRAD_BOUND) and (
+            ctl["aux_diff"] <= MESH_LOSS_BOUND):
+        raise AssertionError(f"(b): the per-shard ranking control stays "
+                             f"within the bounds: {ctl}")
+    return out
+
+
+def mesh_train_process(torch, cfg):
+    """(c): a one-rank NCCL process group and ProcessMesh (1x1): one train
+    loss and gradient of llama at full width, 4 layers, against the plain
+    step (bitwise, or within phase 9's gates), then one AdamW step; the
+    plan's psums and the gradients' all-reduces issued to NCCL and counted
+    (a one-rank axis splits nothing, so nothing is gathered), none over a
+    wire."""
+    import dataclasses
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core import model as Mod
+    from repro_torch.launch import mesh as ML
+    from repro_torch.optim import adamw
+    cfg4 = dataclasses.replace(cfg, num_layers=MESH_TRAIN["layers"])
+    params = Mod.init_model(cfg4, seed=0, device="cuda")
+    batch = _train_batches(torch, cfg4, 1)[0]
+    plain, plain_counts, plain_ms = _counted(
+        torch, lambda: _loss_grads(torch, params, cfg4, batch, None))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        pm = ML.make_debug_mesh(1, 1, process=True, device_type="cuda")
+        step = _mesh_plan_step(torch, cfg4, pm, adamw.AdamWConfig())
+        placed = step.plan.place(params)
+        got, counts, ms = _counted(torch, lambda: _mesh_loss_grads(
+            torch, step.plan, cfg4, placed, batch))
+        state = step.plan.place({"params": params,
+                                 "opt": adamw.init_opt_state(params)})
+        _, _, m = step([state[0]["params"]], [state[0]["opt"]], batch)
+        adamw_loss = float(m["loss"])
+        backend = dist.get_backend(pm.device_mesh.get_group("model"))
+    finally:
+        dist.destroy_process_group()
+    out = {"mesh": repr(pm), "backend": backend,
+           "collectives": dict(pm.calls), "wire_ops": pm.wire_ops,
+           "bitwise": (got[0] == plain[0] and all(
+               torch.equal(a, b) for a, b in zip(got[2], plain[2]))),
+           **_grad_gap(params, got, plain), "launches": counts,
+           "launches_plain": plain_counts, "loss_grad_ms": ms,
+           "loss_grad_ms_plain": plain_ms, "adamw_loss": adamw_loss}
+    if counts != plain_counts:
+        raise AssertionError(f"process mesh train launches: {out}")
+    if pm.wire_ops or not pm.calls["all_reduce"]:
+        raise AssertionError(f"process mesh train collectives: {out}")
+    _gates(out, "process mesh train step vs the plain step",
+           loss_bound=MESH_LOSS_BOUND, grad_bound=MESH_GRAD_BOUND)
+    return out
+
+
+def train_mesh(torch, cfg, holder, phase8, card):
+    """Phase 29: (a) the 2x2 mesh step on phase 8's state, (b) granite-moe
+    with sort and ep on 1x4 and 2x2, (c) the one-rank NCCL mesh, (d) the
+    elastic restore of (a)'s state. `holder["state"]` is phase 8's state, which
+    this phase consumes (its params and moments are updated in place)."""
+    t0 = time.perf_counter()
+    params, opt, _, batch = holder.pop("state")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steady = sum(phase8["step_ms"][1:]) / (len(phase8["step_ms"]) - 1)
+    res = {}
+    res["llama_2x2"], step, placed = mesh_train_llama(
+        torch, cfg, params, opt, batch, steady)
+    del params, opt
+    batches = _train_batches(torch, cfg, 2)
+    res["elastic"] = mesh_elastic(torch, cfg, step, placed, [batch,
+                                                             batches[1]])
+    del placed, step
+    torch.cuda.empty_cache()
+    res["granite"] = mesh_train_moe(torch)
+    res["process_1x1"] = mesh_train_process(torch, cfg)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 29 ({card}): " + json.dumps(
+        {"step_ms_2x2": res["llama_2x2"]["adamw_step_ms"],
+         "phase8_step_ms": steady, "phase_s": res["phase_s"]}))
+    return res
 
 
 # ------------------------------------------------------------ phase 12 ---
@@ -5525,7 +5981,11 @@ def main():
     ttrace = trace_train_step(torch, tr_state)
     # phase 27: context parallelism and the pipeline, on phase 8's params
     cp27 = context_pipeline(torch, cfg, tr_state, card)
+    # phase 29: training on a mesh, on phase 8's state (consumed here)
+    holder = {"state": tr_state}
     del tr_state
+    mesh29 = train_mesh(torch, cfg, holder, tr, card)
+    mesh_launch = mesh29["llama_2x2"]["launches"]
     # phase 28: serving on a mesh, on phase 3's cell
     mesh28 = serve_mesh(torch, cfg, tokens, card)
     tr_e2e = train_end_to_end(torch, cfg)
@@ -5551,7 +6011,8 @@ def main():
          "replaces": "src/repro/kernels/swat_attention.py:64",
          "launches": summary["launches"]["swat_attention_fwd"]
          + moe_launch["default"]["swat_attention_fwd"]
-         + jamba_launch["swat_attention_fwd"],
+         + jamba_launch["swat_attention_fwd"]
+         + mesh_launch["swat_attention_fwd"],
          "max_abs_err": fwd_err, "ms": fk, "plain_ms": fp,
          "bound_ms": fb_ms, "bound_by": fb_by, "library_ms": fl},
         {"name": "swat_decode_plain", "route": "cuda",
@@ -5603,7 +6064,8 @@ def main():
                           if key == "dq" else
                           "src/repro/kernels/swat_backward.py:93"),
              "launches": tr_launches[counted]
-             + moe24["train"]["launches"][counted], "max_abs_err": err,
+             + moe24["train"]["launches"][counted]
+             + mesh_launch[counted], "max_abs_err": err,
              "ms": ms,
              "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": l_ms})
@@ -5709,6 +6171,7 @@ def main():
     log(f"context parallelism and pipeline (phase 27; {card}): "
         f"{json.dumps(cp27)}")
     log(f"serving on a mesh (phase 28; {card}): {json.dumps(mesh28)}")
+    log(f"training on a mesh (phase 29; {card}): {json.dumps(mesh29)}")
     log(f"e2e: {json.dumps(e2e)}")
     log(f"trace: {json.dumps(trace)}")
     log(f"unembed: {json.dumps(unembed)}")

@@ -18,9 +18,12 @@ Guarantees:
     thread (so later in-place updates of the state cannot reach the
     checkpoint) and a worker thread writes the files; `wait()` joins it and
     re-raises a failed write.
+  * elastic   - checkpoints hold global leaves: `save(sharding=)` gathers
+    a state placed on a mesh (`distributed.sharding.Placement`) and
+    `restore(sharding=)` places the global leaves on a mesh, which need not
+    be the one that saved.
 numpy has no bfloat16: bf16 leaves are stored as their raw bytes (uint8),
-with the dtype in the manifest. Restoring onto another mesh (resharding)
-belongs to the distributed slice.
+with the dtype in the manifest.
 """
 from __future__ import annotations
 
@@ -55,7 +58,8 @@ def _from_host(a: np.ndarray, shape, dtype_name: str) -> torch.Tensor:
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"unknown dtype in checkpoint manifest: "
                          f"{dtype_name!r}")
-    t = torch.from_numpy(np.array(a))
+    # np.load gives a fresh, writable array: no copy needed
+    t = torch.from_numpy(a if a.flags.writeable else np.array(a))
     if dtype == torch.bfloat16:
         t = t.view(torch.bfloat16)
     return t.reshape(shape).to(dtype)
@@ -71,9 +75,17 @@ class CheckpointManager:
         self._error: Optional[Exception] = None
 
     # ------------------------------------------------------------- save ----
-    def save(self, step: int, state: Any, blocking: bool = False) -> None:
+    def save(self, step: int, state: Any, blocking: bool = False,
+             sharding=None) -> None:
         """Device->host copies happen here, on the caller's thread; file IO
-        on the worker unless `blocking`."""
+        on the worker unless `blocking`. sharding: the `Placement` of a
+        state placed on a mesh (a list over the local coordinates), whose
+        global leaves are gathered and saved (on a ProcessMesh every rank
+        gathers and the rank at coordinate (0, ..., 0) writes)."""
+        if sharding is not None:
+            state = sharding.gather(state)
+            if not sharding.is_writer:
+                return
         items = [(path, *_to_host(leaf))
                  for path, leaf in tree.flatten_with_paths(state)]
         if blocking:
@@ -152,10 +164,14 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any, device=None) -> Any:
+    def restore(self, step: int, like: Any, device=None,
+                sharding=None) -> Any:
         """A tree shaped like `like` with the saved leaves, each in its
         `like` leaf's dtype, on `device` (default: that leaf's device).
-        Raises ValueError when the saved tree does not match `like`."""
+        Raises ValueError when the saved tree does not match `like`.
+        sharding: a `Placement` (a mesh and a spec per leaf) of the global
+        tree `like`; the result is then that placement's list over the
+        local coordinates of trees of shards, on any mesh."""
         d = self.root / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         refs = tree.flatten_with_paths(like)
@@ -173,4 +189,5 @@ class CheckpointManager:
                                manifest["dtypes"][i])
                 dev = ref.device if device is None else device
                 out.append(t.to(device=dev, dtype=ref.dtype))
-        return tree.unflatten(like, out)
+        out = tree.unflatten(like, out)
+        return out if sharding is None else sharding.place(out)

@@ -85,6 +85,15 @@ def apply_rope(x: torch.Tensor, positions: Optional[torch.Tensor] = None,
     return out.to(x.dtype)
 
 
+def with_activation_constraint(xs, plan):
+    """The residual re-laid to a training plan's activation layout at a
+    super-block boundary (`distributed.train_parallel.TrainPlan.constrain`:
+    batch over ('pod', 'data'), sequence over 'model' under sequence
+    parallelism), the JAX package's sharding constraint. A no-op without a
+    plan, so call sites stay unconditional."""
+    return xs if plan is None else plan.constrain(xs)
+
+
 @functools.lru_cache(maxsize=32)
 def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:
     """(length, d) fp32 absolute position table (whisper): sin in the even

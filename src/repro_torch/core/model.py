@@ -134,10 +134,12 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     JAX package's distributions (normal*0.02 embeddings, truncated-normal
     fan-in weights, zero norm scales). The values differ from the JAX
     package's for the same seed; parity tests convert JAX params instead
-    (`interop.params_from_jax`)."""
+    (`interop.params_from_jax`). On the meta device: the shapes only."""
     _check_supported(cfg)
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # the meta device (shapes only, for placement plans) has no generator
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     dt = _dtype(cfg)
     params: Params = {}
     if cfg.embed_inputs:
@@ -234,11 +236,25 @@ def _train_ffn(p: Params, cfg: ModelConfig, x):
     return _ffn(p, cfg, x), None
 
 
+def cross_entropy_sum(logits, targets):
+    """(sum of the next-token losses in fp32, counted tokens) of logits
+    (B, T, V) against their targets (B, T) (a target < 0 masks its
+    position)."""
+    logits = logits.float()
+    valid = targets >= 0
+    tsafe = torch.where(valid, targets, 0)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, tsafe[..., None])[..., 0]
+    nll = torch.where(valid, lse - picked, 0.0)
+    return nll.sum(), valid.sum()
+
+
 def _add_aux(aux, a):
-    """aux + a, where None stands for no MoE layer yet."""
+    """aux + a per coordinate (lists), where None stands for no MoE layer
+    yet."""
     if a is None:
         return aux
-    return a if aux is None else aux + a
+    return a if aux is None else [x + y for x, y in zip(aux, a)]
 
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -265,52 +281,70 @@ REMAT_POLICIES = {
 
 def _stack_forward(blocks, cfg: ModelConfig, x, *, impl: Optional[str],
                    remat: bool, remat_policy: str = "nothing",
-                   enc_out=None):
+                   enc_out=None, plan=None):
     """Run every super-block (enc_out: the encoder's output, which "xattn"
     layers attend). With `remat` (and autograd recording), each
     super-block is a `torch.utils.checkpoint` region under
     REMAT_POLICIES[remat_policy]: its activations are recomputed in the
     backward pass (the JAX package's jax.checkpoint around the scan body).
     Returns (x, aux): aux is the MoE layers' aux loss summed over every
-    layer of every super-block, an fp32 scalar (zero without MoE)."""
+    layer of every super-block, an fp32 scalar (zero without MoE).
+
+    plan: a mesh's training plan (`OneDevice`'s training hooks, answered by
+    `distributed.train_parallel.TrainPlan`); `blocks` and `x` are then lists
+    over its local coordinates, and so are the returned x and aux. The
+    residual is re-laid to the plan's activation layout before the first
+    super-block and after each one (`layers.with_activation_constraint`),
+    and each super-block starts from the plan's block input; a remat
+    region recomputes the plan's collectives too, in the same order."""
+    one = plan is None
+    if one:
+        blocks, x, plan = [blocks], [x], ONE_DEVICE
     policy = REMAT_POLICIES[remat_policy]
 
-    def block_fn(x, blk):
+    def block_fn(xs, blks):
+        xs = plan.block_input(xs)
         aux = None
         for i, kind in enumerate(cfg.layer_pattern):
-            p = blk[f"l{i}"]
-            h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+            lps = [b[f"l{i}"] for b in blks]
+            hs = [L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+                  for p, x in zip(lps, xs)]
+            ws = plan.layer_mixer(lps, i)
             if _is_mamba(kind):
-                x = x + S.mamba_block(p["mixer"], h, cfg.ssm,
-                                      chunk=cfg.ssm.chunk_size)
+                ys = [S.mamba_block(w, h, cfg.ssm, chunk=cfg.ssm.chunk_size)
+                      for w, h in zip(ws, hs)]
             else:
-                x = x + L.attention_layer(p["mixer"],
-                                          attn_cfg(cfg, kind, index=i), h,
-                                          impl=impl)
+                acfg = plan.attn_cfg(cfg, kind, i)
+                ys = plan.attn_out(i, [
+                    L.attention_layer(w, acfg, h, impl=impl)
+                    for w, h in zip(ws, hs)])
+            xs = [x + y for x, y in zip(xs, ys)]
             if kind == "xattn":
-                h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
-                x = x + L.attention_layer(p["cross"],
-                                          attn_cfg(cfg, kind, cross=True), h,
-                                          kv_x=enc_out, impl=impl)
-            x, a = _train_ffn(p, cfg, x)
+                xs = [x + L.attention_layer(
+                    p["cross"], attn_cfg(cfg, kind, cross=True),
+                    L.rmsnorm(p["norm_x"], x, cfg.norm_eps), kv_x=enc_out,
+                    impl=impl) for p, x in zip(lps, xs)]
+            xs, a = plan.train_ffn(lps, cfg, i, xs)
             aux = _add_aux(aux, a)
-        return x, aux
+        return L.with_activation_constraint(xs, plan), aux
 
     kw = {}
     if policy is not None:
         kw["context_fn"] = functools.partial(
             ckpt.create_selective_checkpoint_contexts, policy)
-    aux = None
-    for blk in blocks:
+    xs, aux = L.with_activation_constraint(x, plan), None
+    for sb in range(len(blocks[0])):
+        blks = [b[sb] for b in blocks]
         if remat and torch.is_grad_enabled():
-            x, a = ckpt.checkpoint(block_fn, x, blk, use_reentrant=False,
-                                   **kw)
+            xs, a = ckpt.checkpoint(block_fn, xs, blks, use_reentrant=False,
+                                    **kw)
         else:
-            x, a = block_fn(x, blk)
+            xs, a = block_fn(xs, blks)
         aux = _add_aux(aux, a)
     if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux
+        aux = [torch.zeros((), dtype=torch.float32, device=y.device)
+               for y in xs]
+    return (xs[0], aux[0]) if one else (xs, aux)
 
 
 def encode(params: Params, cfg: ModelConfig, batch, *,
@@ -328,38 +362,61 @@ def encode(params: Params, cfg: ModelConfig, batch, *,
 
 
 def _forward(params: Params, cfg: ModelConfig, batch, *,
-             impl: Optional[str], remat: bool, remat_policy: str):
-    """(full-sequence fp32 logits, summed MoE aux loss)."""
+             impl: Optional[str], remat: bool, remat_policy: str,
+             plan=None):
+    """(final hidden states, summed MoE aux loss); with a plan, lists over
+    its local coordinates (a mesh refuses encoder-decoder configs)."""
     _check_supported(cfg)
+    if plan is not None:
+        xs = plan.embed(params, cfg, batch)
+        return _stack_forward([p["blocks"] for p in params], cfg, xs,
+                              impl=impl, remat=remat,
+                              remat_policy=remat_policy, plan=plan)
     enc_out = (encode(params, cfg, batch, impl=impl)
                if cfg.encoder_decoder else None)
     x = embed_tokens(params, cfg, batch)
-    x, aux = _stack_forward(params["blocks"], cfg, x, impl=impl, remat=remat,
-                            remat_policy=remat_policy, enc_out=enc_out)
-    return _unembed(params, cfg, x), aux
+    return _stack_forward(params["blocks"], cfg, x, impl=impl, remat=remat,
+                          remat_policy=remat_policy, enc_out=enc_out)
 
 
 def forward_logits(params: Params, cfg: ModelConfig, batch, *,
                    impl: Optional[str] = None, remat: bool = False,
-                   remat_policy: str = "nothing") -> torch.Tensor:
+                   remat_policy: str = "nothing", plan=None):
     """Full-sequence logits (B, L, V), fp32 (MoE layers run the spec's
     dispatch, as in training). `remat` recomputes each super-block in the
-    backward pass (training); serving leaves it off."""
-    return _forward(params, cfg, batch, impl=impl, remat=remat,
-                    remat_policy=remat_policy)[0]
+    backward pass (training); serving leaves it off. plan: a mesh's
+    training plan; params and batch are then lists over its local
+    coordinates, and so are the logits (each coordinate's rows, every
+    position)."""
+    x, _ = _forward(params, cfg, batch, impl=impl, remat=remat,
+                    remat_policy=remat_policy, plan=plan)
+    if plan is None:
+        return _unembed(params, cfg, x)
+    return plan.logits(params, cfg, x)
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch, *,
             impl: Optional[str] = None, remat: bool = True,
-            aux_weight: float = 0.01, remat_policy: str = "nothing"):
+            aux_weight: float = 0.01, remat_policy: str = "nothing",
+            plan=None):
     """Next-token cross entropy in fp32 plus `aux_weight` times the MoE
     layers' load-balance loss summed over layers. batch["labels"]: (B, L)
     int; positions with label < 0 are masked out. Returns (total, {"loss",
     "aux_loss", "tokens"}) as 0-dim tensors; aux_loss is zero without MoE
-    layers."""
-    logits, aux = _forward(params, cfg, batch, impl=impl, remat=remat,
-                           remat_policy=remat_policy)
-    loss, denom = cross_entropy(logits, batch["labels"])
+    layers.
+
+    plan: a mesh's training plan (`distributed.train_parallel.TrainPlan`);
+    params and batch are then lists over its local coordinates (each
+    coordinate's param shards and its batch rows), and `total` is the list
+    of the coordinates' objectives: their sum over the whole mesh is the
+    total above, so that the gradient of that sum, through the
+    collectives' transposes, is the single-device gradient. The metrics
+    are the global values, on every coordinate."""
+    x, aux = _forward(params, cfg, batch, impl=impl, remat=remat,
+                      remat_policy=remat_policy, plan=plan)
+    if plan is not None:
+        return plan.objective(params, cfg, x, batch, aux, aux_weight)
+    loss, denom = cross_entropy(_unembed(params, cfg, x), batch["labels"])
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux_loss": aux,
                    "tokens": denom.to(torch.float32)}
@@ -369,16 +426,9 @@ def cross_entropy(logits, labels):
     """Next-token cross entropy in fp32 of (B, L, V) logits against (B, L)
     labels (label < 0 masks a position). Returns (mean loss, counted
     tokens)."""
-    labels = labels.long()
-    logits = logits[:, :-1].float()
-    targets = labels[:, 1:]
-    valid = targets >= 0
-    tsafe = torch.where(valid, targets, 0)
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, tsafe[..., None])[..., 0]
-    nll = torch.where(valid, lse - picked, 0.0)
-    denom = torch.clamp(valid.sum(), min=1)
-    return nll.sum() / denom, denom
+    total, count = cross_entropy_sum(logits[:, :-1], labels.long()[:, 1:])
+    denom = torch.clamp(count, min=1)
+    return total / denom, denom
 
 
 # --------------------------------------------------------------- serving ---
@@ -487,6 +537,27 @@ class OneDevice:
 
     def ffn(self, ps, cfg: ModelConfig, sb: int, i: int, xs):
         return [_ffn(p["blocks"][sb][f"l{i}"], cfg, x) for p, x in zip(ps, xs)]
+
+    # training hooks (`_stack_forward`): lps are the coordinates' params of
+    # one layer of one super-block
+    def block_input(self, xs):
+        """A super-block's input from the boundary layout."""
+        return xs
+
+    def constrain(self, xs):
+        """The residual re-laid to the activation layout at a super-block
+        boundary (`layers.with_activation_constraint`)."""
+        return xs
+
+    def layer_mixer(self, lps, i: int):
+        return [p["mixer"] for p in lps]
+
+    def train_ffn(self, lps, cfg: ModelConfig, i: int, xs):
+        """(the FFN's outputs, its aux losses or None) per coordinate."""
+        out = [_train_ffn(p, cfg, x) for p, x in zip(lps, xs)]
+        auxes = [a for _, a in out]
+        return ([y for y, _ in out],
+                None if auxes[0] is None else auxes)
 
 
 ONE_DEVICE = OneDevice()

@@ -2,20 +2,26 @@
 `core/moe.py`).
 
 Three dispatches, as in the JAX package:
-  sort  - tokens are sorted by expert id (a stable sort), ranked within
-          their expert, dropped beyond capacity, written into an (E, C, D)
-          buffer, run through batched SwiGLU experts and combined back,
-          weighted by their gate, in fp32. The combine gathers each routed
-          slot's expert output through the inverse of the sort and sums the
-          k slots of a token, so no atomic add decides the sum's order: a
-          train step on the card is deterministic.
+  sort  - each routed slot is ranked within its expert (a stable sort),
+          dropped beyond capacity, written into an (E, C, D) buffer, run
+          through batched SwiGLU experts and combined back, weighted by
+          its gate, in fp32. The combine reads each routed slot's expert
+          output back at its own position and sums the k slots of a
+          token, so no atomic add decides the sum's order: a train step on
+          the card is deterministic. The pieces (`group_ranks`, `fill`,
+          `run_slots`, `combine`) also make up a mesh's sort dispatch and
+          the expert parallel body.
   dense - tokens stationary: every expert runs on every token and the
           outputs are combined by the sparse gate matrix. No capacity, no
           drops, and a row's output does not depend on its batch-mates,
           which continuous batching needs: the serving sites call it.
-  ep    - expert parallelism needs a mesh (ROADMAP item 13); without one the
-          JAX package falls through to the sort schedule, and so does the
-          port.
+  ep    - expert parallelism (`core/moe_ep.py`): tokens travel to their
+          experts' shards by all-to-all over the 'model' axis of the mesh
+          that `set_expert_parallel` registered, when the experts divide
+          it; otherwise (no mesh, no 'model' axis, an indivisible expert
+          count) the JAX package falls through to the sort schedule, and
+          so does the port. Inside a mesh train step the plan runs it on
+          its own shards (`distributed/train_parallel.py`).
 
 Top-k selection breaks ties towards the lower expert index, as
 `jax.lax.top_k` does (`torch.topk` does not promise an order), so a zero
@@ -38,6 +44,27 @@ from repro_torch.core.types import MoESpec
 
 Params = Dict[str, Any]
 DISPATCHES = ("sort", "dense", "ep")
+# the sort and ep dispatches' capacity factor, as in the JAX package
+CAPACITY_FACTOR = 1.25
+
+_EP_MESH = None   # set by the caller (as ops.set_context_parallel)
+
+
+def set_expert_parallel(mesh) -> None:
+    """Register the mesh (a LocalMesh or ProcessMesh) whose 'model' axis
+    the "ep" dispatch runs over; None unregisters it."""
+    global _EP_MESH
+    _EP_MESH = mesh
+
+
+def expert_parallel_mesh(num_experts: int):
+    """The registered mesh when it has a 'model' axis that divides the
+    experts (the "ep" dispatch then runs there), else None."""
+    mesh = _EP_MESH
+    if (mesh is not None and "model" in mesh.axis_names
+            and num_experts % mesh.shape["model"] == 0):
+        return mesh
+    return None
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, spec: MoESpec,
@@ -87,9 +114,78 @@ def _experts(w: Params, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(h, w["w2"])
 
 
+def sort_capacity(t: int, k: int, e: int, capacity_factor: float) -> int:
+    """The sort dispatch's slots per expert for t tokens."""
+    return int(max(k, min(t, round(t * k * capacity_factor / e))))
+
+
+def group_ranks(ids: torch.Tensor, cap: int, n: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per slot of `ids` (S,) (its bucket in [0, n): an expert, or an expert
+    parallel shard), its rank among the slots of that bucket in slot order
+    (a stable sort, the JAX package's argsort) and whether it fits the
+    capacity (rank < cap)."""
+    order = torch.sort(ids, stable=True).indices
+    counts = torch.zeros(n, dtype=torch.long, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(ids.shape[0], device=ids.device) - starts[
+        ids[order]]
+    return rank, rank < cap
+
+
+def fill(slots: torch.Tensor, bucket, rank, keep, n: int, cap: int,
+         empty=0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The capacity buffer (n * cap, ...) of `slots` (S, ...): slot i at
+    position bucket[i] * cap + rank[i] where keep[i] (each such position
+    holds one slot), `empty` elsewhere; the slots not kept land on a spare
+    row, which is cut off. Returns (buffer, each slot's position, clamped
+    into the buffer: a slot not kept reads a row that is not its own, which
+    the caller weighs by 0)."""
+    at = torch.where(keep, bucket * cap + rank, n * cap)
+    buf = torch.full((n * cap + 1, *slots.shape[1:]), empty,
+                     dtype=slots.dtype, device=slots.device)
+    return buf.index_put((at,), slots)[:-1], at.clamp(max=n * cap - 1)
+
+
+def run_slots(w: Params, slots, expert, rank, keep, cap: int) -> torch.Tensor:
+    """The capacity dispatch's expert pass over w's experts (E_local on dim
+    0): the kept slots (S, D) in an (E_local, cap, D) buffer by (expert,
+    rank), the batched SwiGLU experts, and each slot's output read back
+    (S, D)."""
+    el, d = w["w1"].shape[0], slots.shape[1]
+    buf, at = fill(slots, expert, rank, keep, el, cap)
+    return _experts(w, buf.reshape(el, cap, d)).reshape(el * cap, d)[at]
+
+
+def combine(ys: torch.Tensor, gates: torch.Tensor, keep) -> torch.Tensor:
+    """Each token's k slot outputs ys (T*k, D) weighted by their gates
+    (T, k), 0 where not kept, summed in fp32: (T, D) fp32."""
+    t, k = gates.shape
+    w = torch.where(keep, gates.reshape(-1), 0.0)
+    return (ys.float() * w[:, None]).reshape(t, k, -1).sum(1)
+
+
+def sort_partial(w: Params, xf, gates, ids, rank, keep, cap: int,
+                 lo: int = 0) -> torch.Tensor:
+    """The sort dispatch's share of experts [lo, lo + E_local) (w's) for
+    tokens xf (T, D) routed to `ids` (T, k), given each slot's rank within
+    its expert and whether it fits the capacity: (T, D) fp32. One expert
+    slice (lo = 0, every expert) gives the whole; the shares of every
+    slice summed (a psum over a mesh axis that splits the experts) do
+    too."""
+    t, k = ids.shape
+    flat = ids.reshape(-1)
+    mine = keep & (flat >= lo) & (flat < lo + w["w1"].shape[0])
+    src = torch.arange(t * k, device=xf.device) // k
+    return combine(run_slots(w, xf[src], flat - lo, rank, mine, cap),
+                   gates, mine)
+
+
 def moe_ffn(params: Params, x: torch.Tensor, spec: MoESpec, *,
-            capacity_factor: float = 1.25, return_aux: bool = True,
-            dispatch: Optional[str] = None
+            capacity_factor: float = CAPACITY_FACTOR,
+            return_aux: bool = True, dispatch: Optional[str] = None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x (B, L, D) -> (out (B, L, D) in x's dtype, aux loss: an fp32
     scalar, or None when `return_aux` is False: the JAX package computes
@@ -103,38 +199,22 @@ def moe_ffn(params: Params, x: torch.Tensor, spec: MoESpec, *,
     if dispatch not in DISPATCHES:
         raise ValueError(f"unknown MoE dispatch {dispatch!r} "
                          f"(one of {DISPATCHES})")
+    if dispatch == "ep" and expert_parallel_mesh(e) is not None:
+        from repro_torch.core import moe_ep
+        return moe_ep.moe_ffn_ep(params, x, spec,
+                                 mesh=expert_parallel_mesh(e), axis="model",
+                                 capacity_factor=capacity_factor,
+                                 return_aux=return_aux)
     xf = x.reshape(t, d)
     probs, gates, ids = _route(params, xf, k)
     aux = _aux_loss(probs, ids, e, k) if return_aux else None
     if dispatch == "dense":
         out = dense_partial(params, xf, gates, ids, e).to(x.dtype)
         return out.reshape(b, l, d), aux
-
     # "sort" (and "ep" without a mesh): capacity dispatch
-    cap = int(max(k, min(t, round(t * k * capacity_factor / e))))
-    flat_e = ids.reshape(-1)                                    # (T*k,)
-    order = torch.sort(flat_e, stable=True).indices
-    sorted_e = flat_e[order]
-    counts = _expert_counts(ids, e)
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(t * k, device=x.device) - starts[sorted_e]
-    keep = rank < cap
-    row = sorted_e * cap + torch.where(keep, rank, 0)           # JAX's rank_c
-    # each kept (expert, rank) slot is written by exactly one routed token;
-    # dropped tokens all land on one spare row, which is cut off
-    slot = torch.where(keep, row, e * cap)
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((slot,), xf[order // k])
-    y_buf = _experts(params, buf[:-1].reshape(e, cap, d))       # (E, C, D)
-
-    # combine: back to token-major order through the inverse permutation,
-    # then the fp32 sum over each token's k slots (a dropped slot reads its
-    # expert's row 0 at weight 0, as in the JAX package)
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(t * k, device=x.device)
-    w = torch.where(keep[inv], gates.reshape(-1), 0.0)
-    picked = y_buf.reshape(e * cap, d)[row[inv]].float()
-    out = (picked * w[:, None]).reshape(t, k, d).sum(1)
+    cap = sort_capacity(t, k, e, capacity_factor)
+    rank, keep = group_ranks(ids.reshape(-1), cap, e)
+    out = sort_partial(params, xf, gates, ids, rank, keep, cap)
     return out.to(x.dtype).reshape(b, l, d), aux
 
 

@@ -42,7 +42,8 @@ Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, \
+    Sequence, Tuple
 
 import torch
 
@@ -350,3 +351,71 @@ def placements(spec, mesh_dim_names: Sequence[str]) -> list:
         for a in axes:
             out[order.index(a)] = Shard(d)
     return out
+
+
+class NamedSharding(NamedTuple):
+    """A mesh and a spec: the JAX package's NamedSharding, as the train
+    launcher passes the activation layout (`activation_spec`) to
+    `steps.make_train_step(act_sharding=)` and `Trainer(act_sharding=)`."""
+    mesh: Any
+    spec: P
+
+
+def _block_key(spec, mesh, coord) -> tuple:
+    return tuple((d, tuple(coord[a] for a in entry_axes(e)))
+                 for d, e in enumerate(spec) if e is not None)
+
+
+class Placement:
+    """Where every leaf of a global tree lies on a mesh: `spec_of(path)`
+    gives the spec of the leaf at a `repro_torch.tree` path. A placed tree
+    is a list over the mesh's local coordinates (`mesh.coords()`) of trees
+    of shards; the replicas of one shard on a LocalMesh are one tensor.
+    `CheckpointManager.save` / `restore(sharding=)` take a Placement:
+    checkpoints hold the gathered global leaves, so a run saved on one
+    mesh restores onto another."""
+
+    def __init__(self, mesh, spec_of: Callable[[str], Any]):
+        self.mesh, self.spec_of = mesh, spec_of
+        self.coords = mesh.coords()
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes a gathered tree (the coordinate
+        (0, ..., 0) is local)."""
+        return any(not any(c.values()) for c in self.coords)
+
+    def place(self, tree) -> list:
+        """Each local coordinate's tree of shards (contiguous copies)."""
+        from repro_torch import tree as T
+        items = T.flatten_with_paths(tree)
+        memo: Dict[tuple, torch.Tensor] = {}
+        out = []
+        for coord in self.coords:
+            leaves = []
+            for path, x in items:
+                spec = self.spec_of(path)
+                key = (id(x), _block_key(spec, self.mesh, coord))
+                if key not in memo:
+                    memo[key] = shard_at(x, spec, self.mesh, coord).clone(
+                        memory_format=torch.contiguous_format)
+                leaves.append(memo[key])
+            out.append(T.unflatten(tree, leaves))
+        return out
+
+    @torch.no_grad()
+    def gather(self, trees: list):
+        """The global tree from the local coordinates' trees (on a
+        ProcessMesh, an all-gather over each split axis: every rank calls
+        it)."""
+        from repro_torch import tree as T
+        paths = [p for p, _ in T.flatten_with_paths(trees[0])]
+        per = [T.leaves(t) for t in trees]
+        out = []
+        for j, path in enumerate(paths):
+            xs = [leaves[j] for leaves in per]
+            for d, entry in enumerate(self.spec_of(path)):
+                for a in reversed(entry_axes(entry)):
+                    xs = self.mesh.all_gather(xs, a, d)
+            out.append(xs[0])
+        return T.unflatten(trees[0], out)

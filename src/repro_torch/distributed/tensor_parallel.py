@@ -85,35 +85,19 @@ def _meta(tree):
                         tree)
 
 
-class MeshPlan:
-    """The placement and compute plan of one config on one mesh for an
-    engine of `slots` slots."""
+class PlanBase:
+    """What the serving plan (`MeshPlan`) and the training plan
+    (`distributed.train_parallel.TrainPlan`) share: the per-layer Megatron
+    decisions, taken on the specs without the batch axes (`tp_specs`), and
+    the gathering of whatever else the placement specs (`param_specs`)
+    split."""
 
-    def __init__(self, cfg: ModelConfig, mesh, params, *, slots: int,
-                 max_len: int, lookahead: int, paged: bool,
-                 profile: str = "tp"):
-        if cfg.encoder_decoder:
-            raise NotImplementedError("mesh serving: decoder-only models")
-        self.cfg, self.mesh, self.profile = cfg, mesh, profile
-        self.slots, self.max_len, self.lookahead = slots, max_len, lookahead
-        self.paged = paged
+    def _init_plan(self, cfg: ModelConfig, mesh, param_specs,
+                   tp_specs) -> None:
+        self.cfg, self.mesh = cfg, mesh
         self.coords = mesh.coords()
         self.m = mesh.shape.get("model", 1)
-        vec = Sh.decode_batch_sharding(
-            {"v": torch.empty((slots,), device="meta")}, mesh, slots)["v"]
-        self.slot_axes = Sh.entry_axes(vec[0]) if len(vec) else ()
-        self.groups = 1
-        for a in self.slot_axes:
-            self.groups *= mesh.shape[a]
-        self.spg = slots // self.groups                  # slots per group
-        self.param_specs = Sh.param_sharding_serving(_meta(params), mesh,
-                                                     profile)
-        self.cache_specs = Sh.cache_sharding(
-            self._cache_shapes(slots), mesh)
-        # the contiguous rings' specs: prefill's caches, before insertion
-        self.ring_specs = Sh.cache_sharding(Mod.init_caches(
-            cfg, slots, max_len, lookahead=lookahead, device="meta"), mesh)
-        self._decide()
+        self.param_specs, self._tp_specs = param_specs, tp_specs
 
     # ------------------------------------------------------------ plan --
     def _split(self, entry) -> Tuple[str, ...]:
@@ -132,22 +116,21 @@ class MeshPlan:
                 return False
         return True
 
-    def _decide(self) -> None:
+    def _decide(self, attn_ok=None) -> None:
+        """The plan per layer position; `attn_ok(i)`: a further condition
+        on Megatron attention at position i (the serving caches')."""
         cfg, m = self.cfg, self.m
-        blk = self.param_specs["blocks"][0]
-        cache = self.cache_specs[0]
+        blk = self._tp_specs["blocks"][0]
         self._megatron, self._mlp_tp, self._experts_tp = {}, {}, {}
         for i, kind in enumerate(cfg.layer_pattern):
             p = blk[f"l{i}"]
             if not Mod._is_mamba(kind):
                 a = Mod.attn_cfg(cfg, kind, index=i)
-                heads = "pk" if self.paged else "k"
                 self._megatron[i] = (
                     a.num_heads % m == 0 and a.num_kv_heads % m == 0
                     and all(self._is_model(p["mixer"][k], _ATTN_KEEP[k])
                             for k in p["mixer"])
-                    and self._split(cache[f"l{i}"][heads][
-                        _CACHE_HEADS[heads]]) in ((), ("model",)))
+                    and (attn_ok is None or attn_ok(i)))
             if "mlp" in p:
                 self._mlp_tp[i] = all(self._is_model(p["mlp"][k], d)
                                       for k, d in _MLP_KEEP.items()
@@ -157,7 +140,7 @@ class MeshPlan:
                     cfg.moe.num_experts % m == 0
                     and all(self._is_model(p["moe"][k], 0)
                             for k in ("w1", "w2", "w3")))
-        ps = self.param_specs
+        ps = self._tp_specs
         self.vocab_tp = ("embed" in ps and self._is_model(ps["embed"], 0))
         head_spec = (None if cfg.tie_embeddings else ps["lm_head"])
         self.head_tp = (self.vocab_tp if head_spec is None
@@ -171,6 +154,116 @@ class MeshPlan:
 
     def experts_tp(self, i: int) -> bool:
         return self._experts_tp.get(i, False)
+
+    def member(self, coord) -> int:
+        return coord.get("model", 0)
+
+    # --------------------------------------------------------- gathering --
+    def _foreign(self, spec, keep: Sequence[int]) -> Sh.P:
+        """The entries of spec outside the plan's dims `keep` that split."""
+        return Sh.P(*(None if d in keep or not self._split(e) else e
+                      for d, e in enumerate(spec)))
+
+    def gather(self, xs: Shards, spec, keep: Sequence[int] = ()) -> Shards:
+        """All-gather each coordinate's shard over its foreign axes: the
+        plan-local tensor (dims in `keep` stay split)."""
+        for d, entry in enumerate(self._foreign(spec, keep)):
+            for a in reversed(Sh.entry_axes(entry)):
+                xs = self.mesh.all_gather(xs, a, d)
+        return xs
+
+    def cut(self, x: torch.Tensor, spec, keep: Sequence[int],
+            coord) -> torch.Tensor:
+        """A plan-local tensor's part at coord (the inverse of gather)."""
+        return Sh.shard_at(x, self._foreign(spec, keep), self.mesh, coord)
+
+    # ----------------------------------------------------------- hooks --
+    def _params_of(self, ps: List[dict], specs: dict,
+                   keep: Dict[str, int]) -> List[dict]:
+        """Per coordinate, the param dict `ps` with every foreign split
+        gathered (the leaves named in `keep` stay split on that dim)."""
+        out = [{} for _ in ps]
+        for name in ps[0]:
+            xs = [p[name] for p in ps]
+            if isinstance(xs[0], dict):
+                parts = self._params_of(xs, specs[name], {})
+            else:
+                k = (keep[name],) if name in keep else ()
+                parts = self.gather(xs, specs[name], k)
+            for d, x in zip(out, parts):
+                d[name] = x
+        return out
+
+    def embed(self, ps, cfg: ModelConfig, batches) -> Shards:
+        """Token embeddings per coordinate (`model.embed_tokens`): a
+        vocab-parallel lookup and psum where the table splits the vocab."""
+        tokens = [b["tokens"] for b in batches]
+        tables = [p["embed"] for p in ps]
+        if self.vocab_tp and self.m > 1:
+            tables = self.gather(tables, self.param_specs["embed"], keep=(0,))
+            parts = []
+            for tok, tab, c in zip(tokens, tables, self.coords):
+                vl = tab.shape[0]
+                t = tok.long() - self.member(c) * vl
+                hit = (t >= 0) & (t < vl)
+                parts.append(F.embedding(t.clamp(0, vl - 1), tab)
+                             * hit[..., None].to(tab.dtype))
+            xs = self.mesh.psum(parts, "model")
+        else:
+            tables = self.gather(tables, self.param_specs["embed"])
+            xs = [F.embedding(tok.long(), tab) for tok, tab in zip(tokens,
+                                                                   tables)]
+        if cfg.embed_scale:
+            xs = [x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+                  for x in xs]
+        return xs
+
+    def attn_cfg(self, cfg: ModelConfig, kind: str, i: int):
+        a = Mod.attn_cfg(cfg, kind, index=i)
+        if self.megatron(i):
+            a = dataclasses.replace(a, num_heads=a.num_heads // self.m,
+                                    num_kv_heads=a.num_kv_heads // self.m)
+        return a
+
+    def attn_out(self, i: int, ys: Shards) -> Shards:
+        """One psum over 'model' of a Megatron layer's row-parallel wo."""
+        return self.mesh.psum(ys, "model") if self.megatron(i) else ys
+
+
+
+class MeshPlan(PlanBase):
+    """The placement and compute plan of one config on one mesh for an
+    engine of `slots` slots."""
+
+    def __init__(self, cfg: ModelConfig, mesh, params, *, slots: int,
+                 max_len: int, lookahead: int, paged: bool,
+                 profile: str = "tp"):
+        if cfg.encoder_decoder:
+            raise NotImplementedError("mesh serving: decoder-only models")
+        self.profile = profile
+        self.slots, self.max_len, self.lookahead = slots, max_len, lookahead
+        self.paged = paged
+        specs = Sh.param_sharding_serving(_meta(params), mesh, profile)
+        self._init_plan(cfg, mesh, specs, specs)
+        vec = Sh.decode_batch_sharding(
+            {"v": torch.empty((slots,), device="meta")}, mesh, slots)["v"]
+        self.slot_axes = Sh.entry_axes(vec[0]) if len(vec) else ()
+        self.groups = 1
+        for a in self.slot_axes:
+            self.groups *= mesh.shape[a]
+        self.spg = slots // self.groups                  # slots per group
+        self.cache_specs = Sh.cache_sharding(
+            self._cache_shapes(slots), mesh)
+        # the contiguous rings' specs: prefill's caches, before insertion
+        self.ring_specs = Sh.cache_sharding(Mod.init_caches(
+            cfg, slots, max_len, lookahead=lookahead, device="meta"), mesh)
+        self._decide(self._heads_ride_model)
+
+    def _heads_ride_model(self, i: int) -> bool:
+        """Layer i's cache heads split over 'model' or not at all."""
+        heads = "pk" if self.paged else "k"
+        return self._split(self.cache_specs[0][f"l{i}"][heads][
+            _CACHE_HEADS[heads]]) in ((), ("model",))
 
     def describe(self) -> Dict[str, object]:
         """The plan per layer position (for logs and tests)."""
@@ -219,28 +312,6 @@ class MeshPlan:
             if a in self.mesh.axis_names:
                 size *= self.mesh.shape[a]
         return size if size > 1 and self.slots % size == 0 else 1
-
-    def member(self, coord) -> int:
-        return coord.get("model", 0)
-
-    # --------------------------------------------------------- gathering --
-    def _foreign(self, spec, keep: Sequence[int]) -> Sh.P:
-        """The entries of spec outside the plan's dims `keep` that split."""
-        return Sh.P(*(None if d in keep or not self._split(e) else e
-                      for d, e in enumerate(spec)))
-
-    def gather(self, xs: Shards, spec, keep: Sequence[int] = ()) -> Shards:
-        """All-gather each coordinate's shard over its foreign axes: the
-        plan-local tensor (dims in `keep` stay split)."""
-        for d, entry in enumerate(self._foreign(spec, keep)):
-            for a in reversed(Sh.entry_axes(entry)):
-                xs = self.mesh.all_gather(xs, a, d)
-        return xs
-
-    def cut(self, x: torch.Tensor, spec, keep: Sequence[int],
-            coord) -> torch.Tensor:
-        """A plan-local tensor's part at coord (the inverse of gather)."""
-        return Sh.shard_at(x, self._foreign(spec, keep), self.mesh, coord)
 
     def gather_slots(self, xs: Shards, dim: int = 0) -> Shards:
         """All-gather over the slot axes (minor first): each coordinate
@@ -348,45 +419,6 @@ class MeshPlan:
     # are the local coordinates' param shards (`place_params`), caches
     # their cache trees, xs their activations.
 
-    def _params_of(self, ps: List[dict], specs: dict,
-                   keep: Dict[str, int]) -> List[dict]:
-        """Per coordinate, the param dict `ps` with every foreign split
-        gathered (the leaves named in `keep` stay split on that dim)."""
-        out = [{} for _ in ps]
-        for name in ps[0]:
-            xs = [p[name] for p in ps]
-            if isinstance(xs[0], dict):
-                parts = self._params_of(xs, specs[name], {})
-            else:
-                k = (keep[name],) if name in keep else ()
-                parts = self.gather(xs, specs[name], k)
-            for d, x in zip(out, parts):
-                d[name] = x
-        return out
-
-    def embed(self, ps, cfg: ModelConfig, batches) -> Shards:
-        """Token embeddings per coordinate (`model.embed_tokens`): a
-        vocab-parallel lookup and psum where the table splits the vocab."""
-        tokens = [b["tokens"] for b in batches]
-        tables = [p["embed"] for p in ps]
-        if self.vocab_tp and self.m > 1:
-            parts = []
-            for tok, tab, c in zip(tokens, tables, self.coords):
-                vl = tab.shape[0]
-                t = tok.long() - self.member(c) * vl
-                hit = (t >= 0) & (t < vl)
-                parts.append(F.embedding(t.clamp(0, vl - 1), tab)
-                             * hit[..., None].to(tab.dtype))
-            xs = self.mesh.psum(parts, "model")
-        else:
-            tables = self.gather(tables, self.param_specs["embed"])
-            xs = [F.embedding(tok.long(), tab) for tok, tab in zip(tokens,
-                                                                   tables)]
-        if cfg.embed_scale:
-            xs = [x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-                  for x in xs]
-        return xs
-
     def unembed(self, ps, cfg: ModelConfig, xs) -> Shards:
         """fp32 logits per coordinate (`model._unembed`): vocab-parallel
         head products all-gathered over 'model' where the table splits the
@@ -416,13 +448,6 @@ class MeshPlan:
         keep = _ATTN_KEEP if self._megatron.get(i) else {}
         return self._params_of(
             [p["blocks"][sb][f"l{i}"]["mixer"] for p in ps], specs, keep)
-
-    def attn_cfg(self, cfg: ModelConfig, kind: str, i: int):
-        a = Mod.attn_cfg(cfg, kind, index=i)
-        if self.megatron(i):
-            a = dataclasses.replace(a, num_heads=a.num_heads // self.m,
-                                    num_kv_heads=a.num_kv_heads // self.m)
-        return a
 
     def split_rings(self, acfg) -> int:
         """Kernel #1's split planned for the whole slot batch's rings of the
@@ -467,10 +492,6 @@ class MeshPlan:
                 if x is not dst:
                     dst.copy_(self.cut(x, specs[name],
                                        self.cache_keep(i, name), coord))
-
-    def attn_out(self, i: int, ys: Shards) -> Shards:
-        """One psum over 'model' of a Megatron layer's row-parallel wo."""
-        return self.mesh.psum(ys, "model") if self.megatron(i) else ys
 
     def ffn(self, ps, cfg: ModelConfig, sb: int, i: int,
             xs: Shards) -> Shards:

@@ -11,7 +11,9 @@ Axis names and shapes are the JAX package's:
 
 Both kinds answer one small interface, per axis: `shape[axis]`,
 `axis_names`, `index(axis)`, `coords()`, `shift` (JAX's ppermute by one
-position), `psum`, `pmax`, `all_gather`, `replicated` and `sum_out`. The
+position), `psum`, `pmax`, `all_gather`, `reduce_scatter` (JAX's tiled
+psum_scatter), `all_to_all` (JAX's all_to_all), `replicated` and
+`sum_out`. The
 distributed modules write their per-shard code over LISTS of shards: the
 mesh's local shards of one axis in axis order, or the local shards of the
 whole grid in `coords()` order (row-major over the axes), where an op over
@@ -20,7 +22,9 @@ one axis runs within each line of the other axes:
   ProcessMesh - a `torch.distributed.device_mesh.DeviceMesh` over an
                 initialised process group, one shard per rank: every list
                 has one entry, and the collectives are `batch_isend_irecv`
-                (shift) and `all_reduce` (psum, pmax) on the axis's group.
+                (shift), `all_reduce` (psum, pmax), `all_gather`,
+                `reduce_scatter_tensor` and `all_to_all_single` on the
+                axis's group.
                 Every rank must run the same program: the same collectives
                 in the same order, forward and backward, with the same
                 tensors requiring grad.
@@ -29,16 +33,20 @@ one axis runs within each line of the other axes:
                 JAX package runs its meshes in tests and examples). A list
                 of one axis's n shards, or of the whole grid's shards; the
                 shift moves them along each line with zeros at the edge,
-                the reductions sum or max over each line and the gather
-                concatenates it, in one thread and one autograd graph.
+                the reductions sum or max over each line, the gather
+                concatenates it and the all-to-all trades its chunks, in
+                one thread and one autograd graph.
 
 Gradients are JAX's transposes: the shift's is the opposite shift; psum's is
 the psum of the cotangents (the objective is the sum of what every shard
 computes); `replicated` (a value every shard reads, JAX's replicated
 in_spec) sums its cotangents over the axis; `sum_out` (a per-shard
 contribution summed into one replicated result, JAX's psum under
-out_specs=P()) passes each shard's cotangent back once. pmax has none (the
-JAX package takes it of a stop_gradient'd max).
+out_specs=P()) passes each shard's cotangent back once; the all-gather's is
+the reduce-scatter of the cotangents and the reduce-scatter's the
+all-gather; the all-to-all's is the all-to-all with the split and concat
+dims swapped. pmax has none (the JAX package takes it of a
+stop_gradient'd max).
 
 A ProcessMesh issues every collective it is asked for, over an axis of
 size 1 too (a one-rank group: NCCL or gloo runs it and nothing crosses a
@@ -158,11 +166,39 @@ class LocalMesh:
         return self._per_line(
             xs, axis, lambda ys: [torch.cat(ys, dim=dim)] * len(ys))
 
+    def reduce_scatter(self, xs: Shards, axis: str, dim: int) -> Shards:
+        """The line's sum cut evenly along dim: shard i receives block i."""
+        def line(ys):
+            total = ys[0]
+            for y in ys[1:]:
+                total = total + y
+            return list(torch.chunk(total, len(ys), dim=dim))
+        return self._per_line(xs, axis, line)
+
+    def all_to_all(self, xs: Shards, axis: str, split_dim: int,
+                   concat_dim: int) -> Shards:
+        """Each shard's split_dim cut into n chunks; shard j receives chunk
+        j of every shard of its line, concatenated along concat_dim in
+        axis order."""
+        def line(ys):
+            n = len(ys)
+            parts = [_chunks(y, n, split_dim) for y in ys]
+            return [torch.cat([p[j] for p in parts], dim=concat_dim)
+                    for j in range(n)]
+        return self._per_line(xs, axis, line)
+
     def replicated(self, x: torch.Tensor, axis: str) -> Shards:
         return [x] * self.shape[axis]
 
     def sum_out(self, xs: Shards, axis: str) -> torch.Tensor:
         return self.psum(xs, axis)[0]
+
+
+def _chunks(x: torch.Tensor, n: int, dim: int) -> Tuple[torch.Tensor, ...]:
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide "
+                         f"into {n}")
+    return torch.chunk(x, n, dim=dim)
 
 
 # ------------------------------------------------------- process group ----
@@ -194,6 +230,43 @@ class _AllReduce(torch.autograd.Function):
         return g, None, None, None, None
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh._all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh._reduce_scatter(g, ctx.axis, ctx.dim), None, None,
+                None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh._reduce_scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._all_gather(g, ctx.axis, ctx.dim), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.dims = split_dim, concat_dim
+        return mesh._all_to_all(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (ctx.mesh._all_to_all(g, ctx.axis, concat_dim, split_dim),
+                None, None, None, None)
+
+
 class ProcessMesh:
     """One shard per rank of a `DeviceMesh`."""
 
@@ -206,6 +279,7 @@ class ProcessMesh:
                                               device_mesh.shape))
         # collectives issued, by kind; those over an axis of size > 1
         self.calls: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
+                                      "reduce_scatter": 0, "all_to_all": 0,
                                       "p2p": 0}
         self.wire_ops = 0
 
@@ -262,16 +336,48 @@ class ProcessMesh:
                         group=self._group(axis))
         return y
 
-    def all_gather(self, xs: Shards, axis: str, dim: int) -> Shards:
-        """The axis's shards concatenated along dim, in axis order (no
-        gradient)."""
+    def _all_gather(self, x: torch.Tensor, axis: str, dim: int):
         import torch.distributed as dist
         n = self.shape[axis]
         self._count("all_gather", axis)
-        x = xs[0].detach().contiguous()
+        x = x.detach().contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=self._group(axis))
-        return [torch.cat(parts, dim=dim)]
+        return torch.cat(parts, dim=dim)
+
+    def _reduce_scatter(self, x: torch.Tensor, axis: str, dim: int):
+        import torch.distributed as dist
+        n = self.shape[axis]
+        parts = _chunks(x.detach(), n, dim)
+        self._count("reduce_scatter", axis)
+        out = torch.empty(parts[0].numel(), dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, torch.stack(parts).reshape(-1),
+                                   group=self._group(axis))
+        return out.reshape(parts[0].shape)
+
+    def _all_to_all(self, x: torch.Tensor, axis: str, split_dim: int,
+                    concat_dim: int):
+        import torch.distributed as dist
+        n = self.shape[axis]
+        send = torch.stack(_chunks(x.detach(), n, split_dim)).contiguous()
+        recv = torch.empty_like(send)
+        self._count("all_to_all", axis)
+        dist.all_to_all_single(recv, send, group=self._group(axis))
+        return torch.cat(list(recv.unbind(0)), dim=concat_dim)
+
+    def all_gather(self, xs: Shards, axis: str, dim: int) -> Shards:
+        """The axis's shards concatenated along dim, in axis order."""
+        return [_AllGather.apply(xs[0], self, axis, dim)]
+
+    def reduce_scatter(self, xs: Shards, axis: str, dim: int) -> Shards:
+        """The axis's sum cut evenly along dim: this rank's block."""
+        return [_ReduceScatter.apply(xs[0], self, axis, dim)]
+
+    def all_to_all(self, xs: Shards, axis: str, split_dim: int,
+                   concat_dim: int) -> Shards:
+        """split_dim cut into n chunks, chunk j sent to rank j; the chunks
+        received concatenated along concat_dim in axis order."""
+        return [_AllToAll.apply(xs[0], self, axis, split_dim, concat_dim)]
 
     def shift(self, xs: Shards, axis: str, direction: int = +1) -> Shards:
         return [_Shift.apply(xs[0], self, axis, direction)]

@@ -9,7 +9,13 @@ the JAX package's `launch/steps.py`).
 
 PyTorch runs eagerly, so these are plain closures (no jit). A train step
 updates params and optimizer moments IN PLACE, where the JAX trainer
-donated them, and returns the same objects.
+donated them, and returns the same objects. With `act_sharding` (a mesh
+and its activation spec, `distributed.sharding.NamedSharding`) the train
+step runs on that mesh through the plan's hooks
+(`distributed.train_parallel.TrainPlan`); params, optimizer state and
+residual are then lists over the mesh's local coordinates, placed by
+`train_step.plan.place`. One step body serves both: one device is a list
+of one coordinate (`OneDeviceTraining`).
 """
 from __future__ import annotations
 
@@ -23,37 +29,96 @@ from repro_torch.core.types import ModelConfig
 from repro_torch.optim import adamw, compress
 
 
+class OneDeviceTraining:
+    """The train step's hooks on one device (a mesh's are
+    `distributed.train_parallel.TrainPlan`'s): the params whole, nothing
+    to reduce. Gradients come as lists of trees, one per coordinate."""
+
+    amax_reduce = None
+
+    def train_loss(self, ps, cfg: ModelConfig, batch, **kw):
+        return Mod.loss_fn(ps[0], cfg, batch, **kw)
+
+    def reduce_grads(self, grads):
+        return grads
+
+    def global_norm(self, grads):
+        return adamw.global_norm(grads)
+
+
+def unique_leaves(trees):
+    """The distinct tensors of a list of trees, in order (a LocalMesh's
+    replicas of one shard are one tensor)."""
+    seen, out = set(), []
+    for t in trees:
+        for x in tree.leaves(t):
+            if id(x) not in seen:
+                seen.add(id(x))
+                out.append(x)
+    return out
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
-                    impl: Optional[str] = None,
+                    impl: Optional[str] = None, act_sharding=None,
                     grad_compression: bool = False, remat: bool = True,
                     remat_policy: str = "nothing") -> Callable:
     """train_step(params, opt_state, batch[, residual]) -> (params,
     opt_state, metrics[, residual]). Metrics are 0-dim device tensors:
-    loss, aux_loss, tokens, grad_norm, lr."""
+    loss, aux_loss, tokens, grad_norm, lr. act_sharding: see the module
+    docstring; `train_step.plan` holds the step's hooks (the mesh's
+    `TrainPlan`)."""
+    one = act_sharding is None
+    if one:
+        plan = OneDeviceTraining()
+    else:
+        from repro_torch.distributed import train_parallel
+        plan = train_parallel.TrainPlan(cfg, act_sharding.mesh,
+                                        act_sharding.spec)
+
     def train_step(params, opt_state, batch, residual=None):
-        leaves = tree.leaves(params)
+        ps, opts, rs = (([params], [opt_state], [residual]) if one
+                        else (params, opt_state, residual))
+        leaves = unique_leaves(ps)
         # the params carry requires_grad only inside this step: afterwards
         # serving on them (prefill, decode, the engine) records no autograd
         try:
             with torch.enable_grad():
                 for p in leaves:
                     p.requires_grad_(True)
-                total, metrics = Mod.loss_fn(params, cfg, batch, impl=impl,
-                                             remat=remat,
-                                             remat_policy=remat_policy)
+                total, metrics = plan.train_loss(
+                    ps, cfg, batch, impl=impl, remat=remat,
+                    remat_policy=remat_policy)
                 grads = torch.autograd.grad(total, leaves)
         finally:
             for p in leaves:
                 p.requires_grad_(False)
-        grads = tree.unflatten(params, list(grads))
+        by_id = {id(x): g for x, g in zip(leaves, grads)}
+        grads = plan.reduce_grads([tree.tree_map(lambda x: by_id[id(x)], t)
+                                   for t in ps])
         if grad_compression:
-            grads, residual = compress.compress_decompress(grads, residual)
-        params, opt_state, om = adamw.apply_updates(params, grads, opt_state,
-                                                    opt_cfg)
+            grads, rs = compress.compress_decompress(grads, rs,
+                                                     plan.amax_reduce)
+        gnorm = plan.global_norm(grads)
+        # AdamW once on each distinct param with its gradient and moments
+        quads, seen = [], set()
+        for p, g, o in zip(ps, grads, opts):
+            for q in zip(tree.leaves(p), tree.leaves(g), tree.leaves(o.mu),
+                         tree.leaves(o.nu), strict=True):
+                if id(q[0]) not in seen:
+                    seen.add(id(q[0]))
+                    quads.append(q)
+        p_, g_, mu, nu = (list(x) for x in zip(*quads))
+        _, new, om = adamw.apply_updates(
+            p_, g_, adamw.OptState(opts[0].step, mu, nu), opt_cfg,
+            gnorm=gnorm)
+        opts = [adamw.OptState(new.step, o.mu, o.nu) for o in opts]
         metrics = {k: v.detach() for k, v in {**metrics, **om}.items()}
+        out = (params, opts[0] if one else opts, metrics)
         if grad_compression:
-            return params, opt_state, metrics, residual
-        return params, opt_state, metrics
+            out += (rs[0] if one else rs,)
+        return out
+
+    train_step.plan = plan
     return train_step
 
 

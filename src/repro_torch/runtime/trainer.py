@@ -8,12 +8,20 @@ package's `runtime/trainer.py`).
   * failure drill   - FailureInjector raises at a configured step.
   * straggler watch - steps slower than `straggler_factor` x the running
                       median are flagged in the metrics.
+  * elastic         - checkpoints are mesh-agnostic (gathered global
+                      leaves, placed by the target mesh on restore), so a
+                      run checkpointed on mesh A resumes on mesh B or on
+                      one device.
   * grad compression (optional int8 error feedback).
 
 Runs on the card by default (`TrainConfig.device`); `impl=None` picks the
-CUDA kernels for CUDA tensors and the plain versions for CPU tensors.
-Mesh-sharded training and resharding on restore belong to the distributed
-slice.
+CUDA kernels for CUDA tensors and the plain versions for CPU tensors. With
+`mesh=` (a LocalMesh, or a ProcessMesh under an initialised process group)
+the state is placed on the mesh and every step runs there
+(`distributed.train_parallel`); `act_sharding` is the activation layout
+(`sharding.NamedSharding(mesh, sharding.activation_spec(...))`), by default
+without sequence parallelism. The state is then a list over the mesh's
+local coordinates of state trees.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import model as Mod
 from repro_torch.core.types import ModelConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.distributed import sharding as Sh
 from repro_torch.launch import steps as St
 from repro_torch.optim import adamw, compress
 
@@ -79,16 +88,24 @@ class StragglerWatchdog:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
-                 train_cfg: TrainConfig, data_cfg: DataConfig):
+                 train_cfg: TrainConfig, data_cfg: DataConfig, mesh=None,
+                 act_sharding=None):
         self.cfg, self.opt_cfg, self.tc = cfg, opt_cfg, train_cfg
         self.device = torch.device(train_cfg.device)
         self.data = SyntheticLM(data_cfg)
+        self.mesh = mesh
         self.ckpt = CheckpointManager(train_cfg.ckpt_dir, keep=train_cfg.keep)
         self.watchdog = StragglerWatchdog(train_cfg.straggler_factor)
         self.injector = FailureInjector(train_cfg.fail_at_step)
+        if mesh is not None and act_sharding is None:
+            act_sharding = Sh.NamedSharding(mesh, Sh.activation_spec(
+                mesh, sequence_parallel=False))
         self.step_fn = St.make_train_step(
-            cfg, opt_cfg, impl=train_cfg.impl,
+            cfg, opt_cfg, impl=train_cfg.impl, act_sharding=act_sharding,
             grad_compression=train_cfg.grad_compression)
+        # where a mesh state's leaves lie (None on one device)
+        self.placement = (self.step_fn.plan.placement() if mesh is not None
+                          else None)
 
     # ------------------------------------------------------------ state ----
     def init_state(self) -> Dict[str, Any]:
@@ -101,16 +118,36 @@ class Trainer:
         return state
 
     def resume_or_init(self):
+        """(state, first step): the latest checkpoint's state, else a fresh
+        one; on a mesh, placed there."""
         latest = self.ckpt.latest_step()
         state = self.init_state()
         if latest is None:
+            if self.placement is not None:
+                state = self.placement.place(state)
             return state, 0
-        state = self.ckpt.restore(latest, like=state)
+        state = self.ckpt.restore(latest, like=state,
+                                  sharding=self.placement)
         print(f"[trainer] resumed from step {latest}")
         return state, latest
 
+    def save(self, step: int, state, blocking: bool = False) -> None:
+        self.ckpt.save(step, state, blocking=blocking,
+                       sharding=self.placement)
+
     # ------------------------------------------------------------- loop ----
     def _step(self, state, batch):
+        if self.placement is None:
+            return self._run_step(state, batch)
+        # the local coordinates' states, stepped together
+        parts = {k: [s[k] for s in state] for k in state[0]}
+        out = self._run_step(parts, batch)
+        for k, v in parts.items():
+            for s, x in zip(state, v):
+                s[k] = x
+        return out
+
+    def _run_step(self, state, batch):
         if self.tc.grad_compression:
             (state["params"], state["opt"], metrics,
              state["residual"]) = self.step_fn(state["params"], state["opt"],
@@ -148,11 +185,11 @@ class Trainer:
                           f"gnorm={metrics['grad_norm']:.3f} {dt*1e3:.0f}ms"
                           + (" STRAGGLER" if slow else ""))
                 if (step + 1) % self.tc.ckpt_every == 0:
-                    self.ckpt.save(step + 1, state)
+                    self.save(step + 1, state)
         finally:
             if metrics_f:
                 metrics_f.close()
-        self.ckpt.save(self.tc.total_steps, state, blocking=True)
+        self.save(self.tc.total_steps, state, blocking=True)
         self.ckpt.wait()
         return {"state": state, "history": history,
                 "stragglers": self.watchdog.flagged}

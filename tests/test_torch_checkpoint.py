@@ -1,6 +1,8 @@
 """The port's checkpoint manager, with the cases of tests/test_checkpoint.py:
 roundtrip (bf16 bit-exact), async save and wait, retention, partial
-checkpoints ignored, a mismatched target rejected, overwrite of a step."""
+checkpoints ignored, a mismatched target rejected, overwrite of a step; and
+the elastic restore of tests/test_dryrun.py: a state saved from a 2x2 mesh
+restored onto a 4x1 mesh and onto one device."""
 import json
 
 import numpy as np
@@ -128,3 +130,51 @@ def test_restore_casts_to_the_target_dtype(tmp_path):
     got = m.restore(1, like={"w": torch.zeros(2, 3, dtype=torch.bfloat16)})
     assert got["w"].dtype == torch.bfloat16
     np.testing.assert_array_equal(got["w"].float().numpy(), t["w"].numpy())
+
+
+def test_elastic_restore_across_meshes(tmp_path):
+    """The port's counterpart of test_dryrun.py::
+    test_elastic_checkpoint_across_meshes: granite-moe's JAX params and a
+    fresh optimizer state, placed on a 2x2 mesh and saved (the gathered
+    global leaves), restore onto a 4x1 mesh (each coordinate's shard the
+    global leaf's block there) and onto one device, every leaf equal to
+    the JAX params."""
+    import jax
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.core import model as JM
+    from repro_torch import interop
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import sharding as Sh
+    from repro_torch.distributed import train_parallel as TPL
+    from repro_torch.launch import mesh as ML
+    from repro_torch.optim import adamw
+
+    cfg, tcfg = jax_smoke("granite_moe_1b"), get_smoke_config("granite_moe_1b")
+    jp = jax.tree.map(np.asarray, JM.init_model(jax.random.PRNGKey(0), cfg))
+    params = interop.params_from_jax(jp, tcfg, device="cpu")
+    full = {"params": params, "opt": adamw.init_opt_state(params)}
+    m = CheckpointManager(str(tmp_path), keep=1)
+    plan_a = TPL.TrainPlan(tcfg, ML.make_debug_mesh(2, 2))
+    m.save(1, plan_a.place(full), blocking=True,
+           sharding=plan_a.placement())
+    like = zeros_like(full)
+
+    mesh_b = ML.make_debug_mesh(4, 1)
+    plan_b = TPL.TrainPlan(tcfg, mesh_b)
+    placed = m.restore(1, like=like, sharding=plan_b.placement())
+    assert len(placed) == 4
+    for c, part in zip(mesh_b.coords(), placed):
+        for (path, x), (_, want) in zip(tree.flatten_with_paths(part),
+                                        tree.flatten_with_paths(full),
+                                        strict=True):
+            assert torch.equal(x, Sh.shard_at(want, plan_b.spec_of(path),
+                                              mesh_b, c)), path
+    back = plan_b.gather_tree(placed)
+    one = m.restore(1, like=like, device="cpu")
+    for restored in (back, one):
+        assert_state_equal(restored, full)
+        got = interop.params_to_numpy(restored["params"], tcfg)
+        for (path, a), (_, b) in zip(tree.flatten_with_paths(got),
+                                     tree.flatten_with_paths(jp),
+                                     strict=True):
+            np.testing.assert_array_equal(a, b, err_msg=path)
