@@ -179,7 +179,8 @@ each of which raises on failure:
                jamba's shape.
   26. swatlint - (run after phase 23, on phase 3's params) the port's
                static analysis (`repro_torch.analysis`) on the card: the
-               smoke matrix of `launch/analyze.py` against the committed
+               single-device labels of `launch/analyze.py`'s smoke matrix
+               (its mesh labels run in phase 30) against the committed
                ANALYSIS_torch.json (zero errors, no warning or lowering
                count above the baseline's, every graph key captured and
                replayed); llama3.2-1b + SWAT at full width (bf16, 4 slots,
@@ -290,6 +291,29 @@ each of which raises on failure:
                against the plain step within MESH_LOSS_BOUND /
                MESH_GRAD_BOUND, its collectives counted, none over a
                wire.
+ 30. mesh lint and the paper's baseline - (run after phase 28, ~40 s)
+               (a) swatlint's five mesh labels (`launch/analyze.py`'s
+               slot_parallel_4x1, tp_2x2, chaos_4x1, paged_slot_parallel_4x1
+               and metrics_on, each on a single-process LocalMesh on the
+               card) against the committed ANALYSIS_torch.json: zero
+               errors, no warning, lowering or collective-budget count
+               above the baseline's, every decode hot-path entry of the 4x1
+               engines collective-free, every graph key captured and
+               replayed, each 4x1 scan[n] entry launching #1 n x layers a
+               shard (x 4 shards) and no plain decode kernel; each mesh
+               family's collectives and wire bytes printed beside the JAX
+               package's committed ANALYSIS.json. (b) the negative
+               control: an all-gather over the slot axis added to a 4x1
+               scan body gives a collectives ERROR. (c) the paper's
+               comparison on this card: longformer-paper's attention (12
+               heads, D=64, window 256, bidirectional, no globals: the
+               baseline has no global pass), B=1, L=4096 and 16384, bf16
+               and fp32: ops.swat_attention(impl="sliding_chunks") (plain
+               torch ops, not a kernel) against impl="kernel" (#2) within
+               bf16 atol 3e-2 / fp32 atol 2e-5 rtol 1e-4, #2 against its
+               plain version, both timed (CUDA events, L2 flushed, mean of
+               10), their ratio beside the redundant-FLOP ratio of
+               `patterns.sliding_chunks_flops_ratio` and the card.
  12. plain decode - the plain-mode decode kernel (the fused kernel's
                cluster split without the insert) against its plain version,
                bf16 and fp32, both GQA layouts, two launches bitwise equal,
@@ -427,6 +451,13 @@ DRAFT = dict(max_ngram=3, history=64)
 # workload at the serve cell's 512-token prompts, a system prompt of
 # max(prompt - 16, 16) tokens and a 16-token suffix a request
 SHARED_PREFIX = MAIN["prompt"] - 16
+
+
+# phase 30's paper comparison: longformer-paper's attention
+# (configs/longformer_paper.py: 12 heads of 64, window 256, bidirectional)
+# without its global token (the sliding-chunks baseline has no global
+# pass), one sequence at two lengths
+PAPER = dict(b=1, lengths=(4096, 16384), iters=10)
 
 
 # kernels whose design keeps every register row in registers: a spill in
@@ -5694,13 +5725,15 @@ def swatlint(torch, cfg, params, card):
     from repro_torch.serving.engine import ServingEngine
     t0 = time.perf_counter()
 
-    # (a) the smoke matrix against the committed baseline
-    base = baselines.load()
-    smoke, engines = A.analyze_matrix(A.MATRIX, "cuda", base, log=log)
+    # (a) the smoke matrix's single-device labels against the committed
+    # baseline (the mesh labels: phase 30)
+    labels = [x for x in A.MATRIX if x not in A.MESHES]
+    base = A.restrict(baselines.load(), labels)
+    smoke, engines = A.analyze_matrix(labels, "cuda", base, log=log)
     violations = baselines.diff(smoke, base)
     stale = baselines.is_stale(smoke, base)
     card_w, base_w = _warn_counts(smoke), _warn_counts(base)
-    for label in A.MATRIX:
+    for label in labels:
         log(f"swatlint (a) {label}: card warnings {card_w[label]}, baseline "
             f"{base_w.get(label, {})}; lowerings "
             f"{smoke['engines'][label]['lowerings']}")
@@ -5708,7 +5741,7 @@ def swatlint(torch, cfg, params, card):
         raise AssertionError(f"swatlint (a): {violations + stale}")
     keyed = sum(_captured_keys(engines[label],
                                smoke["engines"][label]["entries"])
-                for label in A.MATRIX)
+                for label in labels)
     del engines
 
     # (b) full width, sequential and speculative
@@ -5823,6 +5856,140 @@ def swatlint(torch, cfg, params, card):
         f"{smoke['summary']['errors']}, {keyed} graph keys captured and "
         "replayed")
     return summary
+
+
+def mesh_lint(torch, card):
+    """Phase 30 (a) and (b): swatlint's mesh labels on the card against
+    the committed baseline, and the slot-axis all-gather control. Returns
+    its summary."""
+    import dataclasses
+    from repro_torch.analysis import baselines
+    from repro_torch.analysis import rules as R, tracer as T
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import analyze as A
+    t0 = time.perf_counter()
+    labels = A.MESH_LABELS
+    base = A.restrict(baselines.load(), labels)
+    rep, engines = A.analyze_matrix(labels, "cuda", base, log=log)
+    violations = baselines.diff(rep, base) + baselines.is_stale(rep, base)
+    if violations:
+        raise AssertionError(f"mesh lint (a): {violations}")
+    layers = get_smoke_config("llama3p2_1b").num_layers
+    out = {}
+    for label in labels:
+        eng = rep["engines"][label]
+        keyed = _captured_keys(engines[label], eng["entries"])
+        if A.MESHES[label] == "4x1":
+            for name, e in eng["entries"].items():
+                if "decode_hot_path" in e["tags"] and e["collectives"]:
+                    raise AssertionError(f"mesh lint (a) {label} {name}: "
+                                         f"collectives {e['collectives']}")
+                if e["family"] != "scan":
+                    continue
+                n = int(name.split("n=")[1].split(",")[0])
+                want = {"swat_decode_fused": n * layers}
+                if e["launches"] != want or e["shards"] != 4:
+                    raise AssertionError(
+                        f"mesh lint (a) {label} {name}: launches a shard "
+                        f"{e['launches']} over {e['shards']} shards, "
+                        f"expected {want} over 4")
+        jax = A.jax_families(label)
+        out[label] = {
+            "errors": eng["summary"]["errors"],
+            "warnings": _warn_counts(rep)[label],
+            "baseline_warnings": _warn_counts(base).get(label, {}),
+            "keys_captured": keyed,
+            "families": {f: {"port": c, "port_wire_bytes": w,
+                             "jax": jax.get(f, ({}, 0.0))[0],
+                             "jax_wire_bytes": jax.get(f, ({}, 0.0))[1]}
+                         for f, (c, w) in
+                         A.family_collectives(eng).items()}}
+
+    # (b) an all-gather over the slot axis in a 4x1 decode body
+    eng = engines["slot_parallel_4x1"]
+    scan = [p for p in T.engine_entry_points(eng) if p.family == "scan"][-1]
+    mp = eng._mp
+
+    def leaky():
+        scan.body()
+        mp.gather_slots(mp.local_rows(eng._dev["tok"], eng._lo))
+    tr = T.trace(dataclasses.replace(scan, body=leaky), capture=False)
+    caught = [(f.rule, f.severity) for f in R.check_collectives(
+        tr, R.budget_for(tr))]
+    if caught != [("collectives", "error")]:
+        raise AssertionError(f"mesh lint (b): the slot-axis all-gather gave "
+                             f"{caught}")
+    del engines
+    wall = time.perf_counter() - t0
+    log(f"mesh lint (phase 30 a-b; {card}): wall {wall:.1f}s, "
+        f"{rep['summary']}, control {caught} (record {tr.record})")
+    return {"labels": out, "summary": rep["summary"],
+            "control": {"findings": caught, "record": tr.record},
+            "wall_s": wall}
+
+
+def paper_baseline(torch, card):
+    """Phase 30 (c): the sliding-chunks baseline against kernel #2 at the
+    paper's model's attention, and their times. Returns the rows."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import patterns
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swat_attention as SA
+    t0 = time.perf_counter()
+    cfg = get_config("longformer-paper")
+    spec = dataclasses.replace(cfg.attention, num_global=0)
+    h, d = cfg.num_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        for length in PAPER["lengths"]:
+            q, k, v = (torch.randn(PAPER["b"], h, length, d, generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(3))
+            pat = ops.get_pattern(spec, length, length, 128, 128)
+            with torch.no_grad():
+                before = route_counts()
+                kern = ops.swat_attention(q, k, v, spec, impl="kernel")
+                torch.cuda.synchronize()
+                check_route(f"paper #2 {dn} L={length}", before, "fwd",
+                            expected_route(dtype, d, "fwd"))
+                plain = SA.banded_plain(q, k, v, spec, pat, d ** -0.5)
+                chunks = ops.swat_attention(q, k, v, spec,
+                                            impl="sliding_chunks")
+                torch.cuda.synchronize()
+            name = f"paper L={length} {dn}"
+            err_plain = check_close(f"{name} #2 vs plain", kern, plain, dn)
+            err = check_close(f"{name} sliding_chunks vs #2", chunks, kern,
+                              dn)
+            if chunks.dtype != dtype:
+                raise AssertionError(f"{name}: sliding_chunks returned "
+                                     f"{chunks.dtype}")
+            del plain, chunks
+            with torch.no_grad():
+                k_ms = time_ms(torch, lambda: ops.swat_attention(
+                    q, k, v, spec, impl="kernel"), iters=PAPER["iters"])
+                c_ms = time_ms(torch, lambda: ops.swat_attention(
+                    q, k, v, spec, impl="sliding_chunks"),
+                    iters=PAPER["iters"])
+            row = {"dtype": dn, "L": length, "heads": h, "d": d,
+                   "window": spec.window, "kernel_ms": k_ms,
+                   "sliding_chunks_ms": c_ms,
+                   "ratio": c_ms / k_ms,
+                   "flops_ratio": patterns.sliding_chunks_flops_ratio(
+                       length, spec.window),
+                   "err_vs_kernel": err, "kernel_err_vs_plain": err_plain}
+            log(f"paper baseline ({card}): L={length} {dn}: kernel #2 "
+                f"{k_ms:.4f} ms, sliding_chunks {c_ms:.4f} ms, ratio "
+                f"{row['ratio']:.2f}x (redundant-FLOP share "
+                f"{row['flops_ratio']:.3f}); max err vs #2 {err:.3g}")
+            rows.append(row)
+            del q, k, v
+    torch.cuda.empty_cache()
+    log(f"paper baseline (phase 30 c; {card}): wall "
+        f"{time.perf_counter() - t0:.1f}s")
+    return rows
 
 
 def ptxas_report(out):
@@ -5988,6 +6155,11 @@ def main():
     mesh_launch = mesh29["llama_2x2"]["launches"]
     # phase 28: serving on a mesh, on phase 3's cell
     mesh28 = serve_mesh(torch, cfg, tokens, card)
+    # phase 30: swatlint on a mesh, and the paper's sliding-chunks baseline
+    t30 = time.perf_counter()
+    lint30 = mesh_lint(torch, card)
+    paper30 = paper_baseline(torch, card)
+    lint30["wall_s_phase"] = time.perf_counter() - t30
     tr_e2e = train_end_to_end(torch, cfg)
     resume = resume_drill(torch)
 
@@ -6172,6 +6344,8 @@ def main():
         f"{json.dumps(cp27)}")
     log(f"serving on a mesh (phase 28; {card}): {json.dumps(mesh28)}")
     log(f"training on a mesh (phase 29; {card}): {json.dumps(mesh29)}")
+    log(f"mesh lint (phase 30; {card}): {json.dumps(lint30)}")
+    log(f"paper baseline (phase 30; {card}): {json.dumps(paper30)}")
     log(f"e2e: {json.dumps(e2e)}")
     log(f"trace: {json.dumps(trace)}")
     log(f"unembed: {json.dumps(unembed)}")

@@ -11,9 +11,13 @@ a clean tree must reproduce it within its own headroom. `--check` fails on
     host position leaking into the graph keys),
   * engines present in the baseline but missing from the fresh run.
 
-New engines/families in the fresh run are reported but do NOT fail — they
-fail the separate "baseline is stale" check so the author is told to bless
-(`analyze --write`) in the same PR that adds the entry point.
+A mesh entry over its family's blessed collective budget is an error
+finding (`rules.check_collectives` with the baseline's `budgets`).
+
+New engines/families (and budget families) in the fresh run are reported
+but do NOT fail — they fail the separate "baseline is stale" check so the
+author is told to bless (`analyze --write`) in the same PR that adds the
+entry point.
 
 The file names call sites by file and function only: `save` leaves out
 the findings' lines (`at`), so an edit elsewhere in a file does not change
@@ -126,6 +130,10 @@ def is_stale(fresh: dict, baseline: Optional[dict]) -> List[str]:
         for family in sorted(set(feng.get("lowerings") or {})
                              - set(beng.get("lowerings") or {})):
             out.append(f"[{label}] new entry family `{family}` not in "
+                       "baseline")
+        for family in sorted(set(feng.get("budgets") or {})
+                             - set(beng.get("budgets") or {})):
+            out.append(f"[{label}] new budget family `{family}` not in "
                        "baseline")
     return out
 

@@ -8,12 +8,21 @@ Report shape (one dict per analyzed engine, merged by the CLI):
                         carries_in_place, ops, launches, collectives,
                         wire_bytes, uploads, upload_bytes, carry_copies
                         (every copy of a freshly built tensor into a carry,
-                        by call site, whatever its size), captured, ...}},
+                        by call site, whatever its size), captured,
+                        shards, ...}},
    "lowerings": {family: distinct compile-key count},
-   "budgets":   {} (single-device entries are collective-free; mesh
-                 budgets come with item 13),
+   "budgets":   {family: blessed CollectiveBudget} (mesh engines: every
+                 family whose entries may issue collectives; single-device
+                 and slot-parallel decode entries are collective-free),
    "findings":  [Finding...],
    "summary":   {"errors": n, "warnings": n, "entries": n}}
+
+A mesh engine's entry reports `carry_bytes` and `launches` per shard (the
+totals over its local shards divided by `shards`), as the JAX report
+counts per device; `collectives` and `wire_bytes` are one shard's, as the
+mesh records them. Blessing (no baseline) records each family's budget:
+the largest count of each kind over its entries, and its largest wire
+bytes times 1.5 (`CollectiveBudget.from_counts`).
 
 Call sites are "file:function", so an edit elsewhere in a file leaves the
 report as it is; a finding's `at` holds its lines for the printout, and
@@ -31,7 +40,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 from repro_torch.analysis import rules as R
 from repro_torch.analysis import tracer as T
-from repro_torch.analysis.collectives import collective_stats
+from repro_torch.analysis.collectives import CollectiveBudget
 from repro_torch.core import layers as L
 
 
@@ -50,10 +59,12 @@ def analyze_entry_points(points: Sequence[T.EntryPoint], *,
     callable that drains them once every entry has run
     (`swat_decode.consume_pad_events`)."""
     base_lowerings = (baseline or {}).get("lowerings") or {}
+    base_budgets = (baseline or {}).get("budgets") or {}
 
     traced: List[T.TracedEntry] = []
     findings: List[R.Finding] = []
     entries: Dict[str, Any] = {}
+    blessed: Dict[str, dict] = {}
 
     for p in points:
         tr = T.trace(p, capture=capture)
@@ -68,19 +79,24 @@ def analyze_entry_points(points: Sequence[T.EntryPoint], *,
                 f"the card refused to capture {p.graph_key}: "
                 f"{tr.capture_error}", {"key": list(p.graph_key)}))
 
-        stats = collective_stats(tr.ops)
-        findings += R.check_collectives(tr, R.budget_for(tr))
+        stats = R.entry_stats(tr)
+        budget = R.budget_for(tr, base_budgets)
+        findings += R.check_collectives(tr, budget)
+        if budget is None and p.mesh is not None:
+            _bless(blessed, p.family, stats)
 
         ups = R.uploads(tr)
+        shards = 1 if p.mesh is None else len(p.mesh.coords())
         entries[p.name] = {
             "family": p.family,
             "tags": sorted(p.tags),
             "compile_key": tr.compile_key,
-            "carry_bytes": tr.carry_bytes,
+            "carry_bytes": _per_shard(tr.carry_bytes, shards),
             "carries_in_place": (not tr.rebound) if tr.carry_leaves
             else None,
             "ops": len(tr.ops),
-            "launches": dict(sorted(tr.launches.items())),
+            "launches": {k: _per_shard(n, shards)
+                         for k, n in sorted(tr.launches.items())},
             "collectives": stats.counts,
             "wire_bytes": stats.wire_bytes,
             "uploads": len(ups),
@@ -91,6 +107,8 @@ def analyze_entry_points(points: Sequence[T.EntryPoint], *,
             "host_reads_between_steps": p.host_reads,
             "captured": tr.captured,
         }
+        if p.mesh is not None:
+            entries[p.name]["shards"] = shards
 
     caps = {f: int(n) for f, n in base_lowerings.items()} or None
     findings += R.audit_recompiles(traced, max_per_family=caps)
@@ -112,11 +130,30 @@ def analyze_entry_points(points: Sequence[T.EntryPoint], *,
     return {
         "entries": entries,
         "lowerings": R.lowering_counts(traced),
-        "budgets": {},
+        "budgets": dict(sorted({**base_budgets, **blessed}.items())),
         "findings": [f.to_dict() for f in findings],
         "summary": {"errors": errors, "warnings": warns,
                     "entries": len(entries)},
     }
+
+
+def _per_shard(n: int, shards: int):
+    """n over the local shards: an int when they divide it."""
+    return n // shards if n % shards == 0 else n / shards
+
+
+def _bless(budgets: Dict[str, dict], family: str, stats) -> None:
+    """Fold one entry's collectives into its family's budget: the largest
+    count of each kind, and the largest wire bytes with headroom."""
+    cand = CollectiveBudget.from_counts(stats.counts,
+                                        stats.wire_bytes).to_dict()
+    prev = budgets.get(family, {"allow": {}, "max_wire_bytes": 0.0})
+    allow = dict(prev["allow"])
+    for kind, n in cand["allow"].items():
+        allow[kind] = max(allow.get(kind, 0), n)
+    budgets[family] = {"allow": dict(sorted(allow.items())),
+                       "max_wire_bytes": max(prev["max_wire_bytes"],
+                                             cand["max_wire_bytes"])}
 
 
 def analyze_engine(engine, *, label: str, baseline: Optional[dict] = None,

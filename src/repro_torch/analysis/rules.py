@@ -26,8 +26,13 @@ of one run of the engine's body (plus the matrix-level recompile audit):
                     address. A non-blocking copy from pinned memory between
                     captured bodies waits for nothing, and is counted in
                     the report's `uploads`.
-  collectives       per-entry `CollectiveBudget` over the op log's c10d
-                    ops: single-device and hot-path entries collective-free.
+  collectives       per-entry `CollectiveBudget` over the collectives the
+                    body issued (the mesh's record, and any c10d op no
+                    mesh issued): single-device entries and slot-parallel
+                    decode hot-path entries collective-free, every other
+                    mesh entry held to its family's blessed budget. On a
+                    ProcessMesh an op log that disagrees with the record is
+                    an ERROR.
   dtype_promotion   a bf16 -> fp32 `_to_copy` / `copy_` taints its output
                     storage (views included); a matmul reading a tainted
                     operand is a WARN. `mm(out_dtype=float32)` on bf16
@@ -49,8 +54,10 @@ import dataclasses
 from collections import defaultdict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from repro_torch.analysis.collectives import (CollectiveBudget, check_budget,
-                                              collective_stats)
+from repro_torch.analysis.collectives import (CollectiveBudget,
+                                              CollectiveStats, check_budget,
+                                              collective_stats, disagreement,
+                                              merged, record_stats)
 from repro_torch.analysis.tracer import (CONSTRUCTOR_OPS, COPY_OPS,
                                          INDEX_OPS, MATMUL_OPS, REPEAT_OPS,
                                          SYNC_OPS, OpRecord, TracedEntry,
@@ -214,24 +221,55 @@ def check_host_sync(tr: TracedEntry) -> List[Finding]:
 
 # -------------------------------------------------------------- collectives --
 
-def budget_for(tr: TracedEntry) -> Optional[CollectiveBudget]:
-    """Single-device entries and decode hot-path entries are collective-
-    free; the blessed budgets of mesh entries come with the mesh engines
-    (ROADMAP item 13), so any other entry has none."""
+def entry_stats(tr: TracedEntry) -> CollectiveStats:
+    """The collectives one traced run issued: the mesh's record, and the
+    op log's c10d ops unless a ProcessMesh issued them (they are then the
+    record's own, checked by `check_collectives`)."""
+    mesh = tr.point.mesh
+    ops = collective_stats(tr.ops)
+    if mesh is None:
+        return ops
+    rec = record_stats(tr.record or ())
+    return rec if not mesh.one_graph else merged(rec, ops)
+
+
+def budget_for(tr: TracedEntry,
+               baseline_budgets: Optional[Dict[str, dict]] = None
+               ) -> Optional[CollectiveBudget]:
+    """The collective budget of one entry point, as in JAX.
+
+    Single-device entries are collective-free, and so are slot-parallel
+    decode hot-path entries: decoding is embarrassingly parallel over the
+    slots, so a collective there is a sharding leak. Every other mesh entry
+    (admission, prefill, a TP layer's reductions) takes its family's
+    blessed budget from the baseline; with none (bless mode) this returns
+    None and the report records the measured profile as the budget."""
     tags = tr.point.tags
     if "single" in tags or ("decode_hot_path" in tags and "tp" not in tags):
         return CollectiveBudget.collective_free()
-    return None
+    b = (baseline_budgets or {}).get(tr.point.family)
+    if b is None:
+        return None
+    return CollectiveBudget(allow=tuple(sorted(b.get("allow", {}).items())),
+                            max_wire_bytes=float(b.get("max_wire_bytes",
+                                                       0.0)))
 
 
 def check_collectives(tr: TracedEntry,
                       budget: Optional[CollectiveBudget]) -> List[Finding]:
-    if budget is None:
-        return []
-    stats = collective_stats(tr.ops)
-    return [Finding("collectives", ERROR, tr.point.name, v,
-                    {"counts": stats.counts, "wire_bytes": stats.wire_bytes})
-            for v in check_budget(stats, budget)]
+    stats = entry_stats(tr)
+    details = {"counts": stats.counts, "wire_bytes": stats.wire_bytes}
+    out = []
+    mesh = tr.point.mesh
+    if mesh is not None and not mesh.one_graph:
+        out += [Finding("collectives", ERROR, tr.point.name,
+                        f"the process group ran other collectives than the "
+                        f"mesh issued: {v}", details)
+                for v in disagreement(tr.ops, tr.record or ())]
+    if budget is not None:
+        out += [Finding("collectives", ERROR, tr.point.name, v, details)
+                for v in check_budget(stats, budget)]
+    return out
 
 
 # --------------------------------------------------------- dtype promotion --

@@ -12,6 +12,9 @@ and the rules read the op log:
     (shape, dtype, device, storage) and the arguments its schema writes,
   * the kernels it launched (the wrappers' launch counters: kernels are
     called through ctypes, which no dispatcher sees),
+  * on a mesh engine, the collectives the mesh issued (its record, kept
+    on while the body runs: a LocalMesh's collectives are cats and sums
+    that no op log tells apart),
   * whether a declared carry was rebound: the engine holds another tensor,
     or another storage, after the body.
 
@@ -26,10 +29,13 @@ through the engine's own `_Compiled` until the key is captured and
 replayed.
 
 The registry half (`engine_entry_points`) mirrors the JAX one: the same
-families, defaults and entry names, with the engine's own bodies.
+families, defaults and entry names, with the engine's own bodies, on one
+device or on a mesh (every shard's caches are carries, and one op log
+holds every shard's ops).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -133,8 +139,10 @@ class EntryPoint:
                 steps (reported, not traced: outside the body).
     generator / host: the engine's generator, and a snapshot of its host
                 counters (returns the callable that restores them).
+    mesh:       the engine's mesh (None on one device), whose collectives
+                are recorded while the body runs.
     tags:       rule routing, as in JAX: "decode_hot_path", "metrics",
-                "paged", "single".
+                "paged", and one of "single", "slot_parallel", "tp".
     """
     name: str
     family: str
@@ -149,6 +157,7 @@ class EntryPoint:
     host_reads: int = 0
     generator: Optional[torch.Generator] = None
     host: Optional[Callable[[], Callable[[], None]]] = None
+    mesh: Any = None
     tags: frozenset = frozenset()
 
 
@@ -163,6 +172,9 @@ class TracedEntry:
     compile_key: str
     captured: Optional[bool] = None     # None: not captured on this device
     capture_error: Optional[str] = None
+    # the mesh's record of the traced run: (kind, axis, bytes); None
+    # without a mesh
+    record: Optional[List[Tuple[str, str, int]]] = None
 
     @property
     def carry_bytes(self) -> int:
@@ -257,7 +269,19 @@ def _schema_writes(func) -> Tuple[Tuple[int, str], ...]:
                  if a.alias_info is not None and a.alias_info.is_write)
 
 
+def _group_size(v) -> Optional[int]:
+    """The rank count of a c10d op's process group argument."""
+    if not isinstance(v, torch.ScriptObject):
+        return None
+    if not v._type().qualified_name().endswith("c10d.ProcessGroup"):
+        return None
+    import torch.distributed as dist
+    return dist.ProcessGroup.unbox(v).size()
+
+
 def _scalars(func, args, kwargs) -> Tuple[Tuple[str, Any], ...]:
+    """The op's non-tensor arguments by schema name, and for a c10d op its
+    process group's `group_size`."""
     out = []
     for i, a in enumerate(func._schema.arguments):
         v = args[i] if i < len(args) else kwargs.get(a.name, None)
@@ -265,6 +289,8 @@ def _scalars(func, args, kwargs) -> Tuple[Tuple[str, Any], ...]:
             out.append((a.name, v))
         elif isinstance(v, (float, torch.dtype)):
             out.append((a.name, repr(v)))
+        elif (size := _group_size(v)) is not None:
+            out.append(("group_size", size))
     return tuple(out)
 
 
@@ -383,7 +409,8 @@ def trace(point: EntryPoint, *, capture: bool = True) -> TracedEntry:
             point.setup()
         before = _build.launch_counts_by_name()
         rec = _Recorder()
-        with rec:
+        with (contextlib.nullcontext() if point.mesh is None
+              else point.mesh.recording()) as record, rec:
             point.body()
         launches = _delta(_build.launch_counts_by_name(), before)
         rebound = snap.rebound(point.carries())
@@ -413,20 +440,40 @@ def trace(point: EntryPoint, *, capture: bool = True) -> TracedEntry:
     return TracedEntry(point=point, ops=rec.ops, carry_leaves=carry_leaves,
                        carry_storages=carry_storages, rebound=rebound,
                        launches=launches, compile_key=_compile_key(point),
-                       captured=captured, capture_error=capture_error)
+                       captured=captured, capture_error=capture_error,
+                       record=record)
 
 
 # ------------------------------------------------- serving entry registry --
 
 def engine_tags(engine) -> frozenset:
-    """The port's engines are single-device (meshes: ROADMAP item 13)."""
-    return frozenset({"single"})
+    """"single" without a mesh; on a mesh "tp" when 'model' splits, else
+    "slot_parallel" (the JAX tags)."""
+    if engine.mesh is None:
+        return frozenset({"single"})
+    model = engine.mesh.shape.get("model", 1)
+    return frozenset({"tp"} if model > 1 else {"slot_parallel"})
 
 
 def _cache_leaves(caches, prefix: str) -> Dict[str, torch.Tensor]:
     return {f"{prefix}[{b}].{name}.{leaf}": t
             for b, blk in enumerate(caches) for name, layer in blk.items()
             for leaf, t in layer.items()}
+
+
+def _trees_leaves(trees: List[list], prefix: str) -> Dict[str, torch.Tensor]:
+    """The leaves of one cache tree, or of one per local shard (named
+    prefix@k)."""
+    if len(trees) == 1:
+        return _cache_leaves(trees[0], prefix)
+    out = {}
+    for k, tree in enumerate(trees):
+        out.update(_cache_leaves(tree, f"{prefix}@{k}"))
+    return out
+
+
+def _slot_caches(engine) -> Dict[str, torch.Tensor]:
+    return _trees_leaves(engine._cache_trees(), "caches")
 
 
 def engine_entry_points(engine, *, batch_sizes: Optional[Sequence[int]] = None,
@@ -455,11 +502,20 @@ def engine_entry_points(engine, *, batch_sizes: Optional[Sequence[int]] = None,
                               set-up (_verify_begin)
 
     greedy is the engine's current sampler branch (a fresh engine's: the
-    greedy-only branch). Building the list runs no body."""
+    greedy-only branch). Building the list runs no body.
+
+    On a mesh (the JAX registry's mesh engines) each body runs the engine's
+    plan over every local shard: the prefill and chunk rows split over the
+    slot groups when they divide them, as the engine splits them; the
+    insert takes the rows as prefill leaves them (plan-local, a slot
+    group's rows each when split); the paged fixup is the table push alone
+    (m=0: a slot-local pool has no copy-on-write moves). Every shard's
+    caches are carries."""
     from repro_torch.core import model as Mod
     from repro_torch.serving import sampling
 
     cfg, slots, dev = engine.cfg, engine.slots, engine.device
+    mp = engine._mp
     paged = engine._paged is not None
     base = engine_tags(engine) | ({"paged"} if paged else frozenset())
     if batch_sizes is None:
@@ -473,10 +529,8 @@ def engine_entry_points(engine, *, batch_sizes: Optional[Sequence[int]] = None,
     gen = torch.Generator().manual_seed(0)
     v = cfg.vocab_size
     common = dict(generator=engine.generator, host=functools.partial(
-        _host_state, engine), compiled=engine._compiled)
-
-    def caches():
-        return _cache_leaves(engine.caches, "caches")
+        _host_state, engine), compiled=engine._compiled, mesh=engine.mesh)
+    caches = functools.partial(_slot_caches, engine)
 
     points: List[EntryPoint] = []
     for n in batch_sizes:
@@ -487,41 +541,47 @@ def engine_entry_points(engine, *, batch_sizes: Optional[Sequence[int]] = None,
             body=functools.partial(engine.prefill_logits, tok, lens),
             inputs=(("tokens", tok), ("lengths", lens)), tags=base,
             **common))
+        per = n // mp.groups if mp is not None and mp.splits(n) else n
         if Mod.prefill_chunkable(cfg):
-            buf = dict(engine._chunk_rows(n)[0])
-            if buf["tok"].shape[1] < chunk_len:
-                # an engine without prefill_chunk never runs chunks: the
-                # entry stages its chunk tokens in a buffer of its own
-                buf["tok"] = torch.zeros((n, chunk_len), dtype=torch.long,
-                                         device=dev)
-            body = functools.partial(engine._chunk_body, [buf], chunk_len,
+            bufs = [dict(b) for b in engine._chunk_rows(per)]
+            for buf in bufs:
+                if buf["tok"].shape[1] < chunk_len:
+                    # an engine without prefill_chunk never runs chunks:
+                    # the entry stages its chunk tokens in a buffer of its
+                    # own
+                    buf["tok"] = torch.zeros((per, chunk_len),
+                                             dtype=torch.long, device=dev)
+            body = functools.partial(engine._chunk_body, bufs, chunk_len,
                                      chunk_len)
             points.append(EntryPoint(
                 name=f"prefill_chunk[n={n},c={chunk_len}]",
                 family="prefill_chunk", body=body,
                 carries=functools.partial(_chunk_carries, engine),
-                inputs=(("tokens", buf["tok"][:, :chunk_len]),
-                        ("lengths", buf["lens"])),
+                inputs=(("tokens", bufs[0]["tok"][:, :chunk_len]),
+                        ("lengths", bufs[0]["lens"])),
                 graph_key=("chunk", n, chunk_len, chunk_len),
                 host_key=("pos0",), tags=base, **common))
-        rows = Mod.init_caches(cfg, n, engine.max_len,
-                               lookahead=engine.lookahead, device=dev)
-        idx = torch.arange(n, device=dev)
-        if paged:
-            points.append(EntryPoint(
-                name=f"cache_insert_paged[slots={slots},n={n}]",
-                family="cache_insert_paged",
-                body=functools.partial(engine._insert_paged, rows,
-                                       list(range(n)), idx),
-                carries=caches, inputs=tuple(_cache_leaves(rows, "rows")
-                                             .items()), tags=base, **common))
+        if mp is None:
+            rows = Mod.init_caches(cfg, n, engine.max_len,
+                                   lookahead=engine.lookahead, device=dev)
+            trees = [rows]
         else:
-            points.append(EntryPoint(
-                name=f"cache_insert[slots={slots},n={n}]",
-                family="cache_insert",
-                body=functools.partial(engine._insert, rows, idx),
-                carries=caches, inputs=tuple(_cache_leaves(rows, "rows")
-                                             .items()), tags=base, **common))
+            trees = rows = mp.chunk_caches(per, dev)
+        idx = torch.arange(n, device=dev)
+        inputs = tuple(_trees_leaves(trees, "rows").items())
+        if mp is not None:
+            insert = functools.partial(engine._mesh_insert, rows,
+                                       list(range(n)))
+        elif paged:
+            insert = functools.partial(engine._insert_paged, rows,
+                                       list(range(n)), idx)
+        else:
+            insert = functools.partial(engine._insert, rows, idx)
+        family = "cache_insert_paged" if paged else "cache_insert"
+        points.append(EntryPoint(
+            name=f"{family}[slots={slots},n={n}]", family=family,
+            body=insert, carries=caches, inputs=inputs, tags=base,
+            **common))
         logits = torch.randn((n, v), generator=gen).to(dev)
         temps = torch.zeros((n,), dtype=torch.float32, device=dev)
         points.append(EntryPoint(
@@ -534,16 +594,18 @@ def engine_entry_points(engine, *, batch_sizes: Optional[Sequence[int]] = None,
     hot = base | {"decode_hot_path"}
     if paged:
         # m copy-on-write moves a layer position between decode blocks, and
-        # the table push; the moves' ids are any distinct pool blocks
-        m = 4
+        # the table push; the moves' ids are any distinct pool blocks. A
+        # mesh's slot-local pool has none: the push alone (m=0)
+        m = 4 if mp is None else 0
         moves = {}
         for i in engine._paged.tables:
-            blocks = engine.caches[0][f"l{i}"]["pk"].shape[0]
+            blocks = engine._cache_trees()[0][0][f"l{i}"]["pk"].shape[0]
             moves[i] = [(j % blocks, (blocks - 1 - j) % blocks)
                         for j in range(m)]
         points.append(EntryPoint(
             name=f"cache_fixup[slots={slots},m={m}]", family="cache_fixup",
             body=functools.partial(engine._paged_flush, moves),
+            setup=functools.partial(setattr, engine._paged, "dirty", True),
             carries=caches, tags=hot, **common))
     if engine.metrics:
         hot = hot | {"metrics"}
@@ -577,7 +639,7 @@ def _repeat(step: Callable[[], Any], n: int) -> None:
 
 
 def _decode_carries(engine, spec: bool) -> Dict[str, torch.Tensor]:
-    out = _cache_leaves(engine.caches, "caches")
+    out = _slot_caches(engine)
     out.update({f"dev.{k}": t for k, t in engine._dev.items()})
     out.update(toks=engine._toks, emit=engine._emit)
     if spec:
@@ -590,9 +652,12 @@ def _decode_carries(engine, spec: bool) -> Dict[str, torch.Tensor]:
 
 
 def _chunk_carries(engine) -> Dict[str, torch.Tensor]:
-    buf = engine._chunk_buf[0]
-    out = _cache_leaves(buf["caches"], "chunk.caches")
-    out.update({f"chunk.{k}": buf[k] for k in ("last", "tok", "lens")})
+    bufs = engine._chunk_buf
+    out = _trees_leaves([b["caches"] for b in bufs], "chunk.caches")
+    for j, buf in enumerate(bufs):
+        at = "" if len(bufs) == 1 else f"@{j}"
+        out.update({f"chunk{at}.{k}": buf[k]
+                    for k in ("last", "tok", "lens")})
     return out
 
 

@@ -313,6 +313,11 @@ class MeshPlan(PlanBase):
                 size *= self.mesh.shape[a]
         return size if size > 1 and self.slots % size == 0 else 1
 
+    def splits(self, n: int) -> bool:
+        """Whether a prefill batch of n rows splits over the slot groups
+        (they divide it); else every group prefills every row."""
+        return self.groups > 1 and n % self.groups == 0
+
     def gather_slots(self, xs: Shards, dim: int = 0) -> Shards:
         """All-gather over the slot axes (minor first): each coordinate
         receives every slot group's rows."""

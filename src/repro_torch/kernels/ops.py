@@ -13,8 +13,12 @@ Implementations (impl=):
             default for CPU tensors.
   ref     - O(N^2) masked reference (tests, tiny shapes), differentiated by
             autograd.
+  sliding_chunks - the HuggingFace Longformer schedule the paper measures
+            SWAT against (`ref.sliding_chunks_ref`: dense 2w-wide chunks,
+            ~50% redundant FLOPs, no globals), plain tensor code
+            differentiated by autograd: the paper's baseline, not a kernel.
 
-"banded" and "ref" run wherever their tensors lie; a caller names them
+"banded", "ref" and "sliding_chunks" run wherever their tensors lie; a caller names them
 explicitly to hold the kernel path against the plain path (the CPU tests,
 chip_smoke.py's end-to-end phase). The engine and the launcher never pass
 `impl`, so on the card they always run the kernels.
@@ -54,7 +58,7 @@ from repro_torch.kernels import swat_decode as dec_mod
 from repro_torch.telemetry import kernelprof as KP
 
 NEG_INF = fwd_mod.NEG_INF
-IMPLS = ("kernel", "banded", "ref")
+IMPLS = ("kernel", "banded", "ref", "sliding_chunks")
 
 
 @functools.lru_cache(maxsize=512)
@@ -168,6 +172,8 @@ def swat_attention(q, k, v, spec: AttentionSpec, *,
             q, k, v, spec, mesh=mesh, axis=axis, block_q=block_q,
             block_kv=block_kv, scale=scale)
     impl = _resolve(impl, q)
+    if impl == "sliding_chunks":
+        return ref_impl.sliding_chunks_ref(q, k, v, spec, scale=scale)
     pat = get_pattern(spec, lq, lkv, block_q, block_kv)
     if impl == "ref":
         return ref_impl.attention_ref(q, k, v, spec, pattern=pat, scale=scale)

@@ -6,18 +6,31 @@ committed ANALYSIS_torch.json baseline (the port of the JAX package's
     PYTHONPATH=src python -m repro_torch.launch.analyze --device cpu --check
     PYTHONPATH=src python -m repro_torch.launch.analyze --device cpu --write
 
-The matrix takes the JAX labels and engine arguments on the single-device
-engines: dense smoke llama (`single`), its SWAT twin on the decode kernel
-(`swat_pallas`: on the card the fused #1 and, for chunks, #2), speculative
-decoding (`spec_k2`), the paged layout (`paged_single`), and the JAX
-`metrics_on` and `chaos_4x1` engines without their mesh (`metrics_single`,
-`chaos_single`). The mesh labels exit with "not ported (ROADMAP item 13)".
+The matrix is the JAX analyzer's nine labels, in its order, with its
+engine arguments: dense smoke llama (`single`), its SWAT twin on the
+decode kernel (`swat_pallas`: on the card the fused #1 and, for chunks,
+#2), speculative decoding (`spec_k2`), the slot-parallel 4x1 and the
+tensor-parallel 2x2 meshes (`slot_parallel_4x1`, `tp_2x2`), the fault plan
+on the 4x1 (`chaos_4x1`), the paged layout on one device and on the 4x1
+(`paged_single`, `paged_slot_parallel_4x1`), and the device counters on
+the 4x1 (`metrics_on`). A mesh label runs on a single-process `LocalMesh`
+of its shape (`parse_mesh`), every shard on the one device; the JAX
+launcher forces `--device-count` host devices for them, and this one
+refuses a label whose mesh has more shards than `--device-count`.
+
 Each engine's bodies run on seeded inputs (`analysis.tracer`), from params
 made with seed 0; on the card every graph key is also captured and
-replayed. The baseline is blessed on the CPU (`--device cpu --write`);
-`--check` on the card holds the kernel path to it: zero errors, and no
-warning count or lowering count above the baseline's. `--engines`
-restricts the matrix and the baseline it is checked against.
+replayed. The mesh collectives are what the mesh records (`launch/mesh.py`):
+single-device entries and slot-parallel decode entries must issue none (an
+ERROR otherwise), and every other mesh entry is held to its family's
+blessed budget. The baseline is blessed on the CPU (`--device cpu
+--write`); `--check` on the card holds the kernel path to it: zero errors,
+and no warning count, lowering count or budget above the baseline's.
+`--engines` restricts the matrix and the baseline it is checked against.
+Each mesh family's collectives print beside the JAX package's committed
+ANALYSIS.json (read as data): the port's explicit plan gathers otherwise
+than XLA chooses to, so the counts differ; which families are
+collective-free does not.
 
 Runs on the card unless `--device cpu` is given; with no card it exits
 non-zero. Exit codes: 0 clean, 1 baseline violations (errors, warning
@@ -26,22 +39,39 @@ with --write in the same change that adds them).
 """
 import argparse
 import json
+import os
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
-MATRIX = ("single", "swat_pallas", "spec_k2", "paged_single",
-          "metrics_single", "chaos_single")
-# the JAX matrix's mesh engines, and the metrics engine on its 4x1 mesh
-MESH_LABELS = ("slot_parallel_4x1", "tp_2x2", "chaos_4x1",
-               "paged_slot_parallel_4x1", "metrics_on")
+# the JAX analyzer's matrix, in its order
+MATRIX = ("single", "swat_pallas", "spec_k2", "slot_parallel_4x1", "tp_2x2",
+          "chaos_4x1", "paged_single", "paged_slot_parallel_4x1",
+          "metrics_on")
+# the mesh of each mesh label
+MESHES = {"slot_parallel_4x1": "4x1", "tp_2x2": "2x2", "chaos_4x1": "4x1",
+          "paged_slot_parallel_4x1": "4x1", "metrics_on": "4x1"}
+MESH_LABELS = tuple(label for label in MATRIX if label in MESHES)
+JAX_BASELINE = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                            "ANALYSIS.json")
 
 
-def check_label(label: str) -> None:
-    """Exit, as the JAX launcher does, on a label outside the matrix."""
-    if label in MESH_LABELS:
-        raise SystemExit(f"{label}: not ported (ROADMAP item 13)")
+def shards(label: str) -> int:
+    """The shards of a label's mesh (1 on one device)."""
+    n = 1
+    for d in MESHES.get(label, "1").split("x"):
+        n *= int(d)
+    return n
+
+
+def check_label(label: str, device_count: int = 4) -> None:
+    """Exit, as the JAX launcher does, on a label outside the matrix, and
+    on a mesh of more shards than `device_count`."""
     if label not in MATRIX:
         raise SystemExit(f"unknown engine label: {label}")
+    if shards(label) > device_count:
+        raise SystemExit(f"{label}: its {MESHES[label]} mesh needs "
+                         f"{shards(label)} devices, --device-count is "
+                         f"{device_count}")
 
 
 def build(label: str, device: str, params: Optional[Dict] = None):
@@ -49,6 +79,7 @@ def build(label: str, device: str, params: Optional[Dict] = None):
     caches each config's params across calls."""
     from repro_torch.configs import get_smoke_config, with_swat
     from repro_torch.core import model as Mod
+    from repro_torch.launch.mesh import parse_mesh
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.faults import FaultPlan
 
@@ -61,6 +92,10 @@ def build(label: str, device: str, params: Optional[Dict] = None):
         params[cfg.name] = Mod.init_model(cfg, seed=0, device=device)
     p = params[cfg.name]
     kw = dict(batch_slots=2, max_len=128, scan_steps=4)
+    if label in MESHES:
+        kw["mesh"] = parse_mesh(MESHES[label])
+        if MESHES[label] == "4x1":
+            kw["batch_slots"] = 4
     if label == "swat_pallas":
         kw["scan_steps"] = 2
         if device == "cpu":
@@ -72,14 +107,49 @@ def build(label: str, device: str, params: Optional[Dict] = None):
         kw["decode_impl"] = "pallas"
     elif label == "spec_k2":
         kw["speculative"] = 2
-    elif label == "paged_single":
+    elif label in ("paged_single", "paged_slot_parallel_4x1"):
         kw["kv_layout"] = "paged"
-    elif label == "metrics_single":
-        kw.update(batch_slots=4, metrics=True)
-    elif label == "chaos_single":
-        kw.update(batch_slots=4,
-                  faults=FaultPlan(poison_logits=((0, 3, "nan"),)))
+    elif label == "metrics_on":
+        kw["metrics"] = True
+    elif label == "chaos_4x1":
+        kw["faults"] = FaultPlan(poison_logits=((0, 3, "nan"),))
     return ServingEngine(cfg, p, **kw)
+
+
+def jax_families(label: str) -> Dict[str, Tuple[Dict[str, int], float]]:
+    """{family: (the largest count of each collective kind over its
+    entries, the largest wire bytes)} in the JAX package's committed
+    ANALYSIS.json, read as data ({} without the file or the label)."""
+    path = os.path.abspath(JAX_BASELINE)
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        eng = (json.load(f).get("engines") or {}).get(label) or {}
+    return family_collectives(eng)
+
+
+def family_collectives(eng: dict) -> Dict[str, Tuple[Dict[str, int], float]]:
+    """{family: (largest count of each kind, largest wire bytes)} over a
+    report section's entries."""
+    out: Dict[str, Tuple[Dict[str, int], float]] = {}
+    for e in (eng.get("entries") or {}).values():
+        counts, wire = out.get(e["family"], ({}, 0.0))
+        for kind, n in (e.get("collectives") or {}).items():
+            counts[kind] = max(counts.get(kind, 0), n)
+        out[e["family"]] = (counts, max(wire, e.get("wire_bytes", 0.0)))
+    return out
+
+
+def beside_jax(label: str, eng: dict) -> List[str]:
+    """One line per family of a mesh label: the port's collectives and
+    wire bytes beside the JAX package's."""
+    theirs = jax_families(label)
+    lines = []
+    for fam, (counts, wire) in sorted(family_collectives(eng).items()):
+        jc, jw = theirs.get(fam, ({}, 0.0))
+        lines.append(f"[analyze] {label} {fam}: port {counts or 'none'} "
+                     f"{wire:.0f} B; jax {jc or 'none'} {jw:.0f} B")
+    return lines
 
 
 def analyze_matrix(labels: Sequence[str], device: str,
@@ -102,6 +172,9 @@ def analyze_matrix(labels: Sequence[str], device: str,
         s = per_engine[label]["summary"]
         log(f"[analyze] {label}: {s['entries']} entries, {s['errors']} "
             f"errors, {s['warnings']} warnings")
+        if label in MESHES:
+            for line in beside_jax(label, per_engine[label]):
+                log(line)
     kind = (torch.cuda.get_device_name(0) if device.startswith("cuda")
             else "cpu")
     return Rep.merge_reports(per_engine, meta={
@@ -135,6 +208,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
+    ap.add_argument("--device-count", type=int, default=4,
+                    help="the most shards a mesh label may have (the JAX "
+                         "launcher's forced host devices)")
     args = ap.parse_args(argv)
 
     import torch
@@ -145,7 +221,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.engines:
         labels = [x.strip() for x in args.engines.split(",") if x.strip()]
     for label in labels:           # refuse before building anything
-        check_label(label)
+        check_label(label, args.device_count)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("[analyze] no CUDA device: the port analyzes on "
                          "the card (pass --device cpu to analyze the plain "

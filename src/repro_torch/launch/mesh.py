@@ -55,13 +55,26 @@ as Python issues them: `calls` by kind, and `wire_ops` for those over an
 axis of more than one rank (a captured CUDA graph's replays run its
 collectives again uncounted).
 
+Both kinds keep one record of the collectives a program issues while
+`recording()` is on: (kind, axis, bytes of one shard's result) for each
+call over an axis of more than one shard, with the kinds `all_reduce`
+(psum, pmax, sum_out), `all_gather`, `reduce_scatter`, `all_to_all` and
+`p2p` (shift). A call is one entry however many shards take part, as each
+device of a JAX mesh runs one collective of the partitioned program; a
+LocalMesh records the collectives its `cat`s and sums stand for, and a
+ProcessMesh those it hands the process group. A size-1 axis moves nothing
+on either kind (XLA elides such collectives) and is not recorded, so the
+two kinds record the same program alike. swatlint's collective budgets
+read this record (`analysis/collectives.py`).
+
 Defined as functions, so importing this module touches no device and no
 process group.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -71,9 +84,36 @@ PRODUCTION_SHAPE = (16, 16)
 MULTI_POD_SHAPE = (2, 16, 16)
 
 
+Record = List[Tuple[str, str, int]]
+
+
+class _Recording:
+    """The record both mesh kinds keep (see the module docstring)."""
+
+    record: Optional[Record] = None
+
+    @contextlib.contextmanager
+    def recording(self) -> Iterator[Record]:
+        """Record the collectives issued inside the block; yields the
+        record, a list of (kind, axis, bytes of one shard's result)."""
+        prev, self.record = self.record, []
+        try:
+            yield self.record
+        finally:
+            self.record = prev
+
+    def _note(self, kind: str, axis: str, nbytes: int) -> None:
+        if self.record is not None and self.shape[axis] > 1:
+            self.record.append((kind, axis, int(nbytes)))
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 # ------------------------------------------------------ single process ----
 
-class LocalMesh:
+class LocalMesh(_Recording):
     """n shards per axis in one process and one autograd graph."""
 
     one_graph = True
@@ -84,6 +124,7 @@ class LocalMesh:
             raise ValueError(f"mesh shape {shape} vs axes {axis_names}")
         self.shape: Dict[str, int] = dict(zip(axis_names, shape))
         self.axis_names = axis_names
+        self.record = None
 
     def __repr__(self) -> str:
         return f"LocalMesh({self.shape})"
@@ -128,11 +169,16 @@ class LocalMesh:
                 for base in range(len(xs))
                 if (base // stride) % n == 0]
 
-    def _per_line(self, xs: Shards, axis: str, fn) -> Shards:
+    def _per_line(self, xs: Shards, axis: str, fn,
+                  kind: Optional[str] = None) -> Shards:
+        """fn over each line along axis; `kind`: the collective this
+        stands for, recorded once with the bytes of one shard's result."""
         out = list(xs)
         for line in self._lines(xs, axis):
             for pos, y in zip(line, fn([xs[p] for p in line])):
                 out[pos] = y
+        if kind is not None:
+            self._note(kind, axis, _nbytes(out[0]))
         return out
 
     def shift(self, xs: Shards, axis: str, direction: int = +1) -> Shards:
@@ -142,7 +188,7 @@ class LocalMesh:
             n = len(ys)
             return [ys[i - direction] if 0 <= i - direction < n
                     else torch.zeros_like(ys[i]) for i in range(n)]
-        return self._per_line(xs, axis, line)
+        return self._per_line(xs, axis, line, "p2p")
 
     def psum(self, xs: Shards, axis: str) -> Shards:
         def line(ys):
@@ -150,7 +196,7 @@ class LocalMesh:
             for y in ys[1:]:
                 total = total + y
             return [total] * len(ys)
-        return self._per_line(xs, axis, line)
+        return self._per_line(xs, axis, line, "all_reduce")
 
     def pmax(self, xs: Shards, axis: str) -> Shards:
         def line(ys):
@@ -158,13 +204,14 @@ class LocalMesh:
             for y in ys[1:]:
                 top = torch.maximum(top, y.detach())
             return [top] * len(ys)
-        return self._per_line(xs, axis, line)
+        return self._per_line(xs, axis, line, "all_reduce")
 
     def all_gather(self, xs: Shards, axis: str, dim: int) -> Shards:
         """Each shard receives its line's shards concatenated along dim, in
         axis order."""
         return self._per_line(
-            xs, axis, lambda ys: [torch.cat(ys, dim=dim)] * len(ys))
+            xs, axis, lambda ys: [torch.cat(ys, dim=dim)] * len(ys),
+            "all_gather")
 
     def reduce_scatter(self, xs: Shards, axis: str, dim: int) -> Shards:
         """The line's sum cut evenly along dim: shard i receives block i."""
@@ -173,7 +220,7 @@ class LocalMesh:
             for y in ys[1:]:
                 total = total + y
             return list(torch.chunk(total, len(ys), dim=dim))
-        return self._per_line(xs, axis, line)
+        return self._per_line(xs, axis, line, "reduce_scatter")
 
     def all_to_all(self, xs: Shards, axis: str, split_dim: int,
                    concat_dim: int) -> Shards:
@@ -185,7 +232,7 @@ class LocalMesh:
             parts = [_chunks(y, n, split_dim) for y in ys]
             return [torch.cat([p[j] for p in parts], dim=concat_dim)
                     for j in range(n)]
-        return self._per_line(xs, axis, line)
+        return self._per_line(xs, axis, line, "all_to_all")
 
     def replicated(self, x: torch.Tensor, axis: str) -> Shards:
         return [x] * self.shape[axis]
@@ -267,7 +314,7 @@ class _AllToAll(torch.autograd.Function):
                 None, None, None, None)
 
 
-class ProcessMesh:
+class ProcessMesh(_Recording):
     """One shard per rank of a `DeviceMesh`."""
 
     one_graph = False
@@ -282,6 +329,7 @@ class ProcessMesh:
                                       "reduce_scatter": 0, "all_to_all": 0,
                                       "p2p": 0}
         self.wire_ops = 0
+        self.record = None
 
     def __repr__(self) -> str:
         return f"ProcessMesh({self.shape})"
@@ -289,9 +337,11 @@ class ProcessMesh:
     def _group(self, axis: str):
         return self.device_mesh.get_group(axis)
 
-    def _count(self, kind: str, axis: str) -> None:
+    def _count(self, kind: str, axis: str, nbytes: int) -> None:
+        """Count a collective; nbytes: this rank's result."""
         self.calls[kind] += 1
         self.wire_ops += self.shape[axis] > 1
+        self._note(kind, axis, nbytes)
 
     def index(self, axis: str) -> List[int]:
         return [self.device_mesh.get_local_rank(axis)]
@@ -315,7 +365,7 @@ class ProcessMesh:
         out = torch.zeros_like(x)
         if n == 1:
             return out
-        self._count("p2p", axis)
+        self._count("p2p", axis, _nbytes(x))
         group = self._group(axis)
         ops = []
         if 0 <= i + direction < n:
@@ -331,7 +381,7 @@ class ProcessMesh:
     def _all_reduce(self, x: torch.Tensor, axis: str, op=None):
         import torch.distributed as dist
         y = x.detach().clone().contiguous()
-        self._count("all_reduce", axis)
+        self._count("all_reduce", axis, _nbytes(y))
         dist.all_reduce(y, op=dist.ReduceOp.SUM if op is None else op,
                         group=self._group(axis))
         return y
@@ -339,7 +389,7 @@ class ProcessMesh:
     def _all_gather(self, x: torch.Tensor, axis: str, dim: int):
         import torch.distributed as dist
         n = self.shape[axis]
-        self._count("all_gather", axis)
+        self._count("all_gather", axis, n * _nbytes(x))
         x = x.detach().contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=self._group(axis))
@@ -349,7 +399,7 @@ class ProcessMesh:
         import torch.distributed as dist
         n = self.shape[axis]
         parts = _chunks(x.detach(), n, dim)
-        self._count("reduce_scatter", axis)
+        self._count("reduce_scatter", axis, _nbytes(parts[0]))
         out = torch.empty(parts[0].numel(), dtype=x.dtype, device=x.device)
         dist.reduce_scatter_tensor(out, torch.stack(parts).reshape(-1),
                                    group=self._group(axis))
@@ -361,7 +411,7 @@ class ProcessMesh:
         n = self.shape[axis]
         send = torch.stack(_chunks(x.detach(), n, split_dim)).contiguous()
         recv = torch.empty_like(send)
-        self._count("all_to_all", axis)
+        self._count("all_to_all", axis, _nbytes(send))
         dist.all_to_all_single(recv, send, group=self._group(axis))
         return torch.cat(list(recv.unbind(0)), dim=concat_dim)
 

@@ -707,13 +707,17 @@ class ServingEngine:
         next chunked batch.
 
         On a mesh the rows split over the slot groups when they divide
-        them (else every group prefills them all), each shard runs the
-        plan on its rows, and the rows' logits and plan-local caches are
-        all-gathered over the slot axes: the caches are then a list, the n
-        rows' tree per local shard."""
+        them (`MeshPlan.splits`; else every group prefills them all), and
+        each shard runs the plan on its rows. The caches are then a list,
+        one plan-local tree per local shard of the rows it prefilled
+        (`_mesh_insert` gathers them); the logits are every row's, as the
+        host reads them: one shard per slot group joined on a LocalMesh,
+        all-gathered over the slot axes on a ProcessMesh
+        (`_gather_slots`). So the prefill itself issues no collective over
+        the slot axes, as the JAX engine's prefill runs none."""
         mp = self._mp
         n, l_pad = tokens.shape
-        split = mp is not None and mp.groups > 1 and n % mp.groups == 0
+        split = mp is not None and mp.splits(n)
         per = n // mp.groups if split else n
         if mp is None:
             plan, params, toks, lens = (Mod.ONE_DEVICE, [self.params],
@@ -763,10 +767,11 @@ class ServingEngine:
                     self._chunk_body, bufs, p, t))
             lgs = [buf["last"] for buf in bufs]
             caches = [buf["caches"] for buf in bufs]
+        if mp is None:
+            return lgs[0], caches[0]
         if split:
-            lgs = mp.gather_slots(lgs)
-            caches = _map_shards(mp.gather_slots, caches)
-        return lgs[0], (caches[0] if mp is None else caches)
+            return self._gather_slots(mp.join_rows(lgs)), caches
+        return lgs[0], caches
 
     def _chunk_rows(self, n: int) -> List[Dict]:
         """Views of the first n rows of the persistent chunked-prefill set
@@ -821,21 +826,22 @@ class ServingEngine:
             b["last"].copy_(torch.where(hit[:, None], lg, b["last"]))
 
     def _mesh_insert(self, caches, slots: List[int]) -> None:
-        """Admission on the mesh: each shard copies the prefilled rows of
-        the slots it holds (every row's caches reached it by the gather in
-        `_mesh_prefill`), cut to its layout; a paged layer writes them
-        through the slots' table rows into its slot-local pools."""
-        mp, dev = self._mp, self.device
+        """Admission on the mesh: `prefill_logits`'s per-shard rows,
+        all-gathered over the slot axes when the prefill split them, so
+        that every shard holds every row; then each shard copies the rows
+        of the slots it holds, cut to its layout, and a paged layer writes
+        them through the slots' table rows into its slot-local pools."""
+        mp = self._mp
+        if mp.splits(len(slots)):
+            caches = _map_shards(mp.gather_slots, caches)
         tables = self._paged.tables if self._paged is not None else {}
         for shard, rows, coord in zip(self.shard_caches, caches, mp.coords):
             lo, hi = mp.slot_range(coord)
             sel = [(r, s - lo) for r, s in enumerate(slots) if lo <= s < hi]
             if not sel:
                 continue
-            src = torch.as_tensor([r for r, _ in sel], dtype=torch.long,
-                                  device=dev)
-            dst = torch.as_tensor([s for _, s in sel], dtype=torch.long,
-                                  device=dev)
+            src, dst = (self._upload(np.asarray(x, np.int64))
+                        for x in zip(*sel))
             for full, one in zip(shard, rows):
                 for name, fc in full.items():
                     i = int(name[1:])

@@ -1,10 +1,10 @@
 """The port's swatlint (`repro_torch.analysis`, `launch/analyze.py`) on the
-CPU, held against the JAX package's analyzer:
+CPU, held against the JAX package's analyzer, on the matrix's four
+single-device engines (the five mesh labels: tests/test_torch_analysis_mesh.py):
 
-  * for the four engines both matrices share, the port's entry names equal
-    the JAX `engine_entry_points` names on a JAX engine built with the
-    same arguments, and the port's errors per label equal the committed
-    ANALYSIS.json's (zero);
+  * the port's entry names equal the JAX `engine_entry_points` names on a
+    JAX engine built with the same arguments, and the port's errors per
+    label equal the committed ANALYSIS.json's (zero);
   * each rule family fires on a deliberately broken toy body and stays
     quiet on its clean twin (the counterparts of tests/test_analysis.py);
   * tracing is repeatable and undone: twice gives the same op log, and an
@@ -45,9 +45,9 @@ BIG = (512, 512)                 # 1 MiB fp32: over the generic threshold
 
 @pytest.fixture(scope="module")
 def fresh():
-    """The port's whole matrix, analyzed once on the CPU: (report,
-    engines)."""
-    return A.analyze_matrix(A.MATRIX, "cpu", log=lambda m: None)
+    """The matrix's single-device engines, analyzed once on the CPU:
+    (report, engines)."""
+    return A.analyze_matrix(SHARED, "cpu", log=lambda m: None)
 
 
 def point(body, carries=None, tags=frozenset(), name="toy", **kw):
@@ -88,10 +88,10 @@ def test_errors_per_shared_label_equal_jax_baseline(fresh):
 
 
 def test_fresh_matrix_matches_committed_baseline(fresh):
-    """Zero errors on all six engines, within the committed baseline, and
+    """Zero errors on the four engines, within the committed baseline, and
     every warning names its rule and the port's call site."""
     report, _ = fresh
-    base = baselines.load()
+    base = A.restrict(baselines.load(), SHARED)
     assert report["summary"]["errors"] == 0
     assert baselines.diff(report, base) == []
     assert baselines.is_stale(report, base) == []
@@ -368,15 +368,6 @@ def test_telemetry_catches_a_host_read_of_a_counter():
     assert [(x.rule, x.severity) for x in f] == [("telemetry", "error")]
 
 
-def test_metrics_engine_scans_are_telemetry_clean(fresh):
-    report, _ = fresh
-    scans = {k: e for k, e in report["engines"]["metrics_single"]["entries"]
-             .items() if k.startswith("scan")}
-    assert scans and all("metrics" in e["tags"] for e in scans.values())
-    assert not [f for f in report["engines"]["metrics_single"]["findings"]
-                if f["rule"] == "telemetry"]
-
-
 # --------------------------------------------------------------- recompile --
 
 def test_lowering_cap_and_the_pos0_key_warn():
@@ -427,7 +418,7 @@ def test_tracing_twice_gives_the_same_op_log(fresh):
 
 
 @pytest.mark.parametrize("label", ["spec_k2", "paged_single",
-                                   "metrics_single"])
+                                   "metrics_on"])
 def test_analyzed_engine_serves_the_same_tokens(label):
     """Analyzed between runs (caches, tables and counters live), an engine
     serves the tokens (and counts) of an engine never analyzed."""
@@ -523,12 +514,15 @@ def test_launcher_write_reproduces_its_baseline(tmp_path):
 
 @pytest.mark.parametrize("label,message", [
     ("nope", "unknown engine label: nope"),
-    ("tp_2x2", "tp_2x2: not ported (ROADMAP item 13)"),
-    ("slot_parallel_4x1", "not ported (ROADMAP item 13)"),
-    ("metrics_on", "not ported (ROADMAP item 13)")])
+    ("tp_2x2", "tp_2x2: its 2x2 mesh needs 4 devices, --device-count is 2"),
+    ("slot_parallel_4x1", "its 4x1 mesh needs 4 devices"),
+    ("metrics_on", "needs 4 devices, --device-count is 2")])
 def test_launcher_refuses_unknown_and_mesh_labels(label, message):
+    """An unknown label, and a mesh label whose mesh has more shards than
+    --device-count, exit before anything is built."""
     with pytest.raises(SystemExit) as e:
-        A.main(["--device", "cpu", "--engines", label])
+        A.main(["--device", "cpu", "--engines", label, "--device-count",
+                "2"])
     assert message in str(e.value)
 
 
