@@ -314,6 +314,26 @@ each of which raises on failure:
                plain version, both timed (CUDA events, L2 flushed, mean of
                10), their ratio beside the redundant-FLOP ratio of
                `patterns.sliding_chunks_flops_ratio` and the card.
+ 31. mesh gaps and the dry-run - (run after phase 30, ~25 s) (a)
+               whisper-tiny + SWAT(128, 4), bf16, full width, on a 2x2
+               LocalMesh: 8 clips prefilled and 20 greedy steps against
+               the single-device run (greedy agreement >= 0.75, |dlogit|
+               <= 0.25 teacher-forced), each shard launching #1, #2 and
+               #3 what one device launches; (b) one cp and one fsdp train
+               step on 2x2 (llama3.2-1b + SWAT cut to 4 layers, phase 8's
+               batch) against the plain step within phase 9's gates, #2 /
+               #4 / #5 launched on every shard, cp's halo shifts
+               recorded and fsdp's none, then one AdamW step each; (c)
+               the dry-run's count against the card: llama3.2-1b + SWAT
+               (256, 4) train 4 x 2048, prefill 4 x 512 and decode with 4
+               slots at 1024 traced on the meta device over a 1x1 mesh
+               (`launch.dryrun.trace_cell`), then the same steps built on
+               the card and run with the kernels (CUDA events, mean of 5
+               after a warm-up, `max_memory_allocated`): measured ms
+               beside compute_s and memory_s, the peak beside the
+               predicted argument + temp bytes; the argument bytes must
+               equal to the byte and the time be at least 0.9 x
+               compute_s.
  12. plain decode - the plain-mode decode kernel (the fused kernel's
                cluster split without the insert) against its plain version,
                bf16 and fp32, both GQA layouts, two launches bitwise equal,
@@ -5992,6 +6012,230 @@ def paper_baseline(torch, card):
     return rows
 
 
+# ------------------------------------------------------------ phase 31 ---
+
+# phase 31 (a): whisper-tiny + SWAT on a 2x2 mesh, greedy decode steps
+MESH_WHISPER_STEPS = 20
+# phase 31 (c): the dry-run's three steps at the card's shapes (mode,
+# seq_len, global batch), timed over DRYRUN_ITERS calls after a warm-up;
+# a measured time under DRYRUN_COMPUTE_FLOOR x the counted FLOPs' time at
+# the bf16 peak would mean the counter counted FLOPs the card did not do
+DRYRUN_CELLS = (("train", 2048, 4), ("prefill", 512, 4), ("decode", 1024, 4))
+DRYRUN_ITERS = 5
+DRYRUN_COMPUTE_FLOOR = 0.9
+
+
+def _whisper_mesh_run(torch, cfg, plan, ps, batch, steps, forced=None):
+    """The mesh's prefill of every clip, then `steps` greedy decode steps
+    (fed `forced[i]` when given): (tokens (steps+1, B), per-step logits)."""
+    from repro_torch.core import model as Mod
+    n = batch["tokens"].shape[0]
+    per = n // plan.groups if plan.splits(n) else n
+    rows = [{k: v[plan.group(c) * per:][:per] if plan.splits(n) else v
+             for k, v in batch.items()} for c in plan.coords]
+    lgs, pc = Mod.prefill(ps, cfg, rows, WHISPER["max_len"], plan=plan)
+    caches = plan.caches_from_prefill(pc)
+    logits = [plan.join_rows(lgs)[:, 0]]
+    toks = [logits[0].argmax(-1)]
+    for i in range(steps):
+        feed = toks[-1] if forced is None else forced[i]
+        out, _ = Mod.decode_step(ps, cfg, [{"tokens": r} for r in
+                                           plan.local_rows(feed[:, None], 0)],
+                                 caches, plan=plan)
+        logits.append(plan.join_rows(out)[:, 0])
+        toks.append(logits[-1].argmax(-1))
+    return torch.stack(toks), logits
+
+
+def mesh_whisper(torch):
+    """(a) whisper-tiny + SWAT(128, 4), bf16, full width, on a 2x2
+    LocalMesh: the encoder on each shard's clips, the decoder's Megatron
+    heads, the cross K/V cut by the cache table; prefill 8 clips and 20
+    greedy steps against the single-device run (greedy agreement and the
+    teacher-forced logits), each shard launching #1, #2 and #3 what the
+    single-device run launches."""
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.kernels import swat_attention as SA
+    from repro_torch.kernels import swat_decode as SD
+    from repro_torch.launch import mesh as ML
+    steps = MESH_WHISPER_STEPS
+    cfg, params, batch = whisper_setup(torch, "bfloat16")
+    counters = {"swat_attention_fwd": SA.LAUNCHES,
+                "swat_decode_fused": SD.LAUNCHES,
+                "swat_decode_plain": SD.PLAIN_LAUNCHES}
+
+    def counted(fn):
+        for c in counters.values():
+            c.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.n for k, c in counters.items()}
+
+    (one_toks, one_logits, _), one_n = counted(lambda: whisper_run(
+        torch, cfg, params, batch, None, steps, keep_logits=True))
+    mesh = ML.LocalMesh((2, 2), ("data", "model"))
+    plan = TP.MeshPlan(cfg, mesh, params, slots=WHISPER["clips"],
+                       max_len=WHISPER["max_len"], lookahead=0, paged=False,
+                       enc_len=WHISPER["frames"])
+    ps = plan.place_params(params)
+    before = route_counts()
+    (toks, _), mesh_n = counted(lambda: _whisper_mesh_run(
+        torch, cfg, plan, ps, batch, steps))
+    check_route("whisper 2x2", before, "fwd", "tc",
+                n=mesh_n["swat_attention_fwd"])
+    _, forced = _whisper_mesh_run(torch, cfg, plan, ps, batch, steps,
+                                  forced=one_toks[:-1])
+    gap = max(max_err(a, b) for a, b in zip(forced, one_logits))
+    agree = float((toks == one_toks).float().mean())
+    shards = len(plan.coords)
+    out = {"mesh": "2x2", "clips": WHISPER["clips"], "steps": steps,
+           "plan": {k: str(v) for k, v in plan.describe().items()},
+           "greedy_agreement": agree, "agree_bound": AGREE_BOUND,
+           "max_abs_logit_diff_teacher_forced": gap,
+           "logit_bound": LOGIT_BOUND,
+           "launches_per_shard": {k: v / shards for k, v in mesh_n.items()},
+           "single_device_launches": one_n}
+    log("phase 31 (a) whisper 2x2: " + json.dumps(out))
+    if {k: v / shards for k, v in mesh_n.items()} != one_n:
+        raise AssertionError(f"whisper 2x2: each shard must launch what one "
+                             f"device launches: {out}")
+    if not (agree >= AGREE_BOUND and gap <= LOGIT_BOUND):
+        raise AssertionError(f"whisper 2x2 against one device: {out}")
+    return out
+
+
+def mesh_profiles_train(torch, cfg):
+    """(b) one train step's loss and gradients under the cp profile (2-D
+    FSDP params, the sequence over 'model', the window layers' halo
+    exchange on kernels #2 / #4 / #5) and the fsdp one (the batch over
+    both axes) on 2x2, llama3.2-1b + SWAT cut to 4 layers, phase 8's batch,
+    against the plain single-device step (phase 9's gates); then one AdamW
+    step each through `steps.make_train_step(act_sharding=)`."""
+    import dataclasses
+    from repro_torch.core import model as Mod
+    from repro_torch.distributed import sharding as Sh
+    from repro_torch.launch import mesh as ML
+    from repro_torch.launch import steps as St
+    from repro_torch.optim import adamw
+    cfg4 = dataclasses.replace(cfg, num_layers=TRAIN["e2e_layers"])
+    params = Mod.init_model(cfg4, seed=0, device="cuda")
+    batch = _train_batches(torch, cfg4, 1)[0]
+    plain = _loss_grads(torch, params, cfg4, batch, "banded")
+    out = {}
+    for profile in ("cp", "fsdp"):
+        mesh = ML.LocalMesh((2, 2), ("data", "model"))
+        step = St.make_train_step(
+            cfg4, adamw.AdamWConfig(lr=TRAIN["lr"]),
+            act_sharding=Sh.NamedSharding(
+                mesh, Sh.activation_spec(mesh, True, profile), profile))
+        placed = step.plan.place({"params": params,
+                                  "opt": adamw.init_opt_state(params)})
+        ps = [s["params"] for s in placed]
+        with mesh.recording() as record:
+            got, n, ms = _counted(torch, lambda: _mesh_loss_grads(
+                torch, step.plan, cfg4, ps, batch))
+        res = {"profile": profile, **_grad_gap(params, got, plain),
+               "loss_bound": TRAIN_LOSS_BOUND,
+               "grad_bound": TRAIN_GRAD_BOUND,
+               "launches_per_shard": {k: v / 4 for k, v in n.items()},
+               "host_ms": ms, "p2p": sum(k == "p2p" for k, _, _ in record)}
+        _, _, res["adamw_step_host_ms"] = _counted(torch, lambda: step(
+            ps, [s["opt"] for s in placed], batch))
+        out[profile] = res
+        log(f"phase 31 (b) {profile} 2x2: " + json.dumps(res))
+        del placed, ps
+        _gates(res, f"{profile} 2x2 train step against the plain step")
+        if not all(n[k] >= 4 * cfg4.num_layers for k in (
+                "swat_attention_fwd", "swat_attention_dq",
+                "swat_attention_dkv")):
+            raise AssertionError(f"{profile} 2x2: a shard launched no "
+                                 f"attention kernel of a layer: {res}")
+        if (res["p2p"] > 0) != (profile == "cp"):
+            raise AssertionError(f"{profile} 2x2: halo shifts {res['p2p']}")
+    return out
+
+
+def dryrun_vs_card(torch, cfg):
+    """(c) the dry-run's count against the card: each of the three steps
+    of llama3.2-1b + SWAT(256, 4) at the card's shapes, traced on the meta
+    device over a 1x1 mesh (`launch.dryrun.trace_cell`: counted FLOPs,
+    bytes and memory), then the same step built on the card with the
+    kernels and timed (CUDA events, mean of DRYRUN_ITERS after a warm-up),
+    its peak memory beside the predicted argument + temp bytes. Gates: the
+    argument bytes equal exactly; the time at least DRYRUN_COMPUTE_FLOOR x
+    compute_s."""
+    from repro_torch.analysis.collectives import record_stats
+    from repro_torch.core.types import ShapeConfig
+    from repro_torch.distributed import roofline as R
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as ML
+    rows = []
+    for mode, seq, b in DRYRUN_CELLS:
+        shape = ShapeConfig(f"card_{mode}", seq, b, mode)
+        mesh = ML.LocalMesh((1, 1), ("data", "model"))
+        tr = D.trace_cell(cfg, shape, mesh, impl="kernel")
+        roof = R.roofline_terms(tr.cost, record_stats(tr.record),
+                                D.model_flops_per_device(cfg, shape, 1))
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        cell = D.build_cell(cfg, shape, ML.LocalMesh((1, 1), ("data",
+                                                              "model")),
+                            impl=None, device="cuda")
+        arg = D.argument_bytes(cell)
+        cell.run()                                    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(DRYRUN_ITERS):
+            cell.run()
+        e.record()
+        e.synchronize()
+        ms = s.elapsed_time(e) / DRYRUN_ITERS
+        peak = torch.cuda.max_memory_allocated() - base
+        row = {"mode": mode, "seq_len": seq, "batch": b, "trace_s":
+               tr.trace_s, "measured_ms": ms,
+               "compute_ms": roof.compute_s * 1e3,
+               "memory_ms": roof.memory_s * 1e3,
+               "measured_over_bound": ms / (roof.bound_s * 1e3),
+               "flops": roof.flops, "bytes": roof.bytes_accessed,
+               "model_flops": roof.model_flops,
+               "predicted_argument_bytes":
+                   tr.memory["argument_size_in_bytes"],
+               "card_argument_bytes": arg,
+               "predicted_argument_plus_temp_bytes":
+                   tr.memory["argument_size_in_bytes"]
+                   + tr.memory["temp_size_in_bytes"],
+               "card_peak_bytes": peak}
+        rows.append(row)
+        log("phase 31 (c) dry-run vs card: " + json.dumps(row))
+        del cell
+        torch.cuda.empty_cache()
+        if arg != tr.memory["argument_size_in_bytes"]:
+            raise AssertionError(f"dry-run {mode}: predicted argument bytes "
+                                 f"differ from the card's: {row}")
+        if not ms >= DRYRUN_COMPUTE_FLOOR * row["compute_ms"]:
+            raise AssertionError(f"dry-run {mode}: the card ran faster than "
+                                 f"the counted FLOPs allow: {row}")
+    return rows
+
+
+def mesh_gaps_and_dryrun(torch, cfg, card):
+    """Phase 31: (a) whisper on a mesh, (b) the cp and fsdp train profiles,
+    (c) the dry-run against the card."""
+    t0 = time.perf_counter()
+    out = {"whisper_2x2": mesh_whisper(torch)}
+    torch.cuda.empty_cache()
+    out["profiles"] = mesh_profiles_train(torch, cfg)
+    torch.cuda.empty_cache()
+    out["dryrun_vs_card"] = dryrun_vs_card(torch, cfg)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"mesh gaps and dry-run (phase 31; {card}): wall "
+        f"{out['wall_s']:.1f}s")
+    return out
+
+
 def ptxas_report(out):
     """(kernel, registers, spill-store bytes) for every entry function in
     the `nvcc -Xptxas -v` output of one source; kernel reads like
@@ -6160,6 +6404,9 @@ def main():
     lint30 = mesh_lint(torch, card)
     paper30 = paper_baseline(torch, card)
     lint30["wall_s_phase"] = time.perf_counter() - t30
+    # phase 31: whisper and the cp / fsdp train profiles on a mesh, and the
+    # dry-run's count against the card
+    gaps31 = mesh_gaps_and_dryrun(torch, cfg, card)
     tr_e2e = train_end_to_end(torch, cfg)
     resume = resume_drill(torch)
 
@@ -6346,6 +6593,7 @@ def main():
     log(f"training on a mesh (phase 29; {card}): {json.dumps(mesh29)}")
     log(f"mesh lint (phase 30; {card}): {json.dumps(lint30)}")
     log(f"paper baseline (phase 30; {card}): {json.dumps(paper30)}")
+    log(f"mesh gaps and dry-run (phase 31; {card}): {json.dumps(gaps31)}")
     log(f"e2e: {json.dumps(e2e)}")
     log(f"trace: {json.dumps(trace)}")
     log(f"unembed: {json.dumps(unembed)}")

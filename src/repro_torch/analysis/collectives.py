@@ -18,6 +18,12 @@ on a LocalMesh, that calls torch.distributed itself) is one collective
 (`collective_stats`). Its bytes are the bytes of the tensors it returns
 (the result, as the JAX parser charges), or, when it returns none, of the
 first tensor it was given (its output buffer).
+
+Wire bytes weight each kind's bytes by the JAX parser's factors (ring
+wire bytes per participating device): an all-reduce moves 2x its result
+(a reduce-scatter and an all-gather phase); an all-gather, a
+reduce-scatter, an all-to-all and a shift (p2p, JAX's
+collective-permute) move 1x.
 """
 from __future__ import annotations
 
@@ -49,6 +55,21 @@ def collective_kind(op_name: str) -> str:
     return op_name.split("::", 1)[-1].split(".", 1)[0]
 
 
+# wire bytes per result byte, by the mesh's kind (JAX's `parse_collectives`)
+WIRE_FACTORS = {"all_reduce": 2.0, "all_gather": 1.0, "reduce_scatter": 1.0,
+                "all_to_all": 1.0, "p2p": 1.0}
+
+
+def wire_factor(kind: str) -> float:
+    """Wire bytes per result byte of a collective of this kind (a mesh kind
+    or a c10d op's name)."""
+    return WIRE_FACTORS.get(C10D_KINDS.get(kind, kind), 1.0)
+
+
+def _wire(by_kind: Dict[str, int]) -> float:
+    return float(sum(wire_factor(k) * b for k, b in by_kind.items()))
+
+
 @dataclasses.dataclass
 class CollectiveStats:
     counts: Dict[str, int]
@@ -71,7 +92,7 @@ def _stats(items) -> CollectiveStats:
         counts[kind] = counts.get(kind, 0) + 1
         by_kind[kind] = by_kind.get(kind, 0) + nbytes
     return CollectiveStats(counts=counts, bytes_by_kind=by_kind,
-                           wire_bytes=float(sum(by_kind.values())))
+                           wire_bytes=_wire(by_kind))
 
 
 def _op_bytes(op) -> int:
@@ -99,7 +120,7 @@ def merged(*stats: CollectiveStats) -> CollectiveStats:
         counts.update(st.counts)
         by_kind.update(st.bytes_by_kind)
     return CollectiveStats(counts=dict(counts), bytes_by_kind=dict(by_kind),
-                           wire_bytes=float(sum(by_kind.values())))
+                           wire_bytes=_wire(by_kind))
 
 
 def issued(ops: Sequence) -> List[Tuple[str, int]]:
@@ -141,7 +162,8 @@ class CollectiveBudget:
     allow:           max op count per collective kind. An empty dict is the
                      COLLECTIVE-FREE budget: every single-device entry, and
                      every decode hot-path entry.
-    max_wire_bytes:  ceiling on wire bytes (0 = counts only).
+    max_wire_bytes:  ceiling on factor-weighted wire bytes (0 = counts
+                     only).
     """
     allow: Tuple[Tuple[str, int], ...] = ()
     max_wire_bytes: float = 0.0

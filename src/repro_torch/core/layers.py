@@ -32,7 +32,9 @@ Params = Dict[str, Any]
 def _dense_init(gen: torch.Generator, shape, dtype, device,
                 scale: Optional[float] = None) -> torch.Tensor:
     """Truncated normal on [-2, 2] times `scale` (default sqrt(1/fan_in)),
-    by inverse CDF."""
+    by inverse CDF. On the meta device: the shape only."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = (1.0 / shape[0]) ** 0.5 if scale is None else scale
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
@@ -152,6 +154,27 @@ def _project_qkv(params: Params, cfg: AttentionLayerCfg, x, kv_x):
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
+def attention_qkv(params: Params, cfg: AttentionLayerCfg, x, *,
+                  kv_x=None, positions=None):
+    """The projected q (B, Hq, L, D), k and v (B, Hkv, Lkv, D), q and k
+    roped at `positions` (default arange(L)) for rotary self-attention."""
+    kv_x = x if kv_x is None else kv_x
+    q, k, v = _project_qkv(params, cfg, x, kv_x)
+    if cfg.use_rope and not cfg.cross:
+        pos = (torch.arange(x.shape[1], device=x.device) if positions is None
+               else positions)
+        rope = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, tables=rope)
+        k = apply_rope(k, tables=rope)
+    return q, k, v
+
+
+def attention_out(params: Params, out) -> torch.Tensor:
+    """The heads' outputs (B, Hq, L, D) through wo: (B, L, Dm)."""
+    b, _, l, _ = out.shape
+    return out.transpose(1, 2).reshape(b, l, -1) @ params["wo"]
+
+
 def attention_layer(params: Params, cfg: AttentionLayerCfg, x, *,
                     kv_x=None, positions=None, impl: Optional[str] = None,
                     return_kv: bool = False):
@@ -160,17 +183,9 @@ def attention_layer(params: Params, cfg: AttentionLayerCfg, x, *,
     returns (out, k, v) with the (roped, for rotary self-attention) k and v
     (B, Hkv, Lkv, D) that `prefill_kv_cache` stores, or the cross cache
     holds, so prefill projects each layer once."""
-    b, l, _ = x.shape
-    kv_x = x if kv_x is None else kv_x
-    q, k, v = _project_qkv(params, cfg, x, kv_x)
-    if cfg.use_rope and not cfg.cross:
-        pos = (torch.arange(l, device=x.device) if positions is None
-               else positions)
-        rope = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
-        q = apply_rope(q, tables=rope)
-        k = apply_rope(k, tables=rope)
-    out = kops.swat_attention(q, k, v, cfg.spec, impl=impl)
-    out = out.transpose(1, 2).reshape(b, l, -1) @ params["wo"]
+    q, k, v = attention_qkv(params, cfg, x, kv_x=kv_x, positions=positions)
+    out = attention_out(params, kops.swat_attention(q, k, v, cfg.spec,
+                                                    impl=impl))
     return (out, k, v) if return_kv else out
 
 

@@ -45,6 +45,7 @@ from repro_torch.core import layers as L
 from repro_torch.core import moe as M
 from repro_torch.core import ssm as S
 from repro_torch.core.types import AttentionSpec, ModelConfig
+from repro_torch.kernels import dots
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import swat_decode
 
@@ -163,21 +164,40 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 
 # --------------------------------------------------------------- forward ---
 
-def embed_tokens(params: Params, cfg: ModelConfig,
-                 batch: Dict[str, Any]) -> torch.Tensor:
-    """Token embeddings, or the precomputed `"embeddings"` of a frontend
-    stub (VLM patches, audio frames) cast to the model dtype; sinusoidal
-    absolute positions are added when the config has no rope (whisper).
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 lo: Optional[int] = None) -> torch.Tensor:
+    """The rows of `table` (V, Dm) for `tokens`. With `lo`, the table is a
+    vocab shard holding rows [lo, lo + V) (a mesh's vocab-parallel lookup,
+    summed over the shards): a token outside it gives a zero row.
 
     The lookup is `F.embedding`: its backward sums a token's duplicate rows
     in fp32 and rounds once, where the indexing's backward on CUDA rounds a
     bf16 table's gradient after every duplicate and loses the small
     additions of a frequent token."""
+    t = tokens.long()
+    if lo is None:
+        return torch.nn.functional.embedding(t, table)
+    v = table.shape[0]
+    t = t - lo
+    hit = (t >= 0) & (t < v)
+    return (torch.nn.functional.embedding(t.clamp(0, v - 1), table)
+            * hit[..., None].to(table.dtype))
+
+
+def embed_tokens(params: Params, cfg: ModelConfig,
+                 batch: Dict[str, Any],
+                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings (`embed_lookup`), or the precomputed `"embeddings"`
+    of a frontend stub (VLM patches, audio frames) cast to the model dtype;
+    sinusoidal absolute positions are added when the config has no rope
+    (whisper). rows: the tokens' looked-up rows, where the caller made them
+    (a mesh's lookup over its table's shards)."""
     if "embeddings" in batch:
         x = batch["embeddings"].to(_dtype(cfg))
+    elif rows is not None:
+        x = rows
     elif cfg.embed_inputs:
-        x = torch.nn.functional.embedding(batch["tokens"].long(),
-                                          params["embed"])
+        x = embed_lookup(params["embed"], batch["tokens"])
     else:
         raise ValueError("batch needs 'tokens' or 'embeddings'")
     if cfg.embed_scale:
@@ -194,7 +214,11 @@ def _head_product(x2d: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     preferred_element_type=float32). On CUDA without autograd it is one
     `aten::mm.dtype` call, which reads the bf16 head as it is; that op has
     no backward in PyTorch, so where autograd records (training) and on the
-    CPU (which has no kernel for it) both operands are upcast to fp32."""
+    CPU (which has no kernel for it) both operands are upcast to fp32. With
+    `dots.native_mixed_dot` on (the dry-run), off the CPU, it is always the
+    mixed product (`dots.mixed_mm`, differentiable)."""
+    if dots.native(x2d) and head.dtype == x2d.dtype:
+        return dots.mixed_mm(x2d, head)
     recording = torch.is_grad_enabled() and (x2d.requires_grad
                                              or head.requires_grad)
     if x2d.is_cuda and x2d.dtype != torch.float32 and not recording:
@@ -283,8 +307,9 @@ def _stack_forward(blocks, cfg: ModelConfig, x, *, impl: Optional[str],
                    remat: bool, remat_policy: str = "nothing",
                    enc_out=None, plan=None):
     """Run every super-block (enc_out: the encoder's output, which "xattn"
-    layers attend). With `remat` (and autograd recording), each
-    super-block is a `torch.utils.checkpoint` region under
+    layers attend; with a plan, one per coordinate). With `remat` (and
+    autograd recording), each super-block is a `torch.utils.checkpoint`
+    region under
     REMAT_POLICIES[remat_policy]: its activations are recomputed in the
     backward pass (the JAX package's jax.checkpoint around the scan body).
     Returns (x, aux): aux is the MoE layers' aux loss summed over every
@@ -294,12 +319,14 @@ def _stack_forward(blocks, cfg: ModelConfig, x, *, impl: Optional[str],
     `distributed.train_parallel.TrainPlan`); `blocks` and `x` are then lists
     over its local coordinates, and so are the returned x and aux. The
     residual is re-laid to the plan's activation layout before the first
-    super-block and after each one (`layers.with_activation_constraint`),
-    and each super-block starts from the plan's block input; a remat
-    region recomputes the plan's collectives too, in the same order."""
+    super-block (`layers.with_activation_constraint`) and after each one
+    (`plan.block_output`), and each super-block starts from the plan's
+    block input; a remat region recomputes the plan's collectives too, in
+    the same order."""
     one = plan is None
     if one:
         blocks, x, plan = [blocks], [x], ONE_DEVICE
+        enc_out = [enc_out]
     policy = REMAT_POLICIES[remat_policy]
 
     def block_fn(xs, blks):
@@ -311,22 +338,23 @@ def _stack_forward(blocks, cfg: ModelConfig, x, *, impl: Optional[str],
                   for p, x in zip(lps, xs)]
             ws = plan.layer_mixer(lps, i)
             if _is_mamba(kind):
-                ys = [S.mamba_block(w, h, cfg.ssm, chunk=cfg.ssm.chunk_size)
-                      for w, h in zip(ws, hs)]
+                ys = plan.whole(lambda hs, ws=ws: [
+                    S.mamba_block(w, h, cfg.ssm, chunk=cfg.ssm.chunk_size)
+                    for w, h in zip(ws, hs)], hs)
             else:
-                acfg = plan.attn_cfg(cfg, kind, i)
-                ys = plan.attn_out(i, [
-                    L.attention_layer(w, acfg, h, impl=impl)
-                    for w, h in zip(ws, hs)])
+                ys = plan.attention(i, ws, plan.attn_cfg(cfg, kind, i), hs,
+                                    impl)
             xs = [x + y for x, y in zip(xs, ys)]
             if kind == "xattn":
+                xcfg = attn_cfg(cfg, kind, cross=True)
                 xs = [x + L.attention_layer(
-                    p["cross"], attn_cfg(cfg, kind, cross=True),
-                    L.rmsnorm(p["norm_x"], x, cfg.norm_eps), kv_x=enc_out,
-                    impl=impl) for p, x in zip(lps, xs)]
+                    w, xcfg, L.rmsnorm(p["norm_x"], x, cfg.norm_eps),
+                    kv_x=e, impl=impl)
+                    for p, w, x, e in zip(lps, plan.layer_cross(lps, i), xs,
+                                          enc_out)]
             xs, a = plan.train_ffn(lps, cfg, i, xs)
             aux = _add_aux(aux, a)
-        return L.with_activation_constraint(xs, plan), aux
+        return plan.block_output(xs), aux
 
     kw = {}
     if policy is not None:
@@ -365,13 +393,16 @@ def _forward(params: Params, cfg: ModelConfig, batch, *,
              impl: Optional[str], remat: bool, remat_policy: str,
              plan=None):
     """(final hidden states, summed MoE aux loss); with a plan, lists over
-    its local coordinates (a mesh refuses encoder-decoder configs)."""
+    its local coordinates (the encoder runs on each coordinate's rows)."""
     _check_supported(cfg)
     if plan is not None:
+        enc_outs = (plan.encode(params, cfg, batch, impl=impl)
+                    if cfg.encoder_decoder else [None] * len(params))
         xs = plan.embed(params, cfg, batch)
         return _stack_forward([p["blocks"] for p in params], cfg, xs,
                               impl=impl, remat=remat,
-                              remat_policy=remat_policy, plan=plan)
+                              remat_policy=remat_policy, enc_out=enc_outs,
+                              plan=plan)
     enc_out = (encode(params, cfg, batch, impl=impl)
                if cfg.encoder_decoder else None)
     x = embed_tokens(params, cfg, batch)
@@ -508,6 +539,15 @@ class OneDevice:
     def embed(self, ps, cfg: ModelConfig, batches):
         return [embed_tokens(p, cfg, b) for p, b in zip(ps, batches)]
 
+    def encode(self, ps, cfg: ModelConfig, batches, impl=None):
+        """The whisper encoder's output per coordinate (its rows)."""
+        return [encode(p, cfg, b, impl=impl) for p, b in zip(ps, batches)]
+
+    def cross_params(self, ps, sb: int, i: int):
+        """Per coordinate, the cross-attention params of "xattn" layer i of
+        super-block sb."""
+        return [p["blocks"][sb][f"l{i}"]["cross"] for p in ps]
+
     def unembed(self, ps, cfg: ModelConfig, xs):
         return [_unembed(p, cfg, x) for p, x in zip(ps, xs)]
 
@@ -549,8 +589,26 @@ class OneDevice:
         boundary (`layers.with_activation_constraint`)."""
         return xs
 
+    def block_output(self, xs):
+        """A super-block's output re-laid to the activation layout."""
+        return self.constrain(xs)
+
     def layer_mixer(self, lps, i: int):
         return [p["mixer"] for p in lps]
+
+    def layer_cross(self, lps, i: int):
+        return [p["cross"] for p in lps]
+
+    def attention(self, i: int, ws, acfg, hs, impl):
+        """A full-sequence attention layer's outputs per coordinate."""
+        return self.attn_out(i, [L.attention_layer(w, acfg, h, impl=impl)
+                                 for w, h in zip(ws, hs)])
+
+    def whole(self, fn, hs):
+        """fn over the coordinates' whole sequences (a plan that splits
+        the sequence gathers it first and keeps each coordinate's block of
+        the result)."""
+        return fn(hs)
 
     def train_ffn(self, lps, cfg: ModelConfig, i: int, xs):
         """(the FFN's outputs, its aux losses or None) per coordinate."""
@@ -605,10 +663,12 @@ def decode_step(params: Params, cfg: ModelConfig, batch, caches: Caches, *,
     if attn and (impl or kops.default_impl(xs[0])) == "kernel":
         swat_decode.check_force_fail()
     # every attention layer's cache advances together, so the rope tables
-    # at step + arange(T), the per-slot row count and the encoder length
-    # are the same for all layers: build them once per step (each is
-    # several launches) from the first attention layer's cache
-    ropes, nums, encs = [], [], []
+    # at step + arange(T) and the per-slot row count are the same for all
+    # layers: build them once per step (each is several launches) from the
+    # first attention layer's cache; so is the encoder length, built at the
+    # first cross layer from its (gathered) cross K/V
+    ropes, nums = [], []
+    encs = [None] * len(xs)
     for x, c in zip(xs, cs):
         first = c[0][f"l{attn[0]}"] if attn else {}
         rope = None
@@ -620,8 +680,6 @@ def decode_step(params: Params, cfg: ModelConfig, batch, caches: Caches, *,
         b = x.shape[0]
         ropes.append(rope)
         nums.append(torch.full((b,), t, dtype=torch.int32, device=x.device))
-        encs.append(torch.full((b,), first["xk"].shape[2], dtype=torch.int32,
-                               device=x.device) if "xk" in first else None)
     for sb in range(len(ps[0]["blocks"])):
         for i, kind in enumerate(cfg.layer_pattern):
             lps = [p["blocks"][sb][f"l{i}"] for p in ps]
@@ -644,11 +702,16 @@ def decode_step(params: Params, cfg: ModelConfig, batch, caches: Caches, *,
                 plan.write_back(cs, sb, i, views)
             xs = [x + y for x, y in zip(xs, ys)]
             if kind == "xattn":
-                for k, (p, x) in enumerate(zip(lps, xs)):
+                xcfg = attn_cfg(cfg, kind, cross=True)
+                for k, (p, w, x) in enumerate(zip(
+                        lps, plan.cross_params(ps, sb, i), xs)):
+                    if encs[k] is None:
+                        encs[k] = torch.full(
+                            (x.shape[0],), views[k]["xk"].shape[2],
+                            dtype=torch.int32, device=x.device)
                     h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
                     xs[k] = x + L.cross_attention_decode(
-                        p["cross"], attn_cfg(cfg, kind, cross=True), h,
-                        views[k], encs[k], impl=impl)
+                        w, xcfg, h, views[k], encs[k], impl=impl)
             xs = plan.ffn(ps, cfg, sb, i, xs)
     logits = plan.unembed(ps, cfg, xs)
     return (logits[0] if one else logits), caches
@@ -726,15 +789,14 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
     Runs without autograd. plan: as `decode_step`'s (lengths is then a
     list too; a mesh plan's caches come back in its plan-local layout)."""
     _check_supported(cfg)
-    if lengths is not None and cfg.encoder_decoder:
-        raise ValueError("padded prefill: decoder-only models")
     one = plan is None
     ps, bs, _, plan = _coords(params, batch, None, plan)
-    lens = [lengths] if one else lengths
-    # a mesh plan refuses encoder-decoder configs: the encoder is one
-    # device's
-    enc_out = (encode(ps[0], cfg, bs[0], impl=impl)
-               if cfg.encoder_decoder else None)
+    lens = ([lengths] if one else
+            [None] * len(ps) if lengths is None else lengths)
+    if cfg.encoder_decoder and any(n is not None for n in lens):
+        raise ValueError("padded prefill: decoder-only models")
+    enc_outs = (plan.encode(ps, cfg, bs, impl=impl)
+                if cfg.encoder_decoder else None)
     xs = plan.embed(ps, cfg, bs)
     caches: List[Caches] = [[] for _ in xs]
     for sb in range(len(ps[0]["blocks"])):
@@ -766,12 +828,14 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, *,
                 ys = plan.attn_out(i, ys)
             xs = [x + y for x, y in zip(xs, ys)]
             if kind == "xattn":
-                for k, (p, x) in enumerate(zip(lps, xs)):
+                xcfg = attn_cfg(cfg, kind, cross=True)
+                for k, (p, w, x) in enumerate(zip(
+                        lps, plan.cross_params(ps, sb, i), xs)):
                     cache = new[k][f"l{i}"]
                     h = L.rmsnorm(p["norm_x"], x, cfg.norm_eps)
                     y, cache["xk"], cache["xv"] = L.attention_layer(
-                        p["cross"], attn_cfg(cfg, kind, cross=True), h,
-                        kv_x=enc_out, impl=impl, return_kv=True)
+                        w, xcfg, h, kv_x=enc_outs[k], impl=impl,
+                        return_kv=True)
                     xs[k] = x + y
             xs = plan.ffn(ps, cfg, sb, i, xs)
         for c, n in zip(caches, new):

@@ -126,7 +126,9 @@ def swat_attention_cp_local(qs, ks, vs, *, spec: AttentionSpec, mesh,
 
     qs, ks, vs: lists of LOCAL shards (B, H, Lp, D) of a (B, H, L, D)
     problem with the sequence sharded over `axis`, one per local shard in
-    axis order. Returns the list of local output shards."""
+    axis order, or one per local coordinate of the whole grid
+    (`mesh.coords()` order: a train plan's lists, each line of the other
+    axes its own problem). Returns the list of local output shards."""
     if not (spec.is_sparse and spec.window > 0):
         raise ValueError("context parallelism needs a window spec")
     if spec.num_random:
@@ -136,6 +138,8 @@ def swat_attention_cp_local(qs, ks, vs, *, spec: AttentionSpec, mesh,
     scale = float(d ** -0.5 if scale is None else scale)
     n = mesh.shape[axis]
     idxs = mesh.index(axis)
+    if len(qs) != len(idxs):
+        idxs = [c[axis] for c in mesh.coords()]
     if lp * n != seq_len:
         raise ValueError(f"shards of {lp} rows over {axis}={n} vs sequence "
                          f"{seq_len}")

@@ -356,9 +356,14 @@ def placements(spec, mesh_dim_names: Sequence[str]) -> list:
 class NamedSharding(NamedTuple):
     """A mesh and a spec: the JAX package's NamedSharding, as the train
     launcher passes the activation layout (`activation_spec`) to
-    `steps.make_train_step(act_sharding=)` and `Trainer(act_sharding=)`."""
+    `steps.make_train_step(act_sharding=)` and `Trainer(act_sharding=)`.
+    `profile` names the parameter placement the layout belongs to ("tp",
+    "cp" or "fsdp"): the JAX package hands the jit the params' shardings
+    and turns context parallelism on globally, where the port's train step
+    takes both from here (the tp and cp layouts are the same spec)."""
     mesh: Any
     spec: P
+    profile: str = "tp"
 
 
 def _block_key(spec, mesh, coord) -> tuple:

@@ -32,6 +32,16 @@ mesh. A coordinate computes what its rank would.
     coordinate writes back its own slice: correct, and a full gather of
     the ring a step.
 
+The embeddings are `model.embed_tokens`'s on every coordinate: a
+frontend's `"embeddings"`, or the token rows (the vocab-parallel lookup
+where the table splits the vocab), then the scale and sinusoidal
+positions. An encoder-decoder config (whisper) runs its encoder on each
+coordinate's rows with the encoder's params gathered whole; an "xattn"
+layer's cross attention gathers its params, and the cross K/V ("xk",
+"xv", placed by the cache table and never written by a decode step),
+whole. The engine still serves decoder-only models, as the JAX engine
+does; the model functions and the train step take whisper on a mesh.
+
 Kernel #1 plans its split for the whole slot batch's rings of the shard's
 heads (slots x local kv heads), not for the rings the shard launches: the
 split is the order of the decode's softmax merge, and with the
@@ -52,8 +62,8 @@ import dataclasses
 from typing import Dict, List, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch import tree
 from repro_torch.core import layers as L
 from repro_torch.core import model as Mod
 from repro_torch.core import moe as M
@@ -66,6 +76,9 @@ Shards = List[torch.Tensor]
 _ATTN_KEEP = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0, "bv": 0}
 _MLP_KEEP = {"w1": 1, "w3": 1, "w2": 0}
 _CACHE_HEADS = {"k": 1, "v": 1, "pk": 2, "pv": 2}
+# cache leaves that a decode step reads and never writes: the encoder's
+# cross K/V of an "xattn" layer
+_READ_ONLY = ("xk", "xv")
 
 
 def resolve_mesh(mesh, device: torch.device):
@@ -116,35 +129,49 @@ class PlanBase:
                 return False
         return True
 
-    def _decide(self, attn_ok=None) -> None:
+    def _keeps(self, path: str, dim: int) -> bool:
+        """The param at `path` can stay split on `dim` under TP: its spec
+        without the batch axes splits exactly `dim`, over 'model', and its
+        placement splits that dim over 'model' only (a 2-D FSDP split of
+        it over ('data', 'model') is gathered). With 'model' > 1 the dim
+        must split: a table the rule left whole (a vocabulary that 'model'
+        does not divide) is used whole."""
+        spec = _leaf_at(self.param_specs, path)
+        entry = spec[dim] if dim < len(spec) else None
+        return (self._is_model(_leaf_at(self._tp_specs, path), dim)
+                and self._split(entry) == (("model",) if self.m > 1
+                                           else ()))
+
+    def _decide(self, attn_ok=None, tp: bool = True) -> None:
         """The plan per layer position; `attn_ok(i)`: a further condition
-        on Megatron attention at position i (the serving caches')."""
+        on Megatron attention at position i (the serving caches'); `tp`
+        False keeps nothing split over 'model' (everything is gathered on
+        use, as the fsdp profile's batch-parallel compute needs)."""
         cfg, m = self.cfg, self.m
         blk = self._tp_specs["blocks"][0]
         self._megatron, self._mlp_tp, self._experts_tp = {}, {}, {}
         for i, kind in enumerate(cfg.layer_pattern):
-            p = blk[f"l{i}"]
+            p, at = blk[f"l{i}"], f"blocks/0/l{i}"
             if not Mod._is_mamba(kind):
                 a = Mod.attn_cfg(cfg, kind, index=i)
-                self._megatron[i] = (
+                self._megatron[i] = tp and (
                     a.num_heads % m == 0 and a.num_kv_heads % m == 0
-                    and all(self._is_model(p["mixer"][k], _ATTN_KEEP[k])
+                    and all(self._keeps(f"{at}/mixer/{k}", _ATTN_KEEP[k])
                             for k in p["mixer"])
                     and (attn_ok is None or attn_ok(i)))
             if "mlp" in p:
-                self._mlp_tp[i] = all(self._is_model(p["mlp"][k], d)
-                                      for k, d in _MLP_KEEP.items()
-                                      if k in p["mlp"])
+                self._mlp_tp[i] = tp and all(
+                    self._keeps(f"{at}/mlp/{k}", d)
+                    for k, d in _MLP_KEEP.items() if k in p["mlp"])
             if "moe" in p:
-                self._experts_tp[i] = (
+                self._experts_tp[i] = tp and (
                     cfg.moe.num_experts % m == 0
-                    and all(self._is_model(p["moe"][k], 0)
+                    and all(self._keeps(f"{at}/moe/{k}", 0)
                             for k in ("w1", "w2", "w3")))
         ps = self._tp_specs
-        self.vocab_tp = ("embed" in ps and self._is_model(ps["embed"], 0))
-        head_spec = (None if cfg.tie_embeddings else ps["lm_head"])
-        self.head_tp = (self.vocab_tp if head_spec is None
-                        else self._is_model(head_spec, 1))
+        self.vocab_tp = tp and "embed" in ps and self._keeps("embed", 0)
+        self.head_tp = (self.vocab_tp if cfg.tie_embeddings
+                        else tp and self._keeps("lm_head", 1))
 
     def megatron(self, i: int) -> bool:
         return self._megatron[i]
@@ -195,28 +222,60 @@ class PlanBase:
         return out
 
     def embed(self, ps, cfg: ModelConfig, batches) -> Shards:
-        """Token embeddings per coordinate (`model.embed_tokens`): a
-        vocab-parallel lookup and psum where the table splits the vocab."""
-        tokens = [b["tokens"] for b in batches]
-        tables = [p["embed"] for p in ps]
-        if self.vocab_tp and self.m > 1:
-            tables = self.gather(tables, self.param_specs["embed"], keep=(0,))
-            parts = []
-            for tok, tab, c in zip(tokens, tables, self.coords):
-                vl = tab.shape[0]
-                t = tok.long() - self.member(c) * vl
-                hit = (t >= 0) & (t < vl)
-                parts.append(F.embedding(t.clamp(0, vl - 1), tab)
-                             * hit[..., None].to(tab.dtype))
-            xs = self.mesh.psum(parts, "model")
-        else:
-            tables = self.gather(tables, self.param_specs["embed"])
-            xs = [F.embedding(tok.long(), tab) for tok, tab in zip(tokens,
-                                                                   tables)]
-        if cfg.embed_scale:
-            xs = [x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-                  for x in xs]
-        return xs
+        """The model's embeddings per coordinate (`model.embed_tokens`: a
+        frontend's `"embeddings"`, or the tokens' rows, then the scale and
+        the sinusoidal positions): the lookup is vocab-parallel, each shard
+        its rows and a psum, where the table splits the vocab."""
+        rows = [None] * len(batches)
+        if "embeddings" not in batches[0]:
+            tokens = [b["tokens"] for b in batches]
+            tables = [p["embed"] for p in ps]
+            if self.vocab_tp and self.m > 1:
+                tables = self.gather(tables, self.param_specs["embed"],
+                                     keep=(0,))
+                rows = self.mesh.psum([
+                    Mod.embed_lookup(tab, tok, self.member(c) * tab.shape[0])
+                    for tok, tab, c in zip(tokens, tables, self.coords)],
+                    "model")
+            else:
+                tables = self.gather(tables, self.param_specs["embed"])
+                rows = [Mod.embed_lookup(tab, tok)
+                        for tok, tab in zip(tokens, tables)]
+        return [Mod.embed_tokens(p, cfg, b, rows=r)
+                for p, b, r in zip(ps, batches, rows)]
+
+    def _whole_params(self, trees, specs):
+        """Per coordinate, the tree `trees[k]` with every split gathered."""
+        items = [tree.flatten_with_paths(t) for t in trees]
+        spec_of = dict(Sh._path_items(specs))
+        out = [[] for _ in trees]
+        for j, (path, _) in enumerate(items[0]):
+            for o, x in zip(out, self.gather([it[j][1] for it in items],
+                                             spec_of[path])):
+                o.append(x)
+        return [tree.unflatten(t, o) for t, o in zip(trees, out)]
+
+    def encode(self, ps, cfg: ModelConfig, batches, impl=None) -> Shards:
+        """The whisper encoder on each coordinate's rows, its params
+        gathered whole (`model.encode`: the bidirectional dense stack)."""
+        specs = {k: self.param_specs[k] for k in ("enc_blocks", "enc_norm")}
+        encs = self._whole_params([{k: p[k] for k in specs} for p in ps],
+                                  specs)
+        return [Mod.encode(e, cfg, b, impl=impl)
+                for e, b in zip(encs, batches)]
+
+    def _cross_specs(self, i: int):
+        return self.param_specs["blocks"][0][f"l{i}"]["cross"]
+
+    def cross_params(self, ps, sb: int, i: int) -> List[dict]:
+        """Per coordinate, "xattn" layer i's cross-attention params,
+        gathered whole (its heads attend the whole cross K/V)."""
+        return self._params_of([p["blocks"][sb][f"l{i}"]["cross"]
+                                for p in ps], self._cross_specs(i), {})
+
+    def layer_cross(self, lps, i: int) -> List[dict]:
+        return self._params_of([p["cross"] for p in lps],
+                               self._cross_specs(i), {})
 
     def attn_cfg(self, cfg: ModelConfig, kind: str, i: int):
         a = Mod.attn_cfg(cfg, kind, index=i)
@@ -229,6 +288,12 @@ class PlanBase:
         """One psum over 'model' of a Megatron layer's row-parallel wo."""
         return self.mesh.psum(ys, "model") if self.megatron(i) else ys
 
+    def attention(self, i: int, ws, acfg, hs, impl) -> Shards:
+        return Mod.OneDevice.attention(self, i, ws, acfg, hs, impl)
+
+    def whole(self, fn, hs) -> Shards:
+        return fn(hs)
+
 
 
 class MeshPlan(PlanBase):
@@ -237,10 +302,8 @@ class MeshPlan(PlanBase):
 
     def __init__(self, cfg: ModelConfig, mesh, params, *, slots: int,
                  max_len: int, lookahead: int, paged: bool,
-                 profile: str = "tp"):
-        if cfg.encoder_decoder:
-            raise NotImplementedError("mesh serving: decoder-only models")
-        self.profile = profile
+                 profile: str = "tp", enc_len: int = 0):
+        self.profile, self.enc_len = profile, enc_len
         self.slots, self.max_len, self.lookahead = slots, max_len, lookahead
         self.paged = paged
         specs = Sh.param_sharding_serving(_meta(params), mesh, profile)
@@ -256,7 +319,8 @@ class MeshPlan(PlanBase):
             self._cache_shapes(slots), mesh)
         # the contiguous rings' specs: prefill's caches, before insertion
         self.ring_specs = Sh.cache_sharding(Mod.init_caches(
-            cfg, slots, max_len, lookahead=lookahead, device="meta"), mesh)
+            cfg, slots, max_len, enc_len=enc_len, lookahead=lookahead,
+            device="meta"), mesh)
         self._decide(self._heads_ride_model)
 
     def _heads_ride_model(self, i: int) -> bool:
@@ -344,6 +408,7 @@ class MeshPlan(PlanBase):
 
     def _cache_shapes(self, batch: int, device="meta"):
         return Mod.init_caches(self.cfg, batch, self.max_len,
+                               enc_len=self.enc_len,
                                lookahead=self.lookahead, paged=self.paged,
                                shared_pool=False, device=device)
 
@@ -419,6 +484,31 @@ class MeshPlan(PlanBase):
             out.append(Sh._tree_map(leaf, full))
         return out
 
+    def caches_from_prefill(self, caches: List[list]) -> List[list]:
+        """Each coordinate's slot caches (contiguous layout) from
+        `model.prefill`'s plan-local caches of a batch that holds every
+        slot in order: the rows gathered over the slot axes where the
+        prefill split them, then each coordinate's slots cut to its
+        layout, as the engine's insert cuts them."""
+        if self.paged:
+            raise ValueError("caches_from_prefill: the contiguous layout")
+        items = [tree.flatten_with_paths(c) for c in caches]
+        if self.splits(self.slots):
+            cols = [self.gather_slots([it[j][1] for it in items])
+                    for j in range(len(items[0]))]
+            items = [[(p, col[k]) for (p, _), col in zip(items[0], cols)]
+                     for k in range(len(caches))]
+        out = []
+        for c, it, coord in zip(caches, items, self.coords):
+            lo, hi = self.slot_range(coord)
+            leaves = []
+            for path, x in it:
+                i, name = _layer_leaf(path)
+                leaves.append(self.prefill_cut(i, name, x[lo:hi],
+                                               coord).clone())
+            out.append(tree.unflatten(c, leaves))
+        return out
+
     # ----------------------------------------------------------- hooks --
     # `model.OneDevice`'s hooks on the mesh, for the model's forward: ps
     # are the local coordinates' param shards (`place_params`), caches
@@ -464,11 +554,14 @@ class MeshPlan(PlanBase):
                     ) -> Tuple[List[dict], bool]:
         """Per coordinate, layer i's decode cache leaves with every foreign
         split gathered, and whether any was (the caller then writes back)."""
-        if Mod._is_mamba(self.cfg.layer_pattern[i]):
+        kind = self.cfg.layer_pattern[i]
+        if Mod._is_mamba(kind):
             names = ("conv", "ssm")
         else:
             names = (("pk", "pv", "table", "step") if self.paged
                      else ("k", "v", "step"))
+        if kind == "xattn":
+            names += _READ_ONLY
         specs = self.cache_specs[0][f"l{i}"]
         views = [{} for _ in caches]
         gathered = False
@@ -494,7 +587,7 @@ class MeshPlan(PlanBase):
         for c, v, coord in zip(caches, views, self.coords):
             for name, x in v.items():
                 dst = c[sb][f"l{i}"][name]
-                if x is not dst:
+                if x is not dst and name not in _READ_ONLY:
                     dst.copy_(self.cut(x, specs[name],
                                        self.cache_keep(i, name), coord))
 

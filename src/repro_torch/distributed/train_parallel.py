@@ -64,8 +64,27 @@ per local coordinate, and this plan's hooks add the collectives.
     leaf by its max over all its shards (a pmax), as the JAX package's jit
     does over the whole leaf.
 
-Only the "tp" profile trains; encoder-decoder configs are refused, as in
-serving.
+Profiles (`Sh.param_sharding(profile=)`, `sharding.NamedSharding.profile`):
+  * "tp": the above.
+  * "cp": 2-D FSDP over ('data', 'model') and no tensor-parallel dims
+    (every weight gathered on use), experts still over 'model'. The
+    residual stays split over 'model' by sequence through the whole
+    super-block: each window attention layer that context parallelism
+    takes (`kernels.ops.cp_eligible`) projects its block of positions
+    (roped at their global positions) and runs the halo exchange over
+    'model' (`context_parallel.swat_attention_cp_local`, kernels #2, #4
+    and #5 on CUDA tensors); the dense MLP runs on the block; every other
+    mixer (dense or global attention, mamba) and the MoE FFN all-gather
+    the block over 'model', run on the whole sequence of the rows and
+    keep their block of the result (`whole`).
+  * "fsdp": the same placement with batch-parallel compute: the batch is
+    split over every axis ('pod', 'data', 'model'), each coordinate runs
+    its own rows whole, and nothing stays split over 'model' (the
+    experts too are gathered; expert parallelism is refused).
+
+The whisper encoder-decoder trains on every profile: each coordinate runs
+the encoder on its rows with the encoder's params gathered whole, and its
+"xattn" layers' cross attention with their params gathered whole.
 """
 from __future__ import annotations
 
@@ -79,8 +98,10 @@ from repro_torch.core import model as Mod
 from repro_torch.core import moe as M
 from repro_torch.core import moe_ep as EP
 from repro_torch.core.types import ModelConfig
+from repro_torch.distributed import context_parallel as CP
 from repro_torch.distributed import sharding as Sh
 from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.kernels import ops as kops
 
 Shards = List[torch.Tensor]
 
@@ -90,35 +111,48 @@ _STATE_PREFIXES = ("params/", "opt/mu/", "opt/nu/", "residual/")
 
 class TrainPlan(TP.PlanBase):
     """The placement and compute plan of one config on one mesh for
-    training, with the activation layout `act_spec` (`Sh.activation_spec`:
-    batch over the batch axes, sequence over 'model' or not)."""
+    training under `profile`, with the activation layout `act_spec`
+    (`Sh.activation_spec`: tp, batch over the batch axes, sequence over
+    'model' or not; cp, the sequence over 'model'; fsdp, the batch over
+    every axis)."""
 
-    def __init__(self, cfg: ModelConfig, mesh, act_spec=None):
-        if cfg.encoder_decoder:
-            raise NotImplementedError("mesh training: decoder-only models")
+    def __init__(self, cfg: ModelConfig, mesh, act_spec=None,
+                 profile: str = "tp"):
         if "model" not in mesh.axis_names:
             raise ValueError(f"{mesh}: mesh training needs a 'model' axis")
-        act_spec = (Sh.activation_spec(mesh, sequence_parallel=False)
+        if profile not in Sh.PROFILES:
+            raise ValueError(f"profile {profile!r}: one of {Sh.PROFILES}")
+        self.profile, self.cp = profile, profile == "cp"
+        baxes = tuple(a for a in Sh.SLOT_AXES if a in mesh.axis_names)
+        self.batch_axes = baxes + (("model",) if profile == "fsdp" else ())
+        act_spec = (Sh.activation_spec(mesh, sequence_parallel=self.cp,
+                                       profile=profile)
                     if act_spec is None else act_spec)
-        self.batch_axes = tuple(a for a in Sh.SLOT_AXES
-                                if a in mesh.axis_names)
+        seq = {"tp": (None, "model"), "cp": ("model",),
+               "fsdp": (None,)}[profile]
         if (len(act_spec) < 2 or Sh.entry_axes(act_spec[0])
-                != self.batch_axes or act_spec[1] not in (None, "model")):
+                != self.batch_axes or act_spec[1] not in seq):
             raise NotImplementedError(
-                f"activation spec {act_spec}: the tp profile's (batch over "
-                f"{self.batch_axes}, sequence over 'model' or not)")
+                f"activation spec {act_spec}: the {profile} profile's "
+                f"(batch over {self.batch_axes}, sequence over "
+                f"{' or '.join(map(str, seq))})")
         self.sp = act_spec[1] == "model"
         meta = Mod.init_model(cfg, device="meta")
-        self._init_plan(cfg, mesh, Sh.param_sharding(meta, mesh, "tp"),
-                        Sh.param_sharding_serving(meta, mesh, "tp"))
-        self._decide()
+        self._init_plan(cfg, mesh, Sh.param_sharding(meta, mesh, profile),
+                        Sh.param_sharding_serving(meta, mesh, profile))
+        self._decide(tp=profile != "fsdp")
+        # the 'model' members that split a row's positions (for counting
+        # its tokens, or by sequence parallelism): none under fsdp, whose
+        # 'model' members hold other rows
+        self.seq_split = 1 if profile == "fsdp" else self.m
         self._paths = {p: s for p, s in Sh._path_items(self.param_specs)}
         self.rows = 1
         for a in self.batch_axes:
             self.rows *= mesh.shape[a]
 
     def describe(self) -> Dict[str, object]:
-        return {"batch_axes": self.batch_axes, "sequence_parallel": self.sp,
+        return {"profile": self.profile, "batch_axes": self.batch_axes,
+                "sequence_parallel": self.sp,
                 "attention_tp": dict(self._megatron),
                 "mlp_tp": dict(self._mlp_tp),
                 "experts_tp": dict(self._experts_tp),
@@ -166,6 +200,8 @@ class TrainPlan(TP.PlanBase):
     # ------------------------------------------------------------ layout --
     def _block(self, coord, length: int) -> Tuple[int, int]:
         """[a, b): the positions a 'model' member holds or counts."""
+        if self.seq_split == 1:
+            return 0, length
         bounds = torch.tensor_split(torch.arange(length), self.m)[
             self.member(coord)]
         if not len(bounds):
@@ -184,11 +220,54 @@ class TrainPlan(TP.PlanBase):
         return [x[:, slice(*self._block(c, length))].contiguous()
                 for x, c in zip(xs, self.coords)]
 
-    def block_input(self, xs: Shards) -> Shards:
-        """A super-block's input: the whole sequence of the rows."""
+    def _whole_seq(self, xs: Shards) -> Shards:
+        """The whole sequence of each coordinate's rows."""
         if not self.sp or self.m == 1:
             return xs
         return self.mesh.all_gather(xs, "model", 1)
+
+    def block_output(self, xs: Shards) -> Shards:
+        """A super-block's output: re-laid to the activation layout (under
+        cp it kept its block of positions)."""
+        return xs if self.cp else self.constrain(xs)
+
+    def block_input(self, xs: Shards) -> Shards:
+        """A super-block's input: the whole sequence of the rows (under cp
+        the block of positions, which the super-block keeps)."""
+        return xs if self.cp else self._whole_seq(xs)
+
+    def whole(self, fn, hs: Shards) -> Shards:
+        """fn over the whole sequences, each coordinate keeping its block
+        of the result (cp), or fn over hs."""
+        if not self.cp or self.m == 1:
+            return fn(hs)
+        length = hs[0].shape[1] * self.m
+        return [y[:, slice(*self._block(c, length))]
+                for y, c in zip(fn(self._whole_seq(hs)), self.coords)]
+
+    def attention(self, i: int, ws, acfg, hs: Shards, impl) -> Shards:
+        """A self-attention layer: under cp, a window layer that context
+        parallelism takes runs the halo exchange over 'model' on each
+        coordinate's block of positions; any other runs `whole`."""
+        def full(xs):
+            return TP.PlanBase.attention(self, i, ws, acfg, xs, impl)
+        length = hs[0].shape[1] * self.m
+        if not self.cp or not kops.cp_eligible(acfg.spec, length, length,
+                                               self.m):
+            return self.whole(full, hs)
+        qs, ks, vs = [], [], []
+        for w, h, c in zip(ws, hs, self.coords):
+            lo = self._block(c, length)[0]
+            q, k, v = L.attention_qkv(w, acfg, h, positions=lo + torch.arange(
+                h.shape[1], device=h.device))
+            qs.append(q)
+            ks.append(k)
+            vs.append(v)
+        outs = CP.swat_attention_cp_local(qs, ks, vs, spec=acfg.spec,
+                                          mesh=self.mesh, axis="model",
+                                          seq_len=length)
+        return self.attn_out(i, [L.attention_out(w, o)
+                                 for w, o in zip(ws, outs)])
 
     # ------------------------------------------------------------- layers --
     def _layer_specs(self, i: int) -> dict:
@@ -215,11 +294,18 @@ class TrainPlan(TP.PlanBase):
             return [x + y for x, y in zip(xs, ys)], None
         moes = [p["moe"] for p in lps]
         e = cfg.moe.num_experts
-        if cfg.moe.dispatch == "ep" and M.expert_parallel_mesh(e) is not None:
-            ys, auxes = self._moe_ep(moes, specs["moe"], cfg, hs)
-        else:
-            ys, auxes = self._moe(moes, specs["moe"], cfg, hs, i)
-        return [x + y for x, y in zip(xs, ys)], auxes
+        auxes = []
+
+        def moe(hs):
+            if (cfg.moe.dispatch == "ep"
+                    and M.expert_parallel_mesh(e) is not None):
+                ys, aux = self._moe_ep(moes, specs["moe"], cfg, hs)
+            else:
+                ys, aux = self._moe(moes, specs["moe"], cfg, hs, i)
+            auxes.append(aux)
+            return ys
+        ys = self.whole(moe, hs)
+        return [x + y for x, y in zip(xs, ys)], auxes[0]
 
     def _psum_batch(self, xs: Shards) -> Shards:
         for a in self.batch_axes:
@@ -278,6 +364,10 @@ class TrainPlan(TP.PlanBase):
         if M._EP_MESH is not self.mesh:
             raise ValueError("expert parallelism is registered on another "
                              "mesh than the train plan's")
+        if self.profile == "fsdp":
+            raise NotImplementedError(
+                "expert parallelism under the fsdp profile: its 'model' "
+                "members hold other rows; use the sort or dense dispatch")
         length = hs[0].shape[1]
         if length % self.m:
             raise ValueError(f"expert parallelism over model={self.m}: "
@@ -308,7 +398,7 @@ class TrainPlan(TP.PlanBase):
 
     def logits(self, ps, cfg: ModelConfig, xs: Shards) -> Shards:
         """fp32 logits of every position of each coordinate's rows."""
-        xs = self.block_input(xs)
+        xs = self._whole_seq(xs)
         return [self._logits(p, cfg, x, head)
                 for p, x, head in zip(ps, xs, self._heads(ps))]
 

@@ -32,6 +32,11 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_kernels_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# devices whose tensors the wrappers hand to their plain versions: the CPU
+# (the tests) and the meta device (the dry-run's shapes-only trace, which
+# must never build or touch CUDA)
+PLAIN_DEVICES = ("cpu", "meta")
+
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas register / shared-memory report per source, from the last build in

@@ -148,13 +148,20 @@ def set_context_parallel(mesh, axis: str = "model") -> None:
     _CP_CTX = (mesh, axis) if mesh is not None else None
 
 
+def cp_eligible(spec: AttentionSpec, lq: int, lkv: int, n: int) -> bool:
+    """Whether context parallelism over n shards takes a call: a window
+    spec without random blocks, Lq = Lkv divisible by n, shards of at least
+    128 rows that hold the globals."""
+    return (spec.is_sparse and not spec.num_random and lq == lkv
+            and lq % n == 0 and lq // n >= 128
+            and spec.num_global <= lq // n)
+
+
 def _cp_eligible(spec: AttentionSpec, lq: int, lkv: int) -> bool:
-    if _CP_CTX is None or not spec.is_sparse or spec.num_random:
+    if _CP_CTX is None:
         return False
     mesh, axis = _CP_CTX
-    n = mesh.shape[axis]
-    return (lq == lkv and lq % n == 0 and lq // n >= 128
-            and spec.num_global <= lq // n)
+    return cp_eligible(spec, lq, lkv, mesh.shape[axis])
 
 
 def swat_attention(q, k, v, spec: AttentionSpec, *,

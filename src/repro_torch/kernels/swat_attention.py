@@ -15,7 +15,7 @@ anything the kernel does not take. `route` picks the kernel from the dtype
 and head dim: bf16 at head dim 64, 128 or 256 runs the tensor-core kernel
 (`swat_attention_fwd_tc`), everything else the SIMT kernel
 (`swat_attention_fwd`); each route counts its own launches. For CPU
-tensors, and only for them, it runs `banded_plain`, the torch twin of the
+(and meta) tensors, and only for them, it runs `banded_plain`, the torch twin of the
 JAX package's `ops._xla_banded`.
 """
 from __future__ import annotations
@@ -235,7 +235,7 @@ def swat_attention_fwd(q, k, v, spec: AttentionSpec, *,
         pattern = patterns.build_block_pattern(
             spec, lq, lkv, block_q, block_kv, q_shift=q_offset - kv_offset)
     bound = kv_offset + lkv if seq_kv_bound is None else seq_kv_bound
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return banded_plain(q, k, v, spec, pattern, scale,
                             return_lse=return_lse, q_offset=q_offset,
                             kv_offset=kv_offset, seq_kv_bound=bound)

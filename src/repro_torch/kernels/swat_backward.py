@@ -22,7 +22,7 @@ other row; the chunks of a cut row write fp32 partials that a second
 kernel sums in chunk order.
 
 `swat_attention_bwd` launches the kernels for CUDA tensors and raises on
-anything they do not take. For CPU tensors, and only for them, it runs
+anything they do not take. For CPU (and meta) tensors, and only for them, it runs
 `swat_attention_bwd_plain`.
 """
 from __future__ import annotations
@@ -373,7 +373,8 @@ def dkv_combine(part_k, part_v, combine, dk, dv) -> None:
     into dk / dv (B, Hkv, Lkv, D), in place. `combine`: int32 (n, 3) rows
     (kv block, first partial, partial count). Launches the combine kernel
     for CUDA tensors; for CPU tensors, and only for them, it runs
-    `dkv_combine_plain`."""
+    `dkv_combine_plain` (which reads the combine table's values: no meta
+    tensor reaches it, the plain backward has no combine)."""
     if dk.device.type == "cpu":
         return dkv_combine_plain(part_k, part_v, combine, dk, dv)
     if dk.device.type != "cuda":
@@ -418,7 +419,7 @@ def swat_attention_bwd(q, k, v, o, lse, do, spec: AttentionSpec, *,
     lkv = k.shape[2]
     scale = float(d ** -0.5 if scale is None else scale)
     bound = kv_offset + lkv if seq_kv_bound is None else seq_kv_bound
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return swat_attention_bwd_plain(q, k, v, o, lse, do, spec, pattern,
                                         scale, q_offset=q_offset,
                                         kv_offset=kv_offset,

@@ -22,7 +22,7 @@ thread-block cluster: one launch, no workspace.
   head).
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything
-the kernel does not take. For CPU tensors, and only for them, it runs its
+the kernel does not take. For CPU (and meta) tensors, and only for them, it runs its
 plain version (`swat_decode_fused_plain`, `swat_decode_plain_ref`).
 
 `set_force_fail(True)` (the fault harness's `install_kernel_failure`) arms
@@ -203,7 +203,7 @@ def swat_decode_fused(q, k_cache, v_cache, new_k, new_v, pos, num_new,
     check_force_fail()
     cap, g, window = _ring_geometry(spec, k_cache.shape[2], ring_cap)
     scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         out, kn, vn = swat_decode_fused_plain(
             q, k_cache, v_cache, new_k, new_v, pos, num_new, spec,
             ring_cap=cap, scale=scale)
@@ -341,7 +341,7 @@ def swat_decode_plain(q, k_cache, v_cache, pos, spec: AttentionSpec, *,
     check_force_fail()
     cap = _ring_geometry(spec, k_cache.shape[2], ring_cap)[0]
     scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return swat_decode_plain_ref(q, k_cache, v_cache, pos, spec,
                                      ring_cap=cap, scale=scale)
     if q.device.type != "cuda":

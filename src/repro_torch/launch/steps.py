@@ -10,7 +10,8 @@ the JAX package's `launch/steps.py`).
 PyTorch runs eagerly, so these are plain closures (no jit). A train step
 updates params and optimizer moments IN PLACE, where the JAX trainer
 donated them, and returns the same objects. With `act_sharding` (a mesh
-and its activation spec, `distributed.sharding.NamedSharding`) the train
+and its activation spec, `distributed.sharding.NamedSharding`, whose
+`profile` picks the parameter placement) the train
 step runs on that mesh through the plan's hooks
 (`distributed.train_parallel.TrainPlan`); params, optimizer state and
 residual are then lists over the mesh's local coordinates, placed by
@@ -73,7 +74,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
     else:
         from repro_torch.distributed import train_parallel
         plan = train_parallel.TrainPlan(cfg, act_sharding.mesh,
-                                        act_sharding.spec)
+                                        act_sharding.spec,
+                                        profile=act_sharding.profile)
 
     def train_step(params, opt_state, batch, residual=None):
         ps, opts, rs = (([params], [opt_state], [residual]) if one

@@ -39,6 +39,14 @@ SPECS = {   # tests/test_kernels.py:80-85, plus random blocks
 }
 
 
+def _no_kernel(*shape, dtype=torch.float32):
+    """A tensor on a device with neither a kernel nor a plain version (a
+    fake xpu tensor: its shape and device only)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        return torch.empty(*shape, dtype=dtype, device="xpu")
+
+
 def _tspec(spec):
     return TSpec(**dataclasses.asdict(spec))
 
@@ -170,11 +178,20 @@ def test_cpu_backward_launches_no_kernel():
 
 
 def test_backward_refuses_other_devices():
-    """A tensor that is neither on the CPU nor on a card gets no plain
-    fallback: the wrapper raises."""
+    """A tensor on neither the CPU, the meta device nor a card gets no
+    plain fallback: the wrapper raises. Meta tensors (the dry-run's) run
+    the plain version, shapes only, and launch nothing."""
     spec = _tspec(SPECS["w48"])
     pat = TO.get_pattern(spec, 64, 64, 32, 32)
-    m = lambda *s: torch.empty(*s, device="meta")
+    m = _no_kernel
     q, k, v = m(1, 2, 64, 16), m(1, 1, 64, 16), m(1, 1, 64, 16)
     with pytest.raises(ValueError, match="no kernel"):
         TB.swat_attention_bwd(q, k, v, q, m(1, 2, 64), q, spec, pattern=pat)
+    m = lambda *s: torch.empty(*s, device="meta")
+    q, k, v = m(1, 2, 64, 16), m(1, 1, 64, 16), m(1, 1, 64, 16)
+    before = (TB.DQ_LAUNCHES.n, TB.DKV_LAUNCHES.n)
+    dq, dk, dv = TB.swat_attention_bwd(q, k, v, q, m(1, 2, 64), q, spec,
+                                       pattern=pat)
+    assert [t.shape for t in (dq, dk, dv)] == [q.shape, k.shape, v.shape]
+    assert dq.device.type == "meta"
+    assert (TB.DQ_LAUNCHES.n, TB.DKV_LAUNCHES.n) == before

@@ -35,6 +35,14 @@ JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _no_kernel(*shape, dtype=torch.float32):
+    """A tensor on a device with neither a kernel nor a plain version (a
+    fake xpu tensor: its shape and device only)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        return torch.empty(*shape, dtype=dtype, device="xpu")
+
+
 def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.array(a, np.float32)).to(dtype)
 
@@ -199,10 +207,14 @@ def test_plain_wrapper_checks():
         TD._check_plain(q, kc, kc, pos.long(), 16, 0, False)
     with pytest.raises(ValueError, match="ring geometry"):
         TD._check_plain(q, kc, kc, pos, 17, 0, False)
-    meta = lambda *s: torch.empty(*s, device="meta")
+    fake = (_no_kernel(1, 1, 1, 16), _no_kernel(1, 1, 16, 16),
+            _no_kernel(1, 1, 16, 16), _no_kernel(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="no kernel"):
-        TD.swat_decode_plain(meta(1, 1, 1, 16), meta(1, 1, 16, 16),
-                             meta(1, 1, 16, 16),
-                             torch.ones(1, dtype=torch.int32, device="meta"),
-                             spec)
+        TD.swat_decode_plain(*fake, spec)
+    # meta tensors (the dry-run's) run the plain version: shapes only
+    meta = lambda *s, **kw: torch.empty(*s, device="meta", **kw)
+    out = TD.swat_decode_plain(meta(1, 1, 1, 16), meta(1, 1, 16, 16),
+                               meta(1, 1, 16, 16),
+                               meta(1, dtype=torch.int32), spec)
+    assert out.device.type == "meta" and out.shape == (1, 1, 1, 16)
     assert TD.PLAIN_LAUNCHES.n == 0

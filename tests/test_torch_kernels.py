@@ -32,6 +32,14 @@ torch.set_num_threads(1)
 F32 = dict(atol=2e-5, rtol=1e-4)
 
 
+def _no_kernel(*shape, dtype=torch.float32):
+    """A tensor on a device with neither a kernel nor a plain version (a
+    fake xpu tensor: its shape and device only)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        return torch.empty(*shape, dtype=dtype, device="xpu")
+
+
 def _tspec(spec):
     return TSpec(**dataclasses.asdict(spec))
 
@@ -122,20 +130,27 @@ def test_decode_attention_op_updates_caches_in_place():
 
 
 def test_kernel_wrappers_launch_or_raise_off_the_cpu():
-    """A tensor that is not on the CPU never reaches a plain version: on a
-    device with no kernel the wrappers raise."""
+    """A tensor on neither the CPU nor the meta device never reaches a
+    plain version: on a device with no kernel the wrappers raise. Meta
+    tensors (the dry-run's shapes) run the plain versions, and nothing is
+    launched either way."""
     spec = TSpec(kind="swat", window=4, causal=True)
-    meta = lambda *s: torch.empty(*s, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        TD.swat_decode_fused(meta(1, 1, 1, 16), meta(1, 1, 16, 16),
-                             meta(1, 1, 16, 16), meta(1, 1, 1, 16),
-                             meta(1, 1, 1, 16),
-                             torch.zeros(1, dtype=torch.int32, device="meta"),
-                             torch.ones(1, dtype=torch.int32, device="meta"),
-                             spec, ring_cap=6)
-    with pytest.raises(ValueError, match="no kernel"):
-        TA.swat_attention_fwd(meta(1, 1, 8, 16), meta(1, 1, 8, 16),
-                              meta(1, 1, 8, 16), spec)
+    for make in (_no_kernel, lambda *s, **kw: torch.empty(*s, device="meta",
+                                                            **kw)):
+        args = (make(1, 1, 1, 16), make(1, 1, 16, 16), make(1, 1, 16, 16),
+                make(1, 1, 1, 16), make(1, 1, 1, 16),
+                make(1, dtype=torch.int32), make(1, dtype=torch.int32))
+        fwd = (make(1, 1, 8, 16), make(1, 1, 8, 16), make(1, 1, 8, 16))
+        if make is _no_kernel:
+            with pytest.raises(ValueError, match="no kernel"):
+                TD.swat_decode_fused(*args, spec, ring_cap=6)
+            with pytest.raises(ValueError, match="no kernel"):
+                TA.swat_attention_fwd(*fwd, spec)
+        else:
+            out = TD.swat_decode_fused(*args, spec, ring_cap=6)
+            assert out.device.type == "meta" and out.shape == (1, 1, 1, 16)
+            out = TA.swat_attention_fwd(*fwd, spec)
+            assert out.device.type == "meta" and out.shape == (1, 1, 8, 16)
     assert TD.LAUNCHES.n == 0 and TA.LAUNCHES.n == 0
 
 
