@@ -1593,7 +1593,9 @@ def trace_train_step(torch, state):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dt = torch.autograd.DeviceType
-    kernels = [e for e in prof.events() if e.device_type == dt.CUDA]
+    # the step's phase spans appear on the device too: they are not kernels
+    kernels = [e for e in prof.events() if e.device_type == dt.CUDA
+               and not e.name.startswith(("train.", "engine."))]
     out = {"wall_ms": wall_ms, "device_kernels": len(kernels)}
     if not kernels:
         out["device_time"] = "not measured (no device events traced)"

@@ -17,6 +17,13 @@ step runs on that mesh through the plan's hooks
 residual are then lists over the mesh's local coordinates, placed by
 `train_step.plan.place`. One step body serves both: one device is a list
 of one coordinate (`OneDeviceTraining`).
+
+While a torch profiler is active the train step records three phase spans
+(`telemetry.tracer.span`): "train.forward" (the loss), "train.backward"
+(`torch.autograd.grad`) and "train.optimizer" (gradient reduction,
+compression, the global norm and AdamW), each with its device time from
+a pair of CUDA events when the params are on the card: the host runs
+ahead of the card, so its own stamps time only the enqueue.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from repro_torch import tree
 from repro_torch.core import model as Mod
 from repro_torch.core.types import ModelConfig
 from repro_torch.optim import adamw, compress
+from repro_torch.telemetry.tracer import span
 
 
 class OneDeviceTraining:
@@ -81,38 +89,44 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
         ps, opts, rs = (([params], [opt_state], [residual]) if one
                         else (params, opt_state, residual))
         leaves = unique_leaves(ps)
+        card = leaves[0].is_cuda
         # the params carry requires_grad only inside this step: afterwards
         # serving on them (prefill, decode, the engine) records no autograd
         try:
             with torch.enable_grad():
                 for p in leaves:
                     p.requires_grad_(True)
-                total, metrics = plan.train_loss(
-                    ps, cfg, batch, impl=impl, remat=remat,
-                    remat_policy=remat_policy)
-                grads = torch.autograd.grad(total, leaves)
+                with span("train.forward", device=card):
+                    total, metrics = plan.train_loss(
+                        ps, cfg, batch, impl=impl, remat=remat,
+                        remat_policy=remat_policy)
+                with span("train.backward", device=card):
+                    grads = torch.autograd.grad(total, leaves)
         finally:
             for p in leaves:
                 p.requires_grad_(False)
-        by_id = {id(x): g for x, g in zip(leaves, grads)}
-        grads = plan.reduce_grads([tree.tree_map(lambda x: by_id[id(x)], t)
-                                   for t in ps])
-        if grad_compression:
-            grads, rs = compress.compress_decompress(grads, rs,
-                                                     plan.amax_reduce)
-        gnorm = plan.global_norm(grads)
-        # AdamW once on each distinct param with its gradient and moments
-        quads, seen = [], set()
-        for p, g, o in zip(ps, grads, opts):
-            for q in zip(tree.leaves(p), tree.leaves(g), tree.leaves(o.mu),
-                         tree.leaves(o.nu), strict=True):
-                if id(q[0]) not in seen:
-                    seen.add(id(q[0]))
-                    quads.append(q)
-        p_, g_, mu, nu = (list(x) for x in zip(*quads))
-        _, new, om = adamw.apply_updates(
-            p_, g_, adamw.OptState(opts[0].step, mu, nu), opt_cfg,
-            gnorm=gnorm)
+        with span("train.optimizer", device=card):
+            by_id = {id(x): g for x, g in zip(leaves, grads)}
+            grads = plan.reduce_grads(
+                [tree.tree_map(lambda x: by_id[id(x)], t) for t in ps])
+            if grad_compression:
+                grads, rs = compress.compress_decompress(grads, rs,
+                                                         plan.amax_reduce)
+            gnorm = plan.global_norm(grads)
+            # AdamW once on each distinct param with its gradient and
+            # moments
+            quads, seen = [], set()
+            for p, g, o in zip(ps, grads, opts):
+                for q in zip(tree.leaves(p), tree.leaves(g),
+                             tree.leaves(o.mu), tree.leaves(o.nu),
+                             strict=True):
+                    if id(q[0]) not in seen:
+                        seen.add(id(q[0]))
+                        quads.append(q)
+            p_, g_, mu, nu = (list(x) for x in zip(*quads))
+            _, new, om = adamw.apply_updates(
+                p_, g_, adamw.OptState(opts[0].step, mu, nu), opt_cfg,
+                gnorm=gnorm)
         opts = [adamw.OptState(new.step, o.mu, o.nu) for o in opts]
         metrics = {k: v.detach() for k, v in {**metrics, **om}.items()}
         out = (params, opts[0] if one else opts, metrics)

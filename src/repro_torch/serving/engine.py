@@ -62,7 +62,14 @@ place (captured and replayed with the rest of the body; tokens unchanged),
 read only by `device_metrics()`. Every engine keeps a `Tracer` of request
 lifecycles and block spans (TTFT, TPOT, queue delay), fed by host hooks
 between dispatches and by the degradation-event bus, and exports
-`metrics_text()`, `chrome_trace()` and `snapshot()`.
+`metrics_text()`, `chrome_trace()` and `snapshot()`. While a torch
+profiler is active, each admission batch runs inside an "engine.prefill"
+span and each decode or verify block inside an "engine.decode_block"
+span, whose child spans name the phases ("engine.prefill.upload", ...,
+"engine.decode_block.retire"; `telemetry.tracer.span`); none goes inside
+a captured body. Each phase boundary the engine accounts for is read
+once, on the tracer's clock: `stats["prefill_s"]` and `stats["decode_s"]`
+take the times the tracer's hooks recorded (`Tracer.last`).
 
 Resilience (the JAX engine's chaos layer, `serving/faults.py`): a
 `FaultPlan` puts NaN or +Inf into chosen slots' logits inside the decode
@@ -121,7 +128,7 @@ from repro_torch.serving.scheduler import (PrefillPlan, Scheduler,
                                            normalize_prompt)
 from repro_torch.telemetry import events as TEV
 from repro_torch.telemetry import metrics as MX
-from repro_torch.telemetry.tracer import Tracer, prometheus_text
+from repro_torch.telemetry.tracer import Tracer, prometheus_text, span
 
 # the Result status taxonomy (the JAX engine's):
 #   ok        full budget served (or prompt-only request)
@@ -532,7 +539,7 @@ class ServingEngine:
         self._blocks_since_spec = 0
         self._hist_stale = False          # drafter history behind slot_out
         self._completed: List[Result] = []
-        # host-clock time of the work that ends in a host sync: a prefill
+        # tracer-clock time of the work that ends in a host sync: a prefill
         # batch ends with its first sampled tokens, a decode block with its
         # token read-back. decode_steps counts executed steps of either
         # kind; spec_steps the verify steps among them, draft_proposed /
@@ -684,8 +691,8 @@ class ServingEngine:
     # ---------------------------------------------------------- prefill --
     def _prefill_into(self, plan: PrefillPlan, slots: List[int]):
         self.tracer.on_admit([r.rid for r in plan.requests])
-        with torch.profiler.record_function("engine.prefill"):
-            self._prefill_batch(plan, slots)
+        with span("engine.prefill"):
+            self._prefill_batch(plan, slots, self.tracer.last)
 
     @torch.no_grad()
     def prefill_logits(self, tokens: torch.Tensor, lengths: torch.Tensor,
@@ -867,37 +874,57 @@ class ServingEngine:
             self._push_tables()
 
     @torch.no_grad()
-    def _prefill_batch(self, plan: PrefillPlan, slots: List[int]):
-        t0 = time.perf_counter()
+    def _prefill_batch(self, plan: PrefillPlan, slots: List[int],
+                       t0: float):
+        """One admission batch, inside the "engine.prefill" span, in phases:
+        upload, model (the prefill; counts real and padded prompt tokens),
+        insert (the rows into the slots), read (the sampler and the
+        batch's host sync), hooks, retire. t0: the batch's admission time
+        on the tracer's clock."""
         dev = self.device
         n, l_pad = plan.tokens.shape
-        tokens = torch.as_tensor(plan.tokens, device=dev)
-        lengths = torch.as_tensor(plan.lengths, device=dev)
+        with span("engine.prefill.upload"):
+            tokens = torch.as_tensor(plan.tokens, device=dev)
+            lengths = torch.as_tensor(plan.lengths, device=dev)
+            host_temps = np.asarray([r.temperature for r in plan.requests],
+                                    np.float32)
+            temps = torch.as_tensor(host_temps, device=dev)
+            idx = torch.as_tensor(slots, dtype=torch.long, device=dev)
         prefix = 0
         if (self.share_prefix and n >= 2 and self.prefill_chunk
                 and plan.prefix_len >= self.share_min_prefix):
             prefix = int(plan.prefix_len)
-        logits, caches = self.prefill_logits(tokens, lengths, prefix)
-        host_temps = np.asarray([r.temperature for r in plan.requests],
-                                np.float32)
-        temps = torch.as_tensor(host_temps, device=dev)
-        first = sampling.sample(self.generator, logits, temps, self.top_k,
-                                any_sampling=bool((host_temps > 0).any()))
-        idx = torch.as_tensor(slots, dtype=torch.long, device=dev)
-        if self._paged is not None:
-            # shareability is judged against every position prefill wrote:
-            # padded rows carry masked garbage up to l_pad, so each row's
-            # write span is [prefix, l_pad)
-            self._paged.admit(slots, [l_pad] * n, prefix_len=prefix)
-        if self._mp is not None:
-            self._mesh_insert(caches, slots)
-        elif self._paged is not None:
-            self._insert_paged(caches, slots, idx)
-        else:
-            self._insert(caches, idx)
-        first = first.cpu().numpy()            # the batch's host sync
-        self.tracer.on_first_token([r.rid for r in plan.requests])
-        self.stats["prefill_s"] += time.perf_counter() - t0
+        with span("engine.prefill.model",
+                  real_tokens=int(plan.lengths.sum()),
+                  padded_tokens=n * l_pad):
+            logits, caches = self.prefill_logits(tokens, lengths, prefix)
+        with span("engine.prefill.insert"):
+            if self._paged is not None:
+                # shareability is judged against every position prefill
+                # wrote: padded rows carry masked garbage up to l_pad, so
+                # each row's write span is [prefix, l_pad)
+                self._paged.admit(slots, [l_pad] * n, prefix_len=prefix)
+            if self._mp is not None:
+                self._mesh_insert(caches, slots)
+            elif self._paged is not None:
+                self._insert_paged(caches, slots, idx)
+            else:
+                self._insert(caches, idx)
+        with span("engine.prefill.read"):
+            first = sampling.sample(
+                self.generator, logits, temps, self.top_k,
+                any_sampling=bool((host_temps > 0).any()))
+            first = first.cpu().numpy()        # the batch's host sync
+        with span("engine.prefill.hooks"):
+            self.tracer.on_first_token([r.rid for r in plan.requests])
+        self.stats["prefill_s"] += self.tracer.last - t0
+        with span("engine.prefill.retire"):
+            self._retire_prefill(plan, slots, prefix, first)
+
+    def _retire_prefill(self, plan: PrefillPlan, slots: List[int],
+                        prefix: int, first: np.ndarray) -> None:
+        """After an admission batch's host sync: count it, and put each
+        request in its slot with its first token (or finish it there)."""
         self.stats["prefill_batches"] += 1
         self.stats["prefill_tokens_computed"] += (
             prefix + int(np.maximum(plan.lengths - prefix, 0).sum()))
@@ -1208,8 +1235,11 @@ class ServingEngine:
         verify steps instead, each emitting 1..speculative+1 tokens a slot.
         A `KernelDispatchError` out of the block steps the engine down
         (`_kernel_fallback`); nothing else is caught. The block runs inside
-        a profiler range named "engine.decode_block" ("engine.prefill" for
-        admission): free when no profiler is active."""
+        the span "engine.decode_block" ("engine.prefill" for admission),
+        whose children name its phases: stage, launch (a replay, an eager
+        body or a capture), read (the host waits for the block and copies
+        its outputs back), hooks (the tracer), retire. A span records only
+        while a torch profiler is active."""
         if not 1 <= n <= self.scan_steps:
             raise ValueError(f"a block runs 1..scan_steps={self.scan_steps} "
                              f"steps, not {n}")
@@ -1224,7 +1254,7 @@ class ServingEngine:
             self._paged_sync(n)
         mark = self._cache_versions()
         try:
-            with torch.profiler.record_function("engine.decode_block"):
+            with span("engine.decode_block"):
                 if use_spec:
                     return self._verify_steps(n, live, probe)
                 if self.speculative:
@@ -1261,15 +1291,22 @@ class ServingEngine:
 
     @torch.no_grad()
     def _decode_steps(self, n: int, live: List[int]) -> List[Result]:
-        t0, span0 = time.perf_counter(), self.tracer.clock()
-        self._stage()
+        t0 = self.tracer.clock()
+        with span("engine.decode_block.stage"):
+            self._stage()
         greedy = not self._anyt
-        self._compiled.run(("decode", n, self.slots, greedy),
-                           functools.partial(self._decode_body, n, greedy))
-        read = self._read_block(live, n, self._toks[:n, :, 0],
-                                self._emit[:n, :, 0], t0)
-        self.tracer.on_block("seq", n, span0, int(read[1].sum()))
-        return self._retire(live, *read)
+        with span("engine.decode_block.launch"):
+            self._compiled.run(("decode", n, self.slots, greedy),
+                               functools.partial(self._decode_body, n,
+                                                 greedy))
+        with span("engine.decode_block.read"):
+            read = self._read_block(live, n, self._toks[:n, :, 0],
+                                    self._emit[:n, :, 0])
+        with span("engine.decode_block.hooks"):
+            self.tracer.on_block("seq", n, t0, int(read[1].sum()))
+        self.stats["decode_s"] += self.tracer.last - t0
+        with span("engine.decode_block.retire"):
+            return self._retire(live, *read)
 
     def _decode_body(self, n: int, greedy: bool) -> None:
         """n sequential decode steps on the static vectors: tokens and emit
@@ -1393,32 +1430,41 @@ class ServingEngine:
         slot's `active` flips, so a freed slot refills at once and
         `spec_steps` counts as in JAX. That test is one host read of one
         bool per verify step, the only host sync inside the block; each
-        step is one compiled dispatch, keyed (slots, greedy-only)."""
-        t0, span0 = time.perf_counter(), self.tracer.clock()
-        self._stage()
+        step is one compiled dispatch, keyed (slots, greedy-only). Its
+        spans: stage, then a launch and a read (the flag) a step, then the
+        block's read, which also counts the drafts."""
+        t0 = self.tracer.clock()
+        with span("engine.decode_block.stage"):
+            self._stage()
+            self._verify_begin()
         greedy = not self._anyt
-        self._verify_begin()
         body = functools.partial(self._verify_body, greedy)
         steps = 0
         while steps < n:
-            self._compiled.run(("verify", self.slots, greedy), body)
+            with span("engine.decode_block.launch"):
+                self._compiled.run(("verify", self.slots, greedy), body)
             steps += 1
-            if self._any_flip():                     # one host read
-                break
-        read = self._read_block(live, steps, self._toks[:steps],
-                                self._emit[:steps], t0)
-        emit_np = read[1]
-        k = self.speculative
-        counts = emit_np.sum(axis=-1)                          # (n, slots)
-        ran = counts >= 1
-        prop = k * int(ran.sum())
-        accepted = int((counts[ran] - 1).sum())
-        self.stats["spec_steps"] += steps
-        self.stats["draft_proposed"] += prop
-        self.stats["draft_accepted"] += accepted
-        self._spec_ladder_update(prop, accepted, probe)
-        self.tracer.on_block("spec", n, span0, int(emit_np.sum()))
-        return self._retire(live, *read)
+            with span("engine.decode_block.read"):
+                if self._any_flip():                 # one host read
+                    break
+        with span("engine.decode_block.read"):
+            read = self._read_block(live, steps, self._toks[:steps],
+                                    self._emit[:steps])
+            emit_np = read[1]
+            k = self.speculative
+            counts = emit_np.sum(axis=-1)                      # (n, slots)
+            ran = counts >= 1
+            prop = k * int(ran.sum())
+            accepted = int((counts[ran] - 1).sum())
+            self.stats["spec_steps"] += steps
+            self.stats["draft_proposed"] += prop
+            self.stats["draft_accepted"] += accepted
+            self._spec_ladder_update(prop, accepted, probe)
+        with span("engine.decode_block.hooks"):
+            self.tracer.on_block("spec", n, t0, int(emit_np.sum()))
+        self.stats["decode_s"] += self.tracer.last - t0
+        with span("engine.decode_block.retire"):
+            return self._retire(live, *read)
 
     def _verify_begin(self) -> None:
         """The verify block's set-up: rows of the block buffers from 0, and
@@ -1496,7 +1542,7 @@ class ServingEngine:
             d["fin"].copy_(fin - e)
 
     def _read_block(self, live: List[int], steps: int, toks: torch.Tensor,
-                    emit: torch.Tensor, t0: float
+                    emit: torch.Tensor
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """The block's one host sync: read its tokens, emit flags and the
         carried slot vectors back, and count the block in `stats`. Returns
@@ -1509,7 +1555,6 @@ class ServingEngine:
         self.slot_budget = self._gather_slots(d["budget"]).cpu().numpy(
         ).astype(np.int32)
         poisoned_np = self._gather_slots(d["poisoned"]).cpu().numpy()
-        self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += steps
         self.stats["tokens_emitted"] += int(emit_np.sum())
         # advance the ring-write position mirror: a sequential step writes

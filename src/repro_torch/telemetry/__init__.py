@@ -15,6 +15,15 @@ Telemetry must never change what the hot path computes or how it runs:
            the degradation-event bus. Exports Chrome-trace JSON and
            Prometheus text (`ServingEngine.chrome_trace()`,
            `ServingEngine.metrics_text()`).
+  phases   `tracer.py` `span()`: the engine's "engine.prefill" and
+           "engine.decode_block" ranges and their child phases (upload,
+           model, insert, read, hooks, retire; stage, launch, read, hooks,
+           retire) and the train step's "train.forward", "train.backward"
+           and "train.optimizer". They record only while a torch profiler
+           is active: a `record_function` range each, and a record in a
+           bounded ring (`peek_spans()` / `consume_spans()`) with the
+           prefill's token counts and the train phases' device ms (CUDA
+           events). With no profiler a span is one boolean test.
   kernel   `kernelprof.py`: an opt-in dispatch census, the analytic
            banded-decode cost with its H100 bound, and a latency sampler.
 

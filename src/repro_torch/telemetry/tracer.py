@@ -21,15 +21,28 @@ Derived latencies per finished request:
 Exports: `chrome_trace()` (chrome://tracing, Perfetto) and
 `prometheus_text()` (text exposition). The clock is injectable for
 deterministic tests.
+
+Phase spans (`span()`): named host ranges inside the serving engine and
+the train step, recorded only while a torch profiler is active. Each one
+is a `record_function` range on the profiler's timeline and a record in
+a bounded module-level ring (`peek_spans()` / `consume_spans()`) with its
+counts and, where asked, the device time between two CUDA events. With
+no profiler active a span is one boolean test. `Tracer.chrome_trace()`
+(with the default clock) counts time on the profiler's base, Unix-epoch
+us as kineto stamps its events, so its request and block spans lie over
+the profiler's engine phases and kernels.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Deque, Dict, List, Optional
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 @dataclasses.dataclass
@@ -79,6 +92,13 @@ class Tracer:
             maxlen=capacity)
         self._open: Dict[int, Dict[str, Any]] = {}
         self.dropped_requests = 0     # finalize seen without a submit
+        # the time the last admission, first-token or block hook recorded:
+        # the engine's stats take it, so each boundary is read once
+        self.last: Optional[float] = None
+        # chrome-trace us of the epoch: the default clock lies on the
+        # profiler's base (Unix-epoch us); an injected one counts from it
+        self._epoch_us = ((self.epoch * 1e9 + clock_offset_ns()) / 1e3
+                          if clock is time.monotonic else 0.0)
 
     # ------------------------------------------------------------ lifecycle
     def on_submit(self, rid: int) -> None:
@@ -89,7 +109,7 @@ class Tracer:
         """One admission batch entered prefill. A rid admitted AGAIN is a
         retry: the attempt counter bumps and the first-token clock resets
         (per-attempt stats), while submit stays — the client queued once."""
-        t = self.clock()
+        t = self.last = self.clock()
         for rid in rids:
             rec = self._open.get(rid)
             if rec is None:
@@ -100,7 +120,7 @@ class Tracer:
             rec["attempts"] += 1
 
     def on_first_token(self, rids) -> None:
-        t = self.clock()
+        t = self.last = self.clock()
         for rid in rids:
             rec = self._open.get(rid)
             if rec is not None and rec["first_token"] is None:
@@ -108,9 +128,11 @@ class Tracer:
 
     def on_block(self, mode: str, n: int, t0: float, tokens: int) -> None:
         """One decode block span: t0 from `clock()` before dispatch, the
-        span closes at the host sync draining the block's outputs."""
+        span closes here, after the host sync draining the block's
+        outputs."""
+        self.last = self.clock()
         self.blocks.append({"mode": mode, "n": n, "t0": t0,
-                            "dur": self.clock() - t0, "tokens": tokens})
+                            "dur": self.last - t0, "tokens": tokens})
 
     def on_finish(self, rid: int, status: str, tokens: int) -> None:
         t = self.clock()
@@ -153,7 +175,7 @@ class Tracer:
 
     # ------------------------------------------------------------- exports
     def _us(self, t: float) -> float:
-        return (t - self.epoch) * 1e6
+        return (t - self.epoch) * 1e6 + self._epoch_us
 
     def chrome_trace(self, *, metadata: Optional[dict] = None) -> dict:
         """Chrome-trace JSON (chrome://tracing, Perfetto): request phases
@@ -236,3 +258,84 @@ def _fmt(v) -> str:
     if isinstance(v, (int, np.integer)):
         return str(int(v))
     return repr(float(v))
+
+
+# ---------------------------------------------------------------- spans --
+SPAN_CAPACITY = 1 << 16
+_SPANS: Deque[Dict[str, Any]] = collections.deque(maxlen=SPAN_CAPACITY)
+_OFFSET_NS: Optional[int] = None
+
+
+def clock_offset_ns() -> int:
+    """ns from time.monotonic's base to the profiler's (Unix-epoch ns, as
+    kineto stamps its events), measured once."""
+    global _OFFSET_NS
+    if _OFFSET_NS is None:
+        a, wall, b = time.monotonic_ns(), time.time_ns(), time.monotonic_ns()
+        _OFFSET_NS = wall - (a + b) // 2
+    return _OFFSET_NS
+
+
+_OFF = contextlib.nullcontext()          # `span` with no profiler active
+
+
+class _Span:
+    __slots__ = ("name", "device", "counts", "_range", "_events")
+
+    def __init__(self, name: str, device: bool, counts: Dict[str, int]):
+        self.name, self.device, self.counts = name, device, counts
+        self._events = None
+
+    def __enter__(self) -> None:
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        if self.device and not torch.cuda.is_current_stream_capturing():
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            self._events[0].record()
+
+    def __exit__(self, *exc) -> bool:
+        if self._events is not None:
+            self._events[1].record()
+        self._range.__exit__(*exc)
+        _SPANS.append({"name": self.name, "counts": self.counts,
+                       "events": self._events, "device_ms": None})
+        return False
+
+
+def span(name: str, *, device: bool = False, **counts: int):
+    """A phase of the engine or the train step: `with span(name, **counts)`.
+    Records only while a torch profiler is active (as `record_function`
+    does); otherwise it costs one boolean test. Recording, it opens a
+    `record_function(name)` range (the profiler's timeline holds its host
+    start, end and nesting) and, as it closes, appends the name and the
+    counts to the ring; with `device` (the work runs on the card's current
+    stream) and outside a graph capture, also a pair of timing CUDA events
+    around the phase, which resolve to device ms when the ring is read.
+    Never open one inside a captured body."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, device, counts)
+
+
+def _export(rec: Dict[str, Any]) -> Dict[str, Any]:
+    ev = rec["events"]
+    if ev is not None:
+        ev[1].synchronize()
+        rec["device_ms"] = ev[0].elapsed_time(ev[1])
+        rec["events"] = None
+    return {"name": rec["name"], "counts": dict(rec["counts"]),
+            "device_ms": rec["device_ms"]}
+
+
+def peek_spans() -> List[Dict[str, Any]]:
+    """The ring's spans in the order they closed: name, counts, device_ms
+    (None without events)."""
+    return [_export(r) for r in _SPANS]
+
+
+def consume_spans() -> List[Dict[str, Any]]:
+    """`peek_spans()`, then empty the ring."""
+    out = peek_spans()
+    _SPANS.clear()
+    return out
