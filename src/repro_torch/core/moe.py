@@ -3,14 +3,20 @@
 
 Three dispatches, as in the JAX package:
   sort  - each routed slot is ranked within its expert (a stable sort),
-          dropped beyond capacity, written into an (E, C, D) buffer, run
+          dropped beyond capacity, gathered into an (E, C, D) buffer, run
           through batched SwiGLU experts and combined back, weighted by
-          its gate, in fp32. The combine reads each routed slot's expert
-          output back at its own position and sums the k slots of a
-          token, so no atomic add decides the sum's order: a train step on
-          the card is deterministic. The pieces (`group_ranks`, `fill`,
-          `run_slots`, `combine`) also make up a mesh's sort dispatch and
-          the expert parallel body.
+          its gate, in fp32. Rows move between token order and the buffer
+          through two index maps that are inverses of each other
+          (`slot_maps`: each slot's position, each position's slot, both
+          pointing at a zero pad row where there is none): the buffer is
+          a gather of the tokens, each slot's output a gather of the
+          buffer, and the backward of each is a gather through the other
+          map, the k slots of a token summed in fp32. The combine sums the
+          k slots of a token too, so neither pass sorts rows, writes a
+          duplicate index or adds atomically: a train step on the card is
+          deterministic. The pieces (`group_ranks`, `slot_maps`,
+          `dispatch_rows`, `run_slots`, `collect_rows`, `combine`) also
+          make up a mesh's sort dispatch and the expert parallel body.
   dense - tokens stationary: every expert runs on every token and the
           outputs are combined by the sparse gate matrix. No capacity, no
           drops, and a row's output does not depend on its batch-mates,
@@ -135,28 +141,76 @@ def group_ranks(ids: torch.Tensor, cap: int, n: int
     return rank, rank < cap
 
 
-def fill(slots: torch.Tensor, bucket, rank, keep, n: int, cap: int,
-         empty=0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The capacity buffer (n * cap, ...) of `slots` (S, ...): slot i at
-    position bucket[i] * cap + rank[i] where keep[i] (each such position
-    holds one slot), `empty` elsewhere; the slots not kept land on a spare
-    row, which is cut off. Returns (buffer, each slot's position, clamped
-    into the buffer: a slot not kept reads a row that is not its own, which
-    the caller weighs by 0)."""
-    at = torch.where(keep, bucket * cap + rank, n * cap)
-    buf = torch.full((n * cap + 1, *slots.shape[1:]), empty,
-                     dtype=slots.dtype, device=slots.device)
-    return buf.index_put((at,), slots)[:-1], at.clamp(max=n * cap - 1)
+def slot_maps(bucket, rank, keep, n: int, cap: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two index maps between S routed slots and the P = n * cap
+    positions of the capacity buffer, inverses of each other: `pos` (S,)
+    each slot's position bucket * cap + rank, P (the pad) where not kept,
+    and `slot` (P,) the slot at each position, S (the pad) where none is.
+    Integer work only."""
+    s, p = bucket.shape[0], n * cap
+    idx = torch.arange(s, device=bucket.device)
+    pos = torch.where(keep, bucket * cap + rank, p)
+    # a slot not kept writes a spare position of its own past P (cut off),
+    # so no index repeats
+    slot = torch.full((p + s,), s, dtype=torch.long, device=bucket.device)
+    slot[torch.where(keep, pos, p + idx)] = idx
+    return pos, slot[:p]
 
 
-def run_slots(w: Params, slots, expert, rank, keep, cap: int) -> torch.Tensor:
+def _pad(x: torch.Tensor, value=0) -> torch.Tensor:
+    """x (N, ...) with a row N of `value` appended: the pad row that an
+    index map points at."""
+    return torch.cat([x, x.new_full((1, *x.shape[1:]), value)])
+
+
+class _MoveRows(torch.autograd.Function):
+    """out[i] = pad(x)[idx[i]], whose backward is the gather of the output
+    gradient through the inverse map: dx[j] = sum over r < k of
+    pad(dout)[inv[j * k + r]], the k rows summed in fp32 in order. Both
+    directions are gathers: no pass sorts, writes a duplicate index or
+    adds atomically, so the backward is deterministic."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv, k):
+        ctx.save_for_backward(inv)
+        ctx.k = k
+        return _pad(x).index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, dout):
+        inv, = ctx.saved_tensors
+        dx = _pad(dout).index_select(0, inv)
+        if ctx.k > 1:
+            dx = dx.view(-1, ctx.k, dx.shape[1]).sum(
+                1, dtype=torch.float32).to(dout.dtype)
+        return dx, None, None, None
+
+
+def dispatch_rows(x: torch.Tensor, pos, slot, k: int = 1) -> torch.Tensor:
+    """The capacity buffer (P, D) of tokens x (T, D) whose slot s carries
+    token s // k (T * k slots): position p holds token slot[p] // k, zeros
+    where no slot is."""
+    return _MoveRows.apply(x, slot // k, pos, k)
+
+
+def collect_rows(y: torch.Tensor, pos, slot) -> torch.Tensor:
+    """Each slot's row (S, D) of the buffer y (P, D): row pos[s], zeros for
+    a slot not kept."""
+    return _MoveRows.apply(y, pos, slot, 1)
+
+
+def run_slots(w: Params, rows, expert, rank, keep, cap: int,
+              k: int = 1) -> torch.Tensor:
     """The capacity dispatch's expert pass over w's experts (E_local on dim
-    0): the kept slots (S, D) in an (E_local, cap, D) buffer by (expert,
-    rank), the batched SwiGLU experts, and each slot's output read back
-    (S, D)."""
-    el, d = w["w1"].shape[0], slots.shape[1]
-    buf, at = fill(slots, expert, rank, keep, el, cap)
-    return _experts(w, buf.reshape(el, cap, d)).reshape(el * cap, d)[at]
+    0): the kept slots in an (E_local, cap, D) buffer by (expert, rank),
+    slot s carrying row s // k of `rows` (T, D), the batched SwiGLU
+    experts, and each slot's output read back (T * k, D), zeros for a slot
+    not kept."""
+    el, d = w["w1"].shape[0], rows.shape[1]
+    pos, slot = slot_maps(expert, rank, keep, el, cap)
+    buf = dispatch_rows(rows, pos, slot, k).view(el, cap, d)
+    return collect_rows(_experts(w, buf).reshape(el * cap, d), pos, slot)
 
 
 def combine(ys: torch.Tensor, gates: torch.Tensor, keep) -> torch.Tensor:
@@ -175,11 +229,10 @@ def sort_partial(w: Params, xf, gates, ids, rank, keep, cap: int,
     slice (lo = 0, every expert) gives the whole; the shares of every
     slice summed (a psum over a mesh axis that splits the experts) do
     too."""
-    t, k = ids.shape
+    k = ids.shape[1]
     flat = ids.reshape(-1)
     mine = keep & (flat >= lo) & (flat < lo + w["w1"].shape[0])
-    src = torch.arange(t * k, device=xf.device) // k
-    return combine(run_slots(w, xf[src], flat - lo, rank, mine, cap),
+    return combine(run_slots(w, xf, flat - lo, rank, mine, cap, k),
                    gates, mine)
 
 

@@ -116,7 +116,6 @@ def moe_ffn_ep_local(ps: List[Params], xs: Shards, spec: MoESpec, *,
         n_rows *= mesh.shape[a]
     t = t_local * n_rows                      # the body's tokens in JAX
     cap = ep_capacity(t, k, n, capacity_factor)
-    dev = xs[0].device
 
     # ---- 1. local routing; 2. ranks within each destination shard ----
     routed = [M._route(p, x.reshape(t_local, d), k) for p, x in zip(ps, xs)]
@@ -124,14 +123,14 @@ def moe_ffn_ep_local(ps: List[Params], xs: Shards, spec: MoESpec, *,
     dests = [f // e_local for f in flat_ids]
     ranks = slot_ranks(mesh, dests, cap, n, batch_axes, coords)
 
-    sends, send_ids, pos = [], [], []
+    sends, send_ids, maps = [], [], []
     for x, f, dst, (rank, keep) in zip(xs, flat_ids, dests, ranks):
-        src = torch.arange(t_local * k, device=dev) // k
-        buf, at = M.fill(x.reshape(t_local, d)[src], dst, rank, keep, n, cap)
-        sends.append(buf.reshape(n, cap, d))
-        ids_buf, _ = M.fill(f % e_local, dst, rank, keep, n, cap, empty=-1)
-        send_ids.append(ids_buf.reshape(n, cap))
-        pos.append(at)
+        pos, slot = M.slot_maps(dst, rank, keep, n, cap)
+        sends.append(M.dispatch_rows(x.reshape(t_local, d), pos, slot, k)
+                     .view(n, cap, d))
+        send_ids.append(M._pad(f % e_local, -1).index_select(0, slot)
+                        .view(n, cap))
+        maps.append((pos, slot))
 
     # ---- 3. exchange: tokens travel to their experts' shard ----
     recv = mesh.all_to_all(sends, axis, 0, 0)                 # (n, cap, D)
@@ -153,14 +152,14 @@ def moe_ffn_ep_local(ps: List[Params], xs: Shards, spec: MoESpec, *,
                                              ranks2):
         mine = keep2 & (rid >= 0)
         y = M.run_slots(p, r.reshape(rt, d), bk, rank2, mine, cap2)
-        ys.append(torch.where(mine[:, None], y, 0).reshape(n, cap, d))
+        ys.append(y.view(n, cap, d))           # zeros where not mine
 
     # ---- 5. return trip + gated fp32 combine ----
     backs = mesh.all_to_all(ys, axis, 0, 0)
-    outs = [M.combine(back.reshape(rt, d)[at], gates, keep)
+    outs = [M.combine(M.collect_rows(back.reshape(rt, d), *mp), gates, keep)
             .to(x.dtype).reshape(b, l, d)
-            for x, back, at, (_, gates, _), (_, keep) in zip(
-                xs, backs, pos, routed, ranks)]
+            for x, back, mp, (_, gates, _), (_, keep) in zip(
+                xs, backs, maps, routed, ranks)]
     if not return_aux:
         return outs, None
 

@@ -1,10 +1,10 @@
 """The port's MoE FFN (`repro_torch.core.moe`) against the JAX package's
 `core/moe.py` on the CPU: each test of tests/test_moe.py held on the same
 numpy inputs and the same params (converted through `interop`), plus the
-"dense" and "ep" dispatches, top-k ties, padding invariance of "dense", and
-the serving call's freedom from host syncs. fp32 tolerance atol 2e-5 /
-rtol 1e-4 against JAX; the JAX tests' own 1e-4 / 1e-3 against the dense
-oracle."""
+"dense" and "ep" dispatches, top-k ties, padding invariance of "dense", the
+sort dispatch's gather-only, repeatable backward, and the serving call's
+freedom from host syncs. fp32 tolerance atol 2e-5 / rtol 1e-4 against JAX;
+the JAX tests' own 1e-4 / 1e-3 against the dense oracle."""
 import collections
 
 import jax
@@ -111,25 +111,70 @@ def test_aux_loss_uniform_router_is_one(rng):
     np.testing.assert_allclose(ta, ja, **F32)
 
 
-def test_moe_grads_flow(rng):
+@pytest.mark.parametrize("capacity_factor", [4.0, 0.5],
+                         ids=["no-drops", "drops"])
+def test_moe_grads_flow(rng, capacity_factor):
     """Autograd through the sort dispatch and the aux loss reaches the
-    router and every expert leaf, and equals jax.grad."""
+    input, the router and every expert leaf, and equals jax.grad, with no
+    slot dropped and with a large share of the slots dropped."""
     jspec, tspec, jp, tp, x = make(rng)
 
-    def jloss(p):
-        y, aux = JM.moe_ffn(p, jnp.asarray(x), jspec, capacity_factor=4.0)
+    def jloss(p, xj):
+        y, aux = JM.moe_ffn(p, xj, jspec, capacity_factor=capacity_factor)
         return jnp.sum(y ** 2) + 0.01 * aux
 
-    want = jax.grad(jloss)(jp)
+    want, want_x = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    want = dict(want, x=want_x)
     leaves = {n: v.clone().requires_grad_(True) for n, v in tp.items()}
-    y, aux = TM.moe_ffn(leaves, torch.from_numpy(x), tspec,
-                        capacity_factor=4.0)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y, aux = TM.moe_ffn(leaves, xt, tspec, capacity_factor=capacity_factor)
     loss = torch.sum(y ** 2) + 0.01 * aux
-    got = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-    for name in ("router", "w1", "w2", "w3"):
+    got = dict(zip([*leaves, "x"], torch.autograd.grad(
+        loss, [*leaves.values(), xt])))
+    for name in ("x", "router", "w1", "w2", "w3"):
         assert float(got[name].abs().max()) > 0, name
         np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]),
                                    **F32, err_msg=name)
+
+
+def _graph_nodes(fn):
+    """Every node of an autograd graph, from its root `fn`."""
+    seen, todo = set(), [fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        todo.extend(f for f, _ in node.next_functions)
+    return seen
+
+
+def test_sort_backward_gathers_only(rng):
+    """With slots dropped, the sort dispatch's backward moves rows by
+    gathers alone: its graph holds no index backward (a sort and a serial
+    scatter-add over duplicate indices) and no accumulating index_put,
+    and two backward passes give bitwise-equal gradients."""
+    _, tspec, _, tp, x = make(rng, t=64, e=4, k=3)
+    leaves = {n: v.clone().requires_grad_(True) for n, v in tp.items()}
+    xt = torch.from_numpy(x).requires_grad_(True)
+    t, k = 64, 3
+    cap = TM.sort_capacity(t, k, 4, 0.5)
+    _, _, ids = TM._route(tp, xt.detach().reshape(t, -1), k)
+    _, keep = TM.group_ranks(ids.reshape(-1), cap, 4)
+    assert 0 < int((~keep).sum()) < t * k            # some slots drop
+    y, aux = TM.moe_ffn(leaves, xt, tspec, capacity_factor=0.5,
+                        dispatch="sort")
+    loss = torch.sum(y ** 2) + 0.01 * aux
+    nodes = _graph_nodes(loss.grad_fn)
+    names = {type(n).__name__ for n in nodes}
+    assert "IndexBackward0" not in names, sorted(names)
+    assert not any(n._saved_accumulate for n in nodes
+                   if type(n).__name__ == "IndexPutBackward0")
+    inputs = [*leaves.values(), xt]
+    first = torch.autograd.grad(loss, inputs, retain_graph=True)
+    second = torch.autograd.grad(loss, inputs)
+    for name, a, b in zip([*leaves, "x"], first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("dispatch", ["sort", "dense", "ep"])
